@@ -1,0 +1,166 @@
+"""Chrome ``trace_event`` recording (host side only) — a copy of
+``repro.common.trace``, which the port keeps because every ``repro``
+package init imports JAX.
+
+:class:`TraceRecorder` accumulates events in the Trace Event Format —
+the JSON schema Chrome's ``about:tracing`` and Perfetto
+(https://ui.perfetto.dev) load directly — so a serving run can be
+inspected as a timeline: one track per request, one track for the
+engine's admission/decode waves, counter tracks for pool occupancy.
+
+Every timestamp is host wall time (``perf_counter`` microseconds,
+relative to recorder construction).  Nothing here ever touches device
+state or device kernels: recording is append-to-a-python-list, and the
+serving engine only calls in around (never inside) its device calls —
+see :mod:`repro_torch.serve.telemetry` for the contract.
+
+Event phases used (one dict per event, Trace Event Format fields):
+
+  * ``B``/``E`` — begin/end of a nested duration span on a (pid, tid)
+    track; ``E`` carries the span's end-time ``args`` (e.g. tokens
+    emitted by a decode wave).
+  * ``i`` — an instant marker (scope ``t`` = thread).
+  * ``C`` — a counter sample; Perfetto renders each ``args`` key as a
+    stacked series.
+  * ``M`` — metadata (thread names).
+
+:func:`validate_chrome_trace` is the schema check the test-suite and CI
+smoke run against a saved trace: required fields per phase, and every
+``B`` matched by a properly nested ``E`` on its track.
+"""
+from __future__ import annotations
+
+import json
+import time
+from typing import Any, Dict, List
+
+__all__ = ["TraceRecorder", "validate_chrome_trace"]
+
+
+class TraceRecorder:
+    """Append-only Chrome trace_event buffer.
+
+    ``clock`` is injectable for tests; it must be monotonic.  All
+    methods are O(1) appends — the recorder is safe to leave attached
+    to a serving engine for the length of a run (events are plain
+    dicts; a 10k-step run records a few MB).
+    """
+
+    def __init__(self, *, pid: int = 0, clock=time.perf_counter):
+        self.pid = int(pid)
+        self._clock = clock
+        self._t0 = clock()
+        self.events: List[Dict[str, Any]] = []
+        self._named_tids: set = set()
+
+    def __len__(self):
+        return len(self.events)
+
+    def now_us(self) -> float:
+        """Microseconds since recorder construction (the ``ts`` base)."""
+        return (self._clock() - self._t0) * 1e6
+
+    def thread_name(self, tid: int, name: str):
+        """Label a track (idempotent): Perfetto shows this instead of a
+        bare tid."""
+        if tid in self._named_tids:
+            return
+        self._named_tids.add(tid)
+        self.events.append({"ph": "M", "name": "thread_name",
+                            "pid": self.pid, "tid": int(tid),
+                            "args": {"name": str(name)}})
+
+    def begin(self, name: str, tid: int = 0, **args):
+        self.events.append({"ph": "B", "name": str(name), "cat": "serve",
+                            "ts": self.now_us(), "pid": self.pid,
+                            "tid": int(tid), "args": args})
+
+    def end(self, tid: int = 0, name: str = "", **args):
+        ev = {"ph": "E", "ts": self.now_us(), "pid": self.pid,
+              "tid": int(tid), "args": args}
+        if name:
+            ev["name"] = str(name)
+        self.events.append(ev)
+
+    def instant(self, name: str, tid: int = 0, **args):
+        self.events.append({"ph": "i", "name": str(name), "cat": "serve",
+                            "s": "t", "ts": self.now_us(),
+                            "pid": self.pid, "tid": int(tid),
+                            "args": args})
+
+    def counter(self, name: str, tid: int = 0, **values):
+        self.events.append({"ph": "C", "name": str(name),
+                            "ts": self.now_us(), "pid": self.pid,
+                            "tid": int(tid), "args": values})
+
+    def to_json(self) -> Dict[str, Any]:
+        """The JSON-object form of the Trace Event Format (the one with
+        a ``traceEvents`` key — what Perfetto's file picker expects)."""
+        return {"traceEvents": list(self.events),
+                "displayTimeUnit": "ms"}
+
+    def save(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f)
+        return path
+
+
+def validate_chrome_trace(doc) -> Dict[str, int]:
+    """Schema + well-formedness check for a Chrome trace_event document.
+
+    Raises ``ValueError`` on the first violation; returns summary counts
+    (``events``, ``spans``, ``tracks``) on success.  Checks:
+
+      * ``doc`` is the JSON-object form: a dict whose ``traceEvents``
+        is a list of event dicts;
+      * every event has a string ``ph``; timed phases carry a numeric
+        ``ts`` and integer ``pid``/``tid``; all but ``E`` carry a name;
+      * per (pid, tid) track, ``ts`` never decreases and ``B``/``E``
+        events form a properly nested, fully closed stack (a named
+        ``E`` must close the matching ``B``).
+    """
+    if not isinstance(doc, dict) or not isinstance(
+            doc.get("traceEvents"), list):
+        raise ValueError("trace must be an object with a 'traceEvents' "
+                         "list (the Chrome JSON-object format)")
+    stacks: Dict[tuple, List[str]] = {}
+    last_ts: Dict[tuple, float] = {}
+    n_spans = 0
+    for i, ev in enumerate(doc["traceEvents"]):
+        if not isinstance(ev, dict) or not isinstance(ev.get("ph"), str):
+            raise ValueError(f"event {i}: not a dict with a 'ph' phase")
+        ph = ev["ph"]
+        if ph == "M":
+            continue
+        if ph not in ("B", "E", "i", "C", "X"):
+            raise ValueError(f"event {i}: unknown phase {ph!r}")
+        if not isinstance(ev.get("ts"), (int, float)):
+            raise ValueError(f"event {i} ({ph}): missing numeric 'ts'")
+        if not isinstance(ev.get("pid"), int) or not isinstance(
+                ev.get("tid"), int):
+            raise ValueError(f"event {i} ({ph}): missing int pid/tid")
+        if ph != "E" and not isinstance(ev.get("name"), str):
+            raise ValueError(f"event {i} ({ph}): missing 'name'")
+        key = (ev["pid"], ev["tid"])
+        if ev["ts"] < last_ts.get(key, float("-inf")):
+            raise ValueError(
+                f"event {i} ({ph}): ts went backwards on track {key}")
+        last_ts[key] = ev["ts"]
+        if ph == "B":
+            stacks.setdefault(key, []).append(ev["name"])
+        elif ph == "E":
+            stack = stacks.get(key)
+            if not stack:
+                raise ValueError(
+                    f"event {i}: 'E' with no open span on track {key}")
+            top = stack.pop()
+            if ev.get("name") and ev["name"] != top:
+                raise ValueError(
+                    f"event {i}: 'E' named {ev['name']!r} closes "
+                    f"{top!r} on track {key} (improper nesting)")
+            n_spans += 1
+    open_spans = {k: v for k, v in stacks.items() if v}
+    if open_spans:
+        raise ValueError(f"unclosed spans at end of trace: {open_spans}")
+    return {"events": len(doc["traceEvents"]), "spans": n_spans,
+            "tracks": len(last_ts)}

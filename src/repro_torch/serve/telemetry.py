@@ -1,0 +1,348 @@
+"""Host-side observability for the serving engine — a copy of
+``repro.serve.telemetry`` (pure Python; the port keeps its own copy so
+it never imports the JAX package).
+
+Three pieces, all of them OFF the device path:
+
+  * :class:`MetricsRegistry` — counters, gauges and bounded-reservoir
+    histograms (TTFT, ITL, queue wait, prefill/step wall time, ...).
+    Bounded means a histogram never grows past ``reservoir`` samples —
+    a week-long serving process cannot leak memory through telemetry.
+  * :class:`Telemetry` — the handle the engine (and the SlotTable, page
+    pool, prefix cache, scheduler policies and drafter) call into.  It
+    optionally carries a :class:`~repro_torch.common.trace.TraceRecorder`
+    (Chrome trace_event JSON — request-lifecycle spans on one track per
+    request, admission/decode waves on the engine track) and a
+    :class:`StatsSink` (the periodic stats line).
+  * :data:`NULL_TELEMETRY` — the no-op default.  Every instrumentation
+    site in the engine is either a method on this object (pure ``pass``)
+    or guarded by ``telemetry.enabled``; a disabled engine pays an
+    attribute load and a branch per site, nothing else.
+
+The contract that makes instrumentation safe to leave on in
+production: telemetry NEVER touches the device programs.  Every hook
+runs host-side around (never inside) device calls, so enabling a trace
+cannot change a single emitted token (the bitwise determinism
+contracts hold with tracing on).
+
+:class:`RateWindow` / :class:`PercentileWindow` are the bounded
+rate-stream primitives behind ``EngineStats`` (tokens/s over a sliding
+event window; queue-wait percentiles over a sliding sample window) —
+extracted here so the autoscaling loop the ROADMAP names can consume
+them directly.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from collections import deque
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from repro_torch.common.trace import TraceRecorder
+
+__all__ = ["Telemetry", "NullTelemetry", "NULL_TELEMETRY",
+           "MetricsRegistry", "RateWindow", "PercentileWindow",
+           "StatsSink"]
+
+
+class RateWindow:
+    """Windowed event rate: ``push(t, n)`` records ``n`` units at
+    monotonic time ``t``; ``per_s()`` is units/second over the window.
+
+    The window is the last ``maxlen`` events.  The FIRST retained
+    event only anchors the window's start time — its units predate the
+    window, so they are excluded from the numerator.  Degenerate
+    windows (fewer than two events, zero or negative span — a clock
+    that failed monotonicity) report 0.0 rather than inf/garbage.
+    """
+
+    def __init__(self, maxlen: int = 256):
+        self.events: deque = deque(maxlen=int(maxlen))
+
+    def __len__(self):
+        return len(self.events)
+
+    def push(self, t: float, n: int):
+        self.events.append((float(t), int(n)))
+
+    def per_s(self) -> float:
+        if len(self.events) < 2:
+            return 0.0
+        span = self.events[-1][0] - self.events[0][0]
+        if span <= 0:
+            return 0.0
+        it = iter(self.events)
+        next(it)
+        return sum(n for _t, n in it) / span
+
+
+class PercentileWindow:
+    """Bounded sample reservoir with percentile readout (sliding window
+    of the last ``maxlen`` samples; empty windows report 0.0)."""
+
+    def __init__(self, maxlen: int = 512):
+        self.values: deque = deque(maxlen=int(maxlen))
+        self.n_total = 0                  # samples ever observed
+
+    def __len__(self):
+        return len(self.values)
+
+    def push(self, v: float):
+        self.values.append(float(v))
+        self.n_total += 1
+
+    def percentile(self, q: float) -> float:
+        if not self.values:
+            return 0.0
+        return float(np.percentile(np.asarray(self.values, np.float64),
+                                   q))
+
+    def percentiles(self, qs) -> tuple:
+        if not self.values:
+            return tuple(0.0 for _ in qs)
+        a = np.asarray(self.values, np.float64)
+        return tuple(float(np.percentile(a, q)) for q in qs)
+
+    def summary(self) -> Dict[str, float]:
+        p50, p99, mx = ((*self.percentiles((50, 99)),
+                         float(max(self.values)))
+                        if self.values else (0.0, 0.0, 0.0))
+        return {"count": self.n_total, "p50": p50, "p99": p99, "max": mx}
+
+
+class MetricsRegistry:
+    """Counters / gauges / bounded histograms, keyed by name.
+
+    Names are created on first use — instrumentation sites never need
+    registration boilerplate, and ``as_dict()`` returns exactly what
+    was touched."""
+
+    def __init__(self, reservoir: int = 512):
+        self.reservoir = int(reservoir)
+        self.counters: Dict[str, int] = {}
+        self.gauges: Dict[str, float] = {}
+        self.histograms: Dict[str, PercentileWindow] = {}
+
+    def inc(self, name: str, n: int = 1):
+        self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def gauge(self, name: str, value: float):
+        self.gauges[name] = float(value)
+
+    def observe(self, name: str, value: float):
+        h = self.histograms.get(name)
+        if h is None:
+            h = self.histograms[name] = PercentileWindow(self.reservoir)
+        h.push(value)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {"counters": dict(self.counters),
+                "gauges": dict(self.gauges),
+                "histograms": {k: h.summary()
+                               for k, h in self.histograms.items()}}
+
+
+class StatsSink:
+    """Periodic ``EngineStats.line()`` sink with an injectable stream.
+
+    ``stream=None`` resolves to the CURRENT ``sys.stdout`` at emit time
+    (so pytest's capsys and shell redirects both see it); ``every=N``
+    prints one line per N emit calls — the periodic stats line for
+    long runs.  This replaces the engine's old hardwired
+    ``print(self.stats().line())``."""
+
+    def __init__(self, stream=None, every: int = 1):
+        self.stream = stream
+        self.every = max(1, int(every or 1))
+        self.n_calls = 0
+        self.n_lines = 0
+
+    def emit(self, stats, force: bool = False):
+        self.n_calls += 1
+        if not force and self.n_calls % self.every:
+            return
+        print(stats.line(),
+              file=self.stream if self.stream is not None else sys.stdout)
+        self.n_lines += 1
+
+
+class _NullSpan:
+    """Reusable no-op span — the disabled path allocates nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **kw):
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """Context-managed B/E pair; ``set()`` attaches end-time args
+    (counts known only when the wave finishes)."""
+    __slots__ = ("_tr", "name", "tid", "args", "end_args")
+
+    def __init__(self, tr, name, tid, args):
+        self._tr = tr
+        self.name = name
+        self.tid = tid
+        self.args = args
+        self.end_args: Dict[str, Any] = {}
+
+    def set(self, **kw):
+        self.end_args.update(kw)
+
+    def __enter__(self):
+        self._tr.begin(self.name, self.tid, **self.args)
+        return self
+
+    def __exit__(self, *exc):
+        self._tr.end(self.tid, name=self.name, **self.end_args)
+        return False
+
+
+class NullTelemetry:
+    """The disabled handle: every method is a no-op, ``enabled`` is
+    False so hot paths can skip building event args entirely."""
+
+    enabled = False
+    trace: Optional[TraceRecorder] = None
+    registry: Optional[MetricsRegistry] = None
+    stats_sink: Optional[StatsSink] = None
+
+    ENGINE_TID = 0
+
+    def inc(self, name, n=1):
+        pass
+
+    def gauge(self, name, value):
+        pass
+
+    def observe(self, name, value):
+        pass
+
+    def span(self, name, **args):
+        return _NULL_SPAN
+
+    def instant(self, name, **args):
+        pass
+
+    def counter(self, name, **values):
+        pass
+
+    def request_begin(self, req, name, **args):
+        pass
+
+    def request_end(self, req, **args):
+        pass
+
+    def request_instant(self, req, name, **args):
+        pass
+
+
+#: Module-level singleton every component defaults to.
+NULL_TELEMETRY = NullTelemetry()
+
+
+class Telemetry(NullTelemetry):
+    """Live telemetry: a metrics registry, optionally a Chrome trace.
+
+    ``trace=True`` builds a fresh :class:`TraceRecorder`; an existing
+    recorder may be passed instead (tests inject a fake clock).
+    ``stats_stream``/``stats_every`` configure the periodic stats-line
+    sink (``run()`` drives it once per engine step).
+
+    Track layout: tid 0 is the engine (admission rounds, prefill waves,
+    decode/spec waves, preempt/resume, pool counters); each request
+    gets its own track at ``tid = uid + 1`` holding its lifecycle span
+    chain — ``queued`` → ``running`` → (``preempted`` → ``running``)*
+    — with ``submit``/``finish`` instants.  Exactly one lifecycle span
+    is open per request at any time, so a drained run's trace always
+    passes :func:`~repro_torch.common.trace.validate_chrome_trace`.
+    """
+
+    enabled = True
+
+    def __init__(self, *, trace=False, reservoir: int = 512,
+                 stats_stream=None, stats_every: int = 0):
+        self.registry = MetricsRegistry(reservoir)
+        if trace is True:
+            trace = TraceRecorder()
+        # explicit identity checks: an EMPTY TraceRecorder is falsy
+        # (len 0), so `trace or None` would silently drop it
+        self.trace = None if trace is False or trace is None else trace
+        self.stats_sink = None
+        if stats_stream is not None or stats_every:
+            self.stats_sink = StatsSink(stats_stream,
+                                        every=stats_every or 1)
+        self._open: Dict[int, str] = {}   # uid -> open lifecycle span
+        if self.trace is not None:
+            self.trace.thread_name(self.ENGINE_TID, "engine")
+
+    # -- metrics ---------------------------------------------------------
+    def inc(self, name, n=1):
+        self.registry.inc(name, n)
+
+    def gauge(self, name, value):
+        self.registry.gauge(name, value)
+
+    def observe(self, name, value):
+        self.registry.observe(name, value)
+
+    # -- engine track ----------------------------------------------------
+    def span(self, name, **args):
+        if self.trace is None:
+            return _NULL_SPAN
+        return _Span(self.trace, name, self.ENGINE_TID, args)
+
+    def instant(self, name, **args):
+        if self.trace is not None:
+            self.trace.instant(name, self.ENGINE_TID, **args)
+
+    def counter(self, name, **values):
+        if self.trace is not None:
+            self.trace.counter(name, self.ENGINE_TID, **values)
+
+    # -- request tracks --------------------------------------------------
+    def _req_tid(self, req) -> int:
+        return int(req.uid) + 1
+
+    def request_begin(self, req, name, **args):
+        """Open ``req``'s next lifecycle span (closing any still-open
+        one first — the chain is strictly sequential per request)."""
+        if self.trace is None:
+            return
+        tid = self._req_tid(req)
+        self.trace.thread_name(tid, f"req {req.uid}")
+        prev = self._open.pop(req.uid, None)
+        if prev is not None:
+            self.trace.end(tid, name=prev)
+        self.trace.begin(name, tid, **args)
+        self._open[req.uid] = name
+
+    def request_end(self, req, **args):
+        if self.trace is None:
+            return
+        name = self._open.pop(req.uid, None)
+        if name is not None:
+            self.trace.end(self._req_tid(req), name=name, **args)
+
+    def request_instant(self, req, name, **args):
+        if self.trace is not None:
+            self.trace.instant(name, self._req_tid(req), **args)
+
+    # -- export ----------------------------------------------------------
+    def save_trace(self, path: str) -> str:
+        """Write the Chrome JSON trace (load in Perfetto / chrome://tracing)."""
+        if self.trace is None:
+            raise ValueError("this Telemetry was built without a trace "
+                             "(pass trace=True)")
+        return self.trace.save(path)
