@@ -76,3 +76,21 @@ def load_jax_params(module, tree):
         return module
     _copy_tree(module, tree)
     return module
+
+
+def reference_ndim(module) -> dict:
+    """{parameter name: ndim of the reference's leaf for it}.  A
+    ``DecoderLM`` layer that the reference stacks (a pattern-unit layer
+    when the unit repeats, so ``scan_layers`` is on by default) has one
+    more axis there than in the port; every other leaf has the port's
+    ndim.  The optimizer's decay mask reads this (``optim.param_groups``)."""
+    out = {name: p.ndim for name, p in module.named_parameters()}
+    if isinstance(module, DecoderLM):
+        cfg = module.cfg
+        nh, nu = len(cfg.head_layers), len(cfg.pattern)
+        stacked = range(nh, nh + cfg.n_repeats * nu) \
+            if cfg.n_repeats > 1 else range(0)
+        for j in stacked:
+            for name, p in module.layers[j].named_parameters():
+                out[f"layers.{j}.{name}"] = p.ndim + 1
+    return out

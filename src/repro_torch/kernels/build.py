@@ -36,8 +36,16 @@ SIGNATURES = {
         "linear_scan_f32": [_P] * 4 + [_I] * 3 + [_P],
         "linear_scan_bf16": [_P] * 4 + [_I] * 3 + [_P],
     },
+    "linear_scan_bwd": {
+        "linear_scan_bwd_f32": [_P] * 7 + [_I] * 3 + [_P],
+        "linear_scan_bwd_bf16": [_P] * 7 + [_I] * 3 + [_P],
+    },
     "minimalist_step": {
         "minimalist_step_f32": [_P, _P, _P, _F] + [_P] * 6 + [_I] * 3 + [_P],
+    },
+    "minimalist_block": {
+        "minimalist_block_f32": [_P, _P, _P, _F] + [_P] * 5 + [_I] * 4
+        + [_P],
     },
 }
 

@@ -9,6 +9,10 @@ the minGRU state update (a = 1 - z, b = z ⊙ h̃, paper Eq. 1).
     carries in the inputs' dtype, as the reference's ``lax.scan`` does)
   * ``linear_scan_associative`` — the log-depth parallel form with fp32
     accumulation, the plain version of the CUDA kernel
+  * ``linear_scan_bwd`` — the adjoint, written as the reference's custom
+    VJP writes it (``repro.kernels.linear_scan.ops._bwd``): the same scan
+    on time-flipped, shifted inputs; the plain version of the CUDA kernel
+    ``csrc/linear_scan_bwd.cu``
 """
 from __future__ import annotations
 
@@ -48,6 +52,24 @@ def linear_scan_associative(a, b, h0):
                           dim=1)
         off *= 2
     return acc_b.to(dt)
+
+
+def linear_scan_bwd(a, h, h0, g, scan=linear_scan_associative):
+    """Cotangents of h_t = a_t ⊙ h_{t-1} + b_t.  a, h, g: (B, T, D);
+    h0: (B, D).  The adjoint is a reverse-time scan of the same form,
+
+        λ_t = g_t + a_{t+1} ⊙ λ_{t+1}      (λ_{T-1} = g_{T-1})
+        da_t = λ_t ⊙ h_{t-1},  db_t = λ_t,  dh0 = a_0 ⊙ λ_0,
+
+    run by ``scan`` on flipped inputs with a shifted one step forward in
+    time.  λ is the scan's output in the inputs' dtype, and da, dh0 are
+    products in that dtype.  Returns (da, db, dh0)."""
+    a_shift = torch.cat([torch.zeros_like(a[:, :1]),
+                         torch.flip(a[:, 1:], dims=(1,))], dim=1)
+    lam = torch.flip(scan(a_shift, torch.flip(g, dims=(1,)),
+                          torch.zeros_like(h0)), dims=(1,))
+    h_prev = torch.cat([h0[:, None, :], h[:, :-1, :]], dim=1)
+    return lam * h_prev, lam, a[:, 0, :] * lam[:, 0, :]
 
 
 def mingru_ref(x, wh, bh, wz, bz, h0, *, gate_fn, out_fn):

@@ -10,8 +10,11 @@ The 2 b levels are summed first and scaled by Δ once (paper Eq. 6, the
 array's own order; the reference scales before summing).  With binary x
 the level sums are exact in fp32, so this oracle, the CUDA kernel and
 the hardware-mode ``MinGRUBlock`` agree bit for bit.
-``minimalist_step_ref`` is the plain version of the CUDA kernel
-``csrc/minimalist_step.cu``.
+``minimalist_block_ref`` and ``minimalist_step_ref`` are the plain
+versions of the CUDA kernels ``csrc/minimalist_block.cu`` and
+``csrc/minimalist_step.cu``; every op here runs alone in fp32, so each
+kernel, which spells the same ops without contraction, matches its plain
+version bit for bit.
 """
 from __future__ import annotations
 

@@ -109,8 +109,8 @@ class DecoderLayer(nn.Module):
 
 class DecoderLM(nn.Module):
     """Embedding + the layer stack + final norm + tied (or separate) head
-    (``transformer.DecoderLM``: ``__call__``, ``prefill``, ``decode_step``,
-    ``init_cache``)."""
+    (``transformer.DecoderLM``: ``__call__``, ``loss``, ``prefill``,
+    ``decode_step``, ``init_cache``)."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, device=None,
                  generator=None):
@@ -153,6 +153,22 @@ class DecoderLM(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return self._head(x)
+
+    def loss(self, batch):
+        """batch: {"tokens": (B, S), "labels": (B, S)}; labels −1 are
+        masked.  Mean next-token NLL over the unmasked labels, from fp32
+        logits (``transformer.DecoderLM.loss``).  Returns (scalar loss,
+        {"loss", "tokens"})."""
+        logits = self(batch["tokens"]).float()
+        labels = batch["labels"]
+        logits = logits[:, -labels.shape[1]:, :]
+        mask = labels >= 0
+        lab = labels.clamp(min=0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+        nll = (logz - ll) * mask
+        loss = nll.sum() / mask.sum().clamp(min=1)
+        return loss, {"loss": loss, "tokens": mask.sum()}
 
     def init_cache(self, batch, length=0, dtype=torch.bfloat16):
         """Zero decode cache (n_layers, batch, d_model); ``length`` is

@@ -87,3 +87,88 @@ def test_unknown_backend_and_empty_sequence():
         (2, 0, 4)
     with pytest.raises(ValueError, match="unknown backend"):
         tops.linear_scan(a, a, torch.zeros(2, 4), backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# The backward: LinearScan's VJP against jax.vjp of the reference's
+# custom-VJP scan (its own _bwd), same inputs and cotangent.  Tolerances
+# as above: 1e-5 in fp32, 2e-2 in bf16 (one bf16 ulp of λ at |λ| ~ 2).
+
+
+def _grads_port(a, b, h0, g, dt, backend="kernel"):
+    ta, tb, th0 = (_to(x, dt).requires_grad_() for x in (a, b, h0))
+    h = tops.linear_scan(ta, tb, th0, backend=backend)
+    assert h.grad_fn is not None
+    h.backward(_to(g, dt))
+    return h, ta.grad, tb.grad, th0.grad
+
+
+@pytest.mark.parametrize("dt", [np.float32, "bf16"])
+@pytest.mark.parametrize("jbackend", ["xla", "pallas"])
+def test_scan_grads_match_jax_vjp(jbackend, dt):
+    import jax
+    a, b, h0 = _inputs(2, 21, 130, seed=3)
+    g = np.random.default_rng(4).standard_normal(a.shape).astype(np.float32)
+    h_j, vjp = jax.vjp(
+        lambda a_, b_, h_: jops.linear_scan(a_, b_, h_, backend=jbackend,
+                                            tblk=8, dblk=128),
+        _jto(a, dt), _jto(b, dt), _jto(h0, dt))
+    want = vjp(_jto(g, dt))
+    h, *got = _grads_port(a, b, h0, g, dt)
+    np.testing.assert_allclose(h.detach().float().numpy(),
+                               np.asarray(h_j, np.float32),
+                               atol=TOL[dt], rtol=TOL[dt])
+    for name, x, y in zip(("da", "db", "dh0"), got, want):
+        assert x.dtype == h.dtype, name
+        np.testing.assert_allclose(x.float().numpy(),
+                                   np.asarray(y, np.float32), atol=TOL[dt],
+                                   rtol=TOL[dt], err_msg=name)
+
+
+def _fp64_args(seed=5):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.uniform(0.2, 0.9, (2, 6, 3)))
+    b = torch.from_numpy(rng.standard_normal((2, 6, 3)))
+    h0 = torch.from_numpy(rng.standard_normal((2, 3)))
+    return tuple(x.requires_grad_() for x in (a, b, h0))
+
+
+def test_scan_gradcheck_fp64():
+    """The plain backward is the exact adjoint: fp64 finite differences of
+    the sequential scan, which carries in the inputs' dtype."""
+    assert torch.autograd.gradcheck(
+        lambda *xs: tops.linear_scan(*xs, backend="seq"), _fp64_args())
+
+
+@pytest.mark.parametrize("backend", ["kernel", "assoc"])
+def test_scan_grads_fp64_match_sequential(backend):
+    """The associative forms carry in fp32 (as the reference's do), so
+    their gradients hold to the exact adjoint at fp32 precision."""
+    grads = []
+    for be in (backend, "seq"):
+        args = _fp64_args()
+        h = tops.linear_scan(*args, backend=be)
+        (h * h).sum().backward()
+        grads.append([x.grad for x in args])
+    for x, y in zip(*grads):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("dt", [np.float32, "bf16"])
+def test_bwd_kernel_wrapper_on_cpu_is_the_plain_backward(dt):
+    """On CPU tensors the adjoint wrapper takes ref.linear_scan_bwd; the
+    sequential and associative adjoints agree."""
+    a, b, h0 = _inputs(3, 17, 9, seed=6)
+    g = np.random.default_rng(7).standard_normal(a.shape).astype(np.float32)
+    ta, th0, tg = _to(a, dt), _to(h0, dt), _to(g, dt)
+    h = tref.linear_scan_associative(ta, _to(b, dt), th0)
+    n0 = tops.linear_scan_bwd_kernel.launches
+    got = tops.linear_scan_bwd_kernel(ta, h, th0, tg)
+    assert tops.linear_scan_bwd_kernel.launches == n0   # no kernel on CPU
+    want = tref.linear_scan_bwd(ta, h, th0, tg,
+                                scan=tref.linear_scan_sequential)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.float().numpy(), y.float().numpy(),
+                                   atol=TOL[dt], rtol=TOL[dt])
+

@@ -110,3 +110,48 @@ def test_cost_model_and_backends():
         assert y.shape == h.shape == (2, 3)
     with pytest.raises(ValueError, match="unknown backend"):
         tops.minimalist_step(*args, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# The sequence kernel's wrapper (plain version on CPU tensors) against the
+# reference's minimalist_block_pallas in interpret mode, at the shapes of
+# tests/test_kernels_minimalist_block.py: h within 2e-5, Θ flips only at
+# |h| < 1e-4.
+
+
+@pytest.mark.parametrize("B,T,K,N", [
+    (1, 8, 4, 8), (2, 33, 16, 24), (1, 128, 64, 64), (3, 60, 8, 130),
+])
+def test_block_kernel_wrapper_matches_pallas_interpret(B, T, K, N):
+    _jb, jp, tb = _blocks(K, N, seed=B + T)
+    x = (np.random.default_rng(B + T).random((B, T, K)) > 0.5).astype(
+        np.float32)
+    jy, jh = jops.minimalist_block(jnp.asarray(x), *jops.from_block_params(jp),
+                                   backend="pallas")
+    n0 = tops.minimalist_block_kernel.launches
+    ty, th = tops.minimalist_block(torch.from_numpy(x),
+                                   *tops.from_block_params(tb))
+    assert tops.minimalist_block_kernel.launches == n0    # no kernel on CPU
+    assert ty.shape == th.shape == (B, T, N)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=2e-5,
+                               rtol=1e-5)
+    flips = ty.numpy() != np.asarray(jy)
+    assert not (flips & (np.abs(np.asarray(jh)) > 1e-4)).any()
+
+
+def test_block_kernel_plain_version_matches_port_network():
+    """The fused sequence path against the port's hardware MinGRUBlock on
+    the same exported params (the port's own 2e-5 contract; the network's
+    scan forms the update as one FMA-able expression)."""
+    _jb, _jp, tb = _blocks(16, 24, seed=3)
+    x = torch.from_numpy((np.random.default_rng(3).random((2, 40, 16))
+                          > 0.5).astype(np.float32))
+    out_sw, h_sw = tb(x)
+    y, h = tops.minimalist_block(x, *tops.from_block_params(tb),
+                                 backend="plain")
+    np.testing.assert_allclose(h.numpy(), h_sw.detach().numpy(), atol=2e-5)
+    flips = (y != out_sw).numpy() & (h_sw.abs() > 1e-4).numpy()
+    assert not flips.any()
+    with pytest.raises(ValueError, match="unknown backend"):
+        tops.minimalist_block(x, *tops.from_block_params(tb),
+                              backend="pallas")
