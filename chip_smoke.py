@@ -29,6 +29,16 @@ Phases, each fatal on failure:
                without 1 % mismatch, and the trained network's layers
                replayed through the fused minimalist_block kernel; then
                QAT steps/s at the paper's dims.
+  7. paged   — serve full-width smollm-360m (random weights from a seed)
+               from a paged KV cache through build_engine: 8 greedy
+               requests, 4 slots, page 16, every decode step through the
+               paged_gqa kernel (bf16 pages); the same traffic through the
+               gather read (tokens compared under the margin rule), int8
+               pages through paged_gqa_q8, the kernel against the gather
+               read again on a copy with every layer's output projections
+               x32 (whose greedy streams do not just repeat one token), and
+               a shared 128-token prefix with and without the prefix cache
+               (streams equal).
 
 Kernel launch counts are zeroed just before each main-path phase and read
 just after it.  The second-to-last stdout line is the card's name and
@@ -305,6 +315,109 @@ def phase_kernels(torch, dev):
             rows["minimalist_block"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=library_ms)
+    rows.update(_kernel_rows_paged(torch, dev, g))
+    return rows
+
+
+def _paged_case(torch, dev, g, *, B, H, KV, hd, ps, length, pos, window,
+                num_pages, q8):
+    """Inputs of one paged decode read: random disjoint chains in a pool
+    twice the chains' size (the rest holds other tenants' pages)."""
+    n = -(-length // ps)
+    perm = torch.randperm(num_pages, device=dev, generator=g)
+    bt = perm[:B * n].reshape(B, n).to(torch.int32).contiguous()
+    q = torch.randn(B, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    pk = torch.randn(num_pages, ps, KV, hd, device=dev, generator=g)
+    pv = torch.randn(num_pages, ps, KV, hd, device=dev, generator=g)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    if not q8:
+        return q, pk.to(torch.bfloat16), pv.to(torch.bfloat16), (), bt, pos
+    from repro_torch.kernels.paged_attention import quant as kvq
+    ks, vs = kvq.page_abs_scale(pk), kvq.page_abs_scale(pv)
+    return q, kvq.quantize(pk, ks), kvq.quantize(pv, vs), (ks, vs), bt, pos
+
+
+def _kernel_rows_paged(torch, dev, g):
+    """paged_gqa and paged_gqa_q8 at the paged phase's decode shape
+    (4 slots, smollm-360m's 15/5 heads of 64, page 16, cache 256), global
+    and a 128-entry window ring, against the plain version."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    rows = {}
+    B, H, KV, hd, ps = 4, 15, 5, 64, 16
+    cases = [(256, None, [255, 255, 255, 255]), (128, 128, [255, 200, 130, 64])]
+    for q8 in (False, True):
+        name = "paged_gqa_q8" if q8 else "paged_gqa"
+        kern = pa_ops.paged_gqa_q8_kernel if q8 else pa_ops.paged_gqa_kernel
+        for length, window, pos in cases:
+            q, pk, pv, sc, bt, pos_t = _paged_case(
+                torch, dev, g, B=B, H=H, KV=KV, hd=hd, ps=ps, length=length,
+                pos=pos, window=window, num_pages=2 * B * (-(-length // ps)),
+                q8=q8)
+            kw = dict(length=length, window=window)
+            got = kern(q, pk, pv, *sc, bt, pos_t, **kw)
+            sk = dict(zip(("k_scale", "v_scale"), sc))
+            want = pa_ref.paged_gqa_ref(q, pk, pv, bt, pos_t, **kw, **sk)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            # one bf16 ulp of the output (of the larger magnitude), plus
+            # the fp32 bound 2e-6 where cancellation leaves it near zero:
+            # both round fp32 results within 2e-6 of each other to bf16
+            mag = torch.maximum(got.float().abs(), want.float().abs())
+            ulp = torch.exp2(torch.floor(torch.log2(
+                mag.clamp(min=2.0 ** -126))) - 7)
+            tag = (f"{name} (B {B}, H {H}, KV {KV}, hd {hd}, page {ps}, "
+                   f"length {length}, window {window}) bf16 q")
+            if not (err <= ulp + 2e-6).all():
+                fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
+                     f"(max {err.max().item()})")
+            err = err.max().item()
+
+            def kernel():
+                kern(q, pk, pv, *sc, bt, pos_t, **kw)
+            ms = device_ms(torch, kernel, 200)
+            call_ms = eager_ms(torch, kernel, 200)
+            plain_ms = device_ms(torch, lambda: pa_ref.paged_gqa_ref(
+                q, pk, pv, bt, pos_t, **kw, **sk), 20)
+            # yardstick the port never calls: SDPA over the dense
+            # (dequantized) view of the same chains, gathered and expanded
+            # to H heads outside the timed region
+            L = length
+            if q8:
+                kd = pa_ref.gather_dequant(pk, sc[0], bt, L, torch.bfloat16)
+                vd = pa_ref.gather_dequant(pv, sc[1], bt, L, torch.bfloat16)
+            else:
+                kd = pa_ref.gather_pages(pk, bt, L)
+                vd = pa_ref.gather_pages(pv, bt, L)
+            kd = kd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
+            vd = vd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
+            _kp, valid = pa_ref.paged_positions(pos_t, L, window)
+            mask = valid[:, None, None, :]
+            qd = q[:, :, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            library_ms = device_ms(
+                torch, lambda: sdpa(qd, kd, vd, attn_mask=mask), 200)
+            # bytes and flops that this run's positions need: each row's
+            # live pages (the window caps them), q and out, the block table
+            flops = bytes_ = 0
+            for p in pos:
+                f, b = pa_ops.cost_model(
+                    1, H, KV, hd, live_tokens=p + 1, page_size=ps,
+                    dtype_bytes=1 if q8 else 2, window=window,
+                    scale_bytes=4 if q8 else 0)
+                flops, bytes_ = flops + f, bytes_ + b
+            b_ms, by = bound(bytes_, flops)
+            print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp "
+                  f"+ 2e-6) "
+                  f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, library (SDPA on the dense view) "
+                  f"{library_ms:.4f} ms, bound {b_ms:.5f} ms ({by})",
+                  flush=True)
+            if window is None:
+                rows[name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=by, library_ms=library_ms)
     return rows
 
 
@@ -684,6 +797,225 @@ def phase_system(torch, dev):
     return launches
 
 
+def _serve_paged(torch, model, prompts, gen_tokens, *, prefix_cache=False,
+                 prefill_chunk=256):
+    """One run of the paged serving path through the entry points a user
+    calls (build_engine with a paged ServeConfig)."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import Telemetry
+
+    eng = build_engine(model, ServeConfig(
+        slots=4, max_len=256, prefill_chunk=prefill_chunk, kv_layout="paged",
+        page_size=16, prefix_cache=prefix_cache), telemetry=Telemetry())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=gen_tokens) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def _check_drained(eng, what):
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.clear()
+    pool = eng.pool
+    if pool.pages_in_use or pool.reserved_total or len(pool._free) \
+            != pool.num_pages:
+        fail(f"paged: {what}: pool not drained ({pool.pages_in_use} pages "
+             f"in use, {pool.reserved_total} reserved)")
+
+
+def _first_divergence(a, b):
+    import numpy as np
+    diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    return int(diff[0]) if len(diff) else None
+
+
+def phase_paged(torch, dev):
+    """Full-width smollm-360m served from a paged KV cache."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import build_model
+
+    cfg = get_config("smollm-360m")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+    def variant(**kw):
+        other = build_model(dataclasses.replace(cfg, **kw), device=dev)
+        other.load_state_dict(model.state_dict())
+        return other
+    torch.cuda.synchronize()
+    print(f"paged: {cfg.name} ({sum(p.numel() for p in model.parameters())} "
+          f"params, {cfg.n_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    plens = [71, 97, 130, 150, 165, 181, 190, 75]     # not page-aligned
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in plens]
+    gen_tokens = 32
+    _serve_paged(torch, model, prompts[:4], 2)       # warm-up (cuBLAS etc.)
+
+    def measured(m, tag, kernel):
+        torch.cuda.reset_peak_memory_stats(dev)
+        pa_ops.paged_gqa_kernel.launches = 0
+        pa_ops.paged_gqa_q8_kernel.launches = 0
+        eng, reqs, dt = _serve_paged(torch, m, prompts, gen_tokens)
+        launches = kernel.launches if kernel is not None else (
+            pa_ops.paged_gqa_kernel.launches
+            + pa_ops.paged_gqa_q8_kernel.launches)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        for r in reqs:
+            toks = r.tokens
+            if not r.finished or len(toks) != gen_tokens:
+                fail(f"paged {tag}: request {r.uid} finished={r.finished} "
+                     f"with {len(toks)} tokens")
+            if not ((toks >= 0) & (toks < cfg.vocab)).all():
+                fail(f"paged {tag}: request {r.uid} emitted a token outside "
+                     "the vocab")
+        pool_b = sum(t.numel() * t.element_size() for layer in eng.state
+                     for t in layer.values())
+        ttft = sorted((r.first_token_t - r.created_t) * 1e3 for r in reqs)
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        n_gen = sum(len(r.tokens) for r in reqs)
+        print(f"paged {tag}: {len(reqs)} requests, {n_gen} tokens in "
+              f"{dt:.3f} s ({n_gen / dt:.1f} generated tok/s incl. prefill),"
+              f" TTFT p50 {ttft[len(ttft) // 2]:.1f} ms max {ttft[-1]:.1f} "
+              f"ms, {eng.n_steps} decode steps p50 {stp['p50']:.2f} ms, peak "
+              f"memory {peak_gb:.2f} GiB, pool {eng.pool.num_pages} pages = "
+              f"{pool_b / 2**20:.2f} MiB, kernel launches {launches}; "
+              f"distinct tokens per stream "
+              f"{[len(set(r.tokens.tolist())) for r in reqs]}", flush=True)
+        _check_drained(eng, tag)
+        return eng, reqs, launches
+
+    # (a) bf16 pages through the paged_gqa kernel
+    eng, reqs, launches = measured(model, "bf16 kernel",
+                                   pa_ops.paged_gqa_kernel)
+    if pa_ops.paged_gqa_q8_kernel.launches:
+        fail("paged bf16: the int8 kernel was launched")
+    if launches == 0 or launches != cfg.n_layers * eng.n_steps:
+        fail(f"paged bf16: paged_gqa launches {launches} != {cfg.n_layers} "
+             f"layers x {eng.n_steps} decode steps")
+    print(f"paged: paged_gqa launches {launches} = {cfg.n_layers} layers x "
+          f"{eng.n_steps} decode steps", flush=True)
+    # one 4-slot decode step at position 200: called eagerly vs its kernels
+    # replayed from a CUDA graph; the difference is time the card waits
+    # for the host
+    n_pages = eng.pool.num_pages
+    state = model.init_paged_cache(n_pages, 16)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), 200, dtype=torch.int32, device=dev)
+    bt = torch.arange(n_pages, dtype=torch.int32, device=dev).reshape(4, -1)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    rows = torch.arange(4, device=dev)
+
+    def step():
+        model.decode_step_paged(tok, state, pos, bt, act, 256, rows=rows)
+    with torch.inference_mode():
+        step_eager = eager_ms(torch, step, 10)
+        step_dev = device_ms(torch, step, 10)
+    print(f"paged: decode_step_paged (4 slots, pos 200): eager "
+          f"{step_eager:.2f} ms, device {step_dev:.2f} ms -> card idle "
+          f"{1 - step_dev / step_eager:.1%} of an eager step", flush=True)
+    del state
+
+    def against_gather(tag, reqs, gm):
+        """Serve the same traffic through the gather read of ``gm``; the
+        kernel streams ``reqs`` must equal its streams up to the first
+        token where the gather model's top-2 margin is <= 0.1."""
+        geng, greqs, glaunch = measured(gm, f"{tag} gather", None)
+        if glaunch:
+            fail(f"paged {tag} gather: {glaunch} paged kernel launches")
+        n_div = 0
+        for r, gr in zip(reqs, greqs):
+            i = _first_divergence(r.tokens, gr.tokens)
+            if i is None:
+                continue
+            n_div += 1
+            ctx = np.concatenate([r.prompt, r.tokens[:i]]).astype(np.int64)
+            last, _ = geng.sm.prefill(ctx[None, :])
+            top2 = torch.topk(last[0, :cfg.vocab].float(), 2).values
+            margin = (top2[0] - top2[1]).item()
+            if margin > 0.1:
+                fail(f"paged {tag}: request {r.uid} diverges from the gather "
+                     f"read at token {i} where the top-2 margin is "
+                     f"{margin:.3f} > 0.1")
+            print(f"paged {tag}: request {r.uid} parts from the gather "
+                  f"stream at token {i} (gather top-2 margin {margin:.4f} "
+                  "<= 0.1)")
+        print(f"paged {tag}: kernel greedy tokens match the gather read's in "
+              f"{len(reqs) - n_div}/{len(reqs)} requests end to end",
+              flush=True)
+
+    # (b) the same traffic through the dense-gather read
+    against_gather("bf16", reqs, variant(paged_impl="gather"))
+
+    # (c) int8 pages through the paged_gqa_q8 kernel
+    qmodel = variant(kv_dtype="int8")
+    qeng, qreqs, q8_launches = measured(qmodel, "int8 kernel",
+                                        pa_ops.paged_gqa_q8_kernel)
+    if pa_ops.paged_gqa_kernel.launches:
+        fail("paged int8: the bf16 kernel was launched")
+    if q8_launches == 0 or q8_launches != cfg.n_layers * qeng.n_steps:
+        fail(f"paged int8: paged_gqa_q8 launches {q8_launches} != "
+             f"{cfg.n_layers} layers x {qeng.n_steps} decode steps")
+    same = sum(int(np.sum(np.asarray(a.tokens) == np.asarray(b.tokens)))
+               for a, b in zip(reqs, qreqs))
+    firsts = [_first_divergence(a.tokens, b.tokens) for a, b in
+              zip(reqs, qreqs)]
+    print(f"paged: int8 greedy tokens equal bf16's at {same}/"
+          f"{len(reqs) * gen_tokens} positions; first divergence per request "
+          f"{firsts}", flush=True)
+    del qmodel, qeng
+
+    # (b') random weights give one-token greedy streams (the tied head
+    # reads each input's own embedding off the residual), so the kernel
+    # is also compared with the gather read on a sharpened copy: every
+    # layer's output projections x32 (the CPU tests' smoke models need x4;
+    # at d 960 the streams vary from about x16 on)
+    sharp = variant()
+    with torch.no_grad():
+        for layer in sharp.layers:
+            layer.mixer.wo.mul_(32.0)
+            layer.mlp.w_down.mul_(32.0)
+    _seng, sreqs, _ = measured(sharp, "sharpened bf16 kernel",
+                               pa_ops.paged_gqa_kernel)
+    sgather = variant(paged_impl="gather")
+    sgather.load_state_dict(sharp.state_dict())
+    against_gather("sharpened", sreqs, sgather)
+    del sharp, sgather
+
+    # (d) a shared 128-token prefix, with and without the prefix cache
+    prefix = rng.integers(0, cfg.vocab, size=128)
+    shared = [np.concatenate([prefix, rng.integers(0, cfg.vocab, size=t)])
+              for t in (9, 21, 40, 57)]
+    streams = []
+    for cache in (False, True):
+        peng, preqs, pdt = _serve_paged(torch, model, shared, gen_tokens,
+                                        prefix_cache=cache,
+                                        prefill_chunk=64)
+        ttft = sorted((r.first_token_t - r.created_t) * 1e3 for r in preqs)
+        print(f"paged prefix_cache={cache}: 4 requests sharing 128 tokens in "
+              f"{pdt:.3f} s, TTFT p50 {ttft[len(ttft) // 2]:.1f} ms, prefix "
+              f"hits {peng.n_prefix_hits}, prompt tokens skipped "
+              f"{peng.n_prefix_tokens}", flush=True)
+        streams.append([list(r.tokens) for r in preqs])
+        _check_drained(peng, f"prefix_cache={cache}")
+    if streams[0] != streams[1]:
+        fail("paged: streams with the prefix cache differ from the same "
+             "traffic without it")
+    if peng.n_prefix_hits == 0:
+        fail("paged: the prefix cache never hit")
+    del model
+    torch.cuda.empty_cache()
+    return {"paged_gqa": launches, "paged_gqa_q8": q8_launches}
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -719,6 +1051,7 @@ def main():
                 "minimalist_step": phase_stream(torch, dev),
                 "linear_scan_bwd": phase_train(torch, dev),
                 "minimalist_block": phase_system(torch, dev)}
+    launches.update(phase_paged(torch, dev))
 
     meta = {
         "linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -731,6 +1064,12 @@ def main():
         "minimalist_block": (
             "src/repro_torch/kernels/csrc/minimalist_block.cu",
             "src/repro/kernels/minimalist_block/minimalist_block.py:125"),
+        "paged_gqa": (
+            "src/repro_torch/kernels/csrc/paged_gqa.cu",
+            "src/repro/kernels/paged_attention/paged_attention.py:107"),
+        "paged_gqa_q8": (
+            "src/repro_torch/kernels/csrc/paged_gqa_q8.cu",
+            "src/repro/kernels/paged_attention/paged_attention.py:179"),
     }
     kernels = []
     for name in build.KERNELS:

@@ -12,7 +12,9 @@ imports nothing of JAX.  Path rules:
     ``unit{i}`` at index r of the ``stacked_init`` layer axis (or from
     ``unit{i}_r{r}`` when the reference did not scan its layers);
   * ``MinGRUMixer``'s wrapped block is transparent (the reference's mixer
-    params ARE its block's params: ``mixer.block.wh`` reads ``mixer/wh``).
+    params ARE its block's params: ``mixer.block.wh`` reads ``mixer/wh``);
+    ``GQAAttention`` keeps the reference's leaves and shapes, so
+    ``mixer.wq`` reads ``mixer/wq`` by the first rule.
 
 ``MinimalistNetwork`` needs no special rule: its ``block{i}`` names are
 the reference's.

@@ -1,19 +1,32 @@
-"""The architectures of this slice (port of ``repro.configs.archs``):
-SmolLM-360M's geometry, the paper's technique at LM scale, its
-hardware-mode twin, the paper's sMNIST network dims, ``reduced()`` and
-``get_config``.  Values are the reference's own."""
+"""The architectures of the port so far (port of ``repro.configs.archs``):
+SmolLM-360M (global GQA), Gemma-3-4B (5:1 sliding-window:global GQA),
+the paper's technique at LM scale, its hardware-mode twin, the paper's
+sMNIST network dims, ``reduced()`` and ``get_config``.  Values are the
+reference's own."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import (MINGRU, LayerSpec, MambaConfig,
-                                      MLAConfig, ModelConfig, MoEConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MINGRU, LayerSpec,
+                                      MambaConfig, MLAConfig, ModelConfig,
+                                      MoEConfig)
 
 SMOLLM_360M = ModelConfig(
     # [hf:HuggingFaceTB/SmolLM-360M; hf] — llama-arch small
     name="smollm-360m",
     n_layers=32, d_model=960, n_heads=15, n_kv_heads=5, head_dim=64,
-    d_ff=2560, vocab=49152, rope_theta=1e4, tie_embeddings=True,
+    d_ff=2560, vocab=49152,
+    pattern=(LayerSpec(ATTN),), rope_theta=1e4, tie_embeddings=True,
+)
+
+GEMMA3_4B = ModelConfig(
+    # [hf:google/gemma-3-4b-pt; unverified] — 5:1 local:global, window 1024
+    name="gemma3-4b",
+    n_layers=34, d_model=2560, n_heads=8, n_kv_heads=4, head_dim=256,
+    d_ff=10240, vocab=262144, sliding_window=1024,
+    pattern=(LayerSpec(ATTN_LOCAL),) * 5 + (LayerSpec(ATTN),),
+    tail_layers=(LayerSpec(ATTN_LOCAL),) * 3 + (LayerSpec(ATTN),),
+    rope_theta=1e6, tie_embeddings=True,
 )
 
 # sMNIST network of paper Fig. 5: dims 1-64-64-64-64-10
@@ -30,7 +43,7 @@ MINIMALIST_LM_360M = dataclasses.replace(
 MINIMALIST_LM_HW = dataclasses.replace(
     MINIMALIST_LM_360M, name="minimalist-lm-360m-hw", mingru_quant="hardware")
 
-ARCHS = {c.name: c for c in [SMOLLM_360M, MINIMALIST_LM_360M,
+ARCHS = {c.name: c for c in [SMOLLM_360M, GEMMA3_4B, MINIMALIST_LM_360M,
                              MINIMALIST_LM_HW]}
 
 

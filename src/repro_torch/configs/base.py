@@ -5,8 +5,9 @@ The dataclasses are the reference's own, field for field, with the same
 ``__post_init__`` validation.  Two fields name port backends instead of
 the TPU ones: ``ModelConfig.scan_backend`` takes a value of
 :data:`SCAN_BACKENDS` (the hand-written CUDA kernel replaces
-``pallas``/``pallas_tpu``), and ``paged_impl`` keeps only ``gather``
-until the paged-attention kernels are ported.
+``pallas``/``pallas_tpu``), and ``paged_impl`` takes a value of
+:data:`PAGED_IMPLS` (``kernel``, the hand-written paged GQA decode
+kernels, is the default, as the reference defaults to its kernel).
 """
 from __future__ import annotations
 
@@ -23,9 +24,13 @@ MINGRU = "mingru"        # paper's minGRU time-mixing block
 #: Legal values of :attr:`MoEConfig.dispatch`.
 MOE_DISPATCH_MODES = ("pooled", "per_request", "auto")
 
-#: Legal values of :attr:`ModelConfig.paged_impl` (the Pallas paged
-#: kernels are not ported yet; ``gather`` is the dense-view oracle).
-PAGED_IMPLS = ("gather",)
+#: Legal values of :attr:`ModelConfig.paged_impl`:
+#:   kernel — the hand-written CUDA paged GQA decode kernels on CUDA
+#:            tensors, their plain version (``paged_gqa_ref``, fp32 online
+#:            -softmax numerics) on CPU tensors
+#:   gather — the dense-view oracle: gathers each slot's page chain and
+#:            runs the dense decode math (bitwise equal to kv_layout="dense")
+PAGED_IMPLS = ("gather", "kernel")
 
 #: Legal values of :attr:`ModelConfig.kv_dtype`.
 KV_DTYPES = ("bf16", "int8")
@@ -119,7 +124,7 @@ class ModelConfig:
     attention_impl: str = "naive"
     ssm_impl: str = "xla"
     scan_backend: str = "kernel"
-    paged_impl: str = "gather"
+    paged_impl: str = "kernel"
     kv_dtype: str = "bf16"
     moe_constraints: bool = False
 

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  At
-first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library under ``build/repro_torch/`` at the root of the checkout (listed
-in ``.gitignore``) and loaded with ``ctypes``.  The library's file name
-carries a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused.  :func:`build` starts one ``nvcc`` per
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface
+(sources may share a ``csrc/*.cuh`` header).  At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``) and loaded with ``ctypes``.  The library's file name
+carries a hash of its source, the headers and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  :func:`build` starts one ``nvcc`` per
 source, all at once, so building every kernel costs the slowest one.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -47,6 +48,14 @@ SIGNATURES = {
         "minimalist_block_f32": [_P, _P, _P, _F] + [_P] * 5 + [_I] * 4
         + [_P],
     },
+    "paged_gqa": {
+        "paged_gqa_f32": [_P] * 6 + [_I] * 9 + [_P],
+        "paged_gqa_bf16": [_P] * 6 + [_I] * 9 + [_P],
+    },
+    "paged_gqa_q8": {
+        "paged_gqa_q8_f32": [_P] * 8 + [_I] * 9 + [_P],
+        "paged_gqa_q8_bf16": [_P] * 8 + [_I] * 9 + [_P],
+    },
 }
 
 #: Every kernel of the port, by source stem.
@@ -70,6 +79,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

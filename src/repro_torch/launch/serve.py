@@ -4,14 +4,23 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --requests 16 --slots 4 --prompt-len 32 --gen 32
 
+    # smollm-360m from a paged int8 KV cache with prefix caching
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --device cpu --kv-layout paged --kv-dtype int8 --prefix-cache
+
 Prompts are consumed by the grid-padded chunked prefill (one linear scan
-per chunk and minGRU layer — the CUDA kernel on the card), decode is one
-slot-batch step per token, and finished sequences retire the step they
-complete.  ``--temperature/--top-k/--top-p`` turn on per-request
-sampling.  The flags of features the port does not have yet (mesh,
-paged KV, prefix cache, preemptive policies, speculative decoding,
-forking, the static-batch baseline) are accepted by the parser and
-refused with an error naming them.
+per chunk and minGRU layer — the CUDA kernel on the card; one masked
+softmax per chunk and attention layer), decode is one slot-batch step per
+token, and finished sequences retire the step they complete.
+``--kv-layout paged`` keeps attention caches in a shared page pool read
+through the paged GQA decode kernels (``--paged-impl kernel``, default)
+or the dense-gather oracle (``--paged-impl gather``); ``--kv-dtype int8``
+stores the pages as int8 codes with per-page scales; ``--prefix-cache``
+lets requests sharing a prompt prefix attach to its pages.
+``--temperature/--top-k/--top-p`` turn on per-request sampling.  The
+flags of features the port does not have yet (mesh, preemptive policies,
+speculative decoding, forking, MoE dispatch, the static-batch baseline)
+are accepted by the parser and refused with an error naming them.
 """
 from __future__ import annotations
 
@@ -25,30 +34,33 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs import SamplingParams, ServeConfig, get_config
-from repro_torch.configs.base import SCAN_BACKENDS
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, PAGED_IMPLS,
+                                      SCAN_BACKENDS)
 from repro_torch.models import build_model
-from repro_torch.serve import DecoderStepModel, ServeEngine, Telemetry
+from repro_torch.serve import (DecoderStepModel, PagedConfig, ServeEngine,
+                               Telemetry)
 
 
 def build_engine(model, serve: ServeConfig = ServeConfig(), telemetry=None):
-    if serve.kv_layout != "dense" or serve.drafter or serve.prefix_cache:
-        raise NotImplementedError("paged KV, prefix caching and speculative "
-                                  "decoding are not ported yet")
+    """ServeEngine over ``model`` as ``serve`` configures it (dense or
+    paged KV layout, optional prefix cache; FIFO only)."""
+    if serve.drafter:
+        raise NotImplementedError("speculative decoding is not ported yet")
+    paged = None
+    if serve.kv_layout == "paged":
+        paged = PagedConfig(page_size=serve.page_size,
+                            num_pages=serve.num_pages)
     sm = DecoderStepModel(model, max_len=serve.max_len,
-                          prefill_chunk=serve.prefill_chunk)
+                          prefill_chunk=serve.prefill_chunk,
+                          kv_layout=serve.kv_layout, paged=paged)
     return ServeEngine(sm, slots=serve.slots, policy=serve.policy,
-                       telemetry=telemetry)
+                       prefix_cache=serve.prefix_cache, telemetry=telemetry)
 
 
 def _not_ported(args, ap):
     """Refuse every flag of a feature the port does not have yet."""
     refused = {
         "--mesh": bool(args.mesh),
-        "--kv-layout paged": args.kv_layout != "dense",
-        "--kv-dtype": args.kv_dtype is not None,
-        "--paged-impl": args.paged_impl is not None,
-        "--num-pages": args.num_pages != 0,
-        "--prefix-cache": args.prefix_cache,
         f"--policy {args.policy}": args.policy != "fifo",
         "--drafter": bool(args.drafter),
         "--spec-k": args.spec_k != 1,
@@ -79,7 +91,8 @@ def main(argv=None):
                     help="mean generation budget; actual budgets vary ±50%%")
     ap.add_argument("--prefill-chunk", type=int, default=256)
     ap.add_argument("--max-len", type=int, default=0,
-                    help="cache length (unused by minGRU stacks)")
+                    help="cache length (unused by minGRU stacks; default: "
+                         "the longest request)")
     ap.add_argument("--scan-backend", default=None,
                     choices=[None, *SCAN_BACKENDS],
                     help="linear-scan backend for recurrent prefill")
@@ -93,16 +106,19 @@ def main(argv=None):
                          "trace_event JSON")
     ap.add_argument("--metrics", action="store_true",
                     help="print engine.metrics() as JSON after the run")
-    # features of the reference not ported yet (refused by _not_ported)
-    ap.add_argument("--mesh", default="")
     ap.add_argument("--kv-layout", default="dense",
                     choices=["dense", "paged"])
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--kv-dtype", default=None, choices=["bf16", "int8"])
-    ap.add_argument("--paged-impl", default=None,
-                    choices=["gather", "pallas", "pallas_tpu"])
-    ap.add_argument("--num-pages", type=int, default=0)
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="page pool size (0 = dense-equivalent)")
+    ap.add_argument("--kv-dtype", default=None, choices=["bf16", "int8"],
+                    help="KV page dtype (paged layout)")
+    ap.add_argument("--paged-impl", default=None, choices=PAGED_IMPLS,
+                    help="paged decode read (default: the arch's, kernel)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="attach requests to cached prompt-prefix pages")
+    # features of the reference not ported yet (refused by _not_ported)
+    ap.add_argument("--mesh", default="")
     ap.add_argument("--policy", default="fifo",
                     choices=["fifo", "priority", "sjf", "edf"])
     ap.add_argument("--drafter", default="")
@@ -121,6 +137,16 @@ def main(argv=None):
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
     if args.scan_backend:
         cfg = dataclasses.replace(cfg, scan_backend=args.scan_backend)
+    if args.kv_layout == "paged" and not any(
+            s.kind in (ATTN, ATTN_LOCAL) for s in cfg.layer_specs()):
+        ap.error(f"--kv-layout paged needs an attention-bearing arch; "
+                 f"{cfg.name} keeps O(1) state per slot (serve it dense)")
+    if args.prefix_cache and args.kv_layout != "paged":
+        ap.error("--prefix-cache needs --kv-layout paged")
+    if args.kv_dtype:
+        cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
+    if args.paged_impl:
+        cfg = dataclasses.replace(cfg, paged_impl=args.paged_impl)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(cfg, device=device, generator=gen)
 
@@ -135,9 +161,11 @@ def main(argv=None):
     telemetry = None
     if args.trace or args.metrics:
         telemetry = Telemetry(trace=bool(args.trace))
-    eng = build_engine(model, ServeConfig(slots=args.slots, max_len=max_len,
-                                          prefill_chunk=args.prefill_chunk),
-                       telemetry=telemetry)
+    eng = build_engine(model, ServeConfig(
+        slots=args.slots, max_len=max_len, prefill_chunk=args.prefill_chunk,
+        kv_layout=args.kv_layout, page_size=args.page_size,
+        num_pages=args.num_pages, prefix_cache=args.prefix_cache),
+        telemetry=telemetry)
     t0 = time.time()
     for i, (p, g) in enumerate(zip(prompts, glens)):
         sampling = None

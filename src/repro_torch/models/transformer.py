@@ -1,26 +1,37 @@
-"""Decoder LM over minGRU time mixing (port of the MINGRU layer kind of
-``repro.models.transformer``).
+"""Decoder LM over minGRU and GQA layers (port of the MINGRU, ATTN and
+ATTN_LOCAL layer kinds of ``repro.models.transformer``).
 
 The reference scans a stacked pattern unit with ``lax.scan``; here the
 layers are written out as an ``nn.ModuleList`` (``layers[j]`` is stack
 position j; :func:`repro_torch.bridge.load_jax_params` unstacks the
-reference's layer axis onto it).  Attention, MLA, Mamba and MoE layers
-are not ported yet and raise.
+reference's layer axis onto it).  MLA, Mamba and MoE layers are not
+ported yet and raise.
 
 Dtypes mirror the reference: fp32 parameters, bf16 compute
 (``DecoderLM.compute_dtype``), fp32 RMSNorm internals, fp32 logits, and
-a bf16 decode cache.  The cache is ONE tensor (n_layers, B, d_model)
-holding every minGRU layer's O(1) state — the layout of the reference's
-scanned-unit leaf ``{"unit0": {"h": (n_repeats, B, d_model)}}``.
+a bf16 decode cache.  Cache layouts:
+
+  * a minGRU stack keeps ONE tensor (n_layers, B, d_model) holding every
+    layer's O(1) state — the layout of the reference's scanned-unit leaf
+    ``{"unit0": {"h": (n_repeats, B, d_model)}}``;
+  * an attention stack keeps a list with one ``{"k", "v"}`` entry per
+    layer, (B, L, KV, hd) with L = max_len or a window layer's ring
+    length; under the paged KV layout each entry is a shared page pool
+    (P, page, KV, hd) (int8 pools add ``k_scale`` and ``v_scale`` (P, KV))
+    with no slot axis, whose pages the serving engine hands out.
+
+Stacks that mix minGRU and attention layers are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import MINGRU, LayerSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MINGRU, LayerSpec,
+                                      ModelConfig)
 from repro_torch.core.mingru import MinGRUBlock
 from repro_torch.core.quant import QuantConfig
+from repro_torch.models.attention import GQAAttention
 from repro_torch.models.module import Embedding, RMSNorm
 from repro_torch.models.moe import DenseMLP
 
@@ -47,20 +58,23 @@ class MinGRUMixer(nn.Module):
     def reset_parameters(self, generator=None):
         self.block.reset_parameters(generator)
 
-    def forward(self, x):
+    def forward(self, x, positions=None):
+        del positions
         out, _h = self.block(x)
         return out
 
-    def decode(self, x, h):
-        """x: (B, 1, D); h: (B, D) -> (out (B, 1, D), new h)."""
+    def decode(self, x, h, pos=None):
+        """x: (B, 1, D); h: (B, D) -> (out (B, 1, D), new h); position-free."""
+        del pos
         out, h = self.block.step(x[:, 0, :], h)
         return out[:, None, :], h
 
-    def prefill(self, x, h, length=None):
+    def prefill(self, x, h, pos0=0, length=None):
         """Chunk prefill: ONE linear scan over the chunk, O(1) carry.
         ``length`` picks the carry at the last VALID token when the chunk
         tail is grid padding (the scan is causal: padding never reaches
         h[length-1])."""
+        del pos0
         out, hs = self.block(x, h0=h.to(x.dtype))
         carry = hs[:, -1] if length is None else hs[:, length - 1]
         return out, carry.to(h.dtype)
@@ -73,12 +87,16 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if spec.kind != MINGRU or spec.moe:
+        if spec.kind not in (MINGRU, ATTN, ATTN_LOCAL) or spec.moe:
             raise NotImplementedError(
                 f"layer kind {spec.kind!r} (moe={spec.moe}) is not ported "
-                "yet: the port serves minGRU stacks with dense MLPs")
+                "yet: the port runs minGRU and GQA layers with dense MLPs")
         kw = dict(dtype=dtype, device=device)
-        self.mixer = MinGRUMixer(cfg, **kw)
+        if spec.kind == MINGRU:
+            self.mixer = MinGRUMixer(cfg, **kw)
+        else:
+            self.mixer = GQAAttention(cfg, local=spec.kind == ATTN_LOCAL,
+                                      **kw)
         self.norm1 = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
         d_ff = spec.d_ff or cfg.d_ff
         self.mlp = DenseMLP(cfg.d_model, d_ff, **kw) if d_ff else None
@@ -95,16 +113,32 @@ class DecoderLayer(nn.Module):
             x = x + self.mlp(self.norm2(x))
         return x
 
-    def forward(self, x):
-        return self._mlp_tail(x + self.mixer(self.norm1(x)))
+    def forward(self, x, positions=None):
+        return self._mlp_tail(x + self.mixer(self.norm1(x), positions))
 
-    def decode(self, x, h):
-        out, h = self.mixer.decode(self.norm1(x), h)
-        return self._mlp_tail(x + out), h
+    def init_cache(self, batch, length, dtype=torch.bfloat16):
+        return self.mixer.init_cache(batch, length, dtype)
 
-    def prefill(self, x, h, length=None):
-        out, h = self.mixer.prefill(self.norm1(x), h, length=length)
-        return self._mlp_tail(x + out), h
+    def decode(self, x, cache, pos=None):
+        out, cache = self.mixer.decode(self.norm1(x), cache, pos)
+        return self._mlp_tail(x + out), cache
+
+    def prefill(self, x, cache, pos0=0, length=None):
+        out, cache = self.mixer.prefill(self.norm1(x), cache, pos0,
+                                        length=length)
+        return self._mlp_tail(x + out), cache
+
+    def paged(self) -> bool:
+        """True when this layer's cache lives in a shared page pool under
+        the paged KV layout (attention mixers); O(1)-state mixers keep
+        their per-slot state either way."""
+        return isinstance(self.mixer, GQAAttention)
+
+    def decode_paged(self, x, cache, pos, bt, active, length, rows=None):
+        """Slot-batched decode against this attention layer's page pool."""
+        h, cache = self.mixer.decode_paged(self.norm1(x), cache, pos, bt,
+                                           active, length, rows=rows)
+        return self._mlp_tail(x + h), cache
 
 
 class DecoderLM(nn.Module):
@@ -115,6 +149,11 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, device=None,
                  generator=None):
         super().__init__()
+        kinds = {s.kind for s in cfg.layer_specs()}
+        if MINGRU in kinds and len(kinds) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: stacks that mix minGRU and attention layers "
+                "are not ported yet")
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device)
         self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
@@ -147,11 +186,17 @@ class DecoderLM(nn.Module):
         head = self.embed if self.lm_head is None else self.lm_head
         return head.attend(self.final_norm(x))
 
-    def forward(self, tokens):
+    @property
+    def stacked_cache(self) -> bool:
+        """True for a minGRU stack: its decode cache is ONE (n_layers, B,
+        d_model) tensor, else a list of per-layer attention caches."""
+        return self.cfg.layer_specs()[0].kind == MINGRU
+
+    def forward(self, tokens, positions=None):
         """tokens: (B, S) int -> logits (B, S, V_pad) fp32."""
         x = self.embed(tokens).to(self.compute_dtype)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, positions)
         return self._head(x)
 
     def loss(self, batch):
@@ -171,29 +216,75 @@ class DecoderLM(nn.Module):
         return loss, {"loss": loss, "tokens": mask.sum()}
 
     def init_cache(self, batch, length=0, dtype=torch.bfloat16):
-        """Zero decode cache (n_layers, batch, d_model); ``length`` is
-        unused (minGRU state is O(1))."""
-        del length
-        return torch.zeros(len(self.layers), batch, self.cfg.d_model,
-                           dtype=dtype, device=self.device)
+        """Zero dense decode cache for ``batch`` rows at cache length
+        ``length`` (unused by minGRU stacks: their state is O(1)); see the
+        module docstring for the layouts."""
+        if self.stacked_cache:
+            return torch.zeros(len(self.layers), batch, self.cfg.d_model,
+                               dtype=dtype, device=self.device)
+        return [layer.init_cache(batch, length, dtype)
+                for layer in self.layers]
+
+    def _new_cache(self, cache):
+        return torch.empty_like(cache) if self.stacked_cache \
+            else [None] * len(self.layers)
 
     def prefill(self, tokens, cache, pos0=0, length=None):
-        """Consume a prompt chunk. tokens: (B, S); ``length`` = number of
-        valid leading tokens (None = all; the rest is grid padding).
-        Returns (logits at the last VALID token (B, 1, V_pad), new cache)."""
-        del pos0                      # minGRU layers are position-free
+        """Consume a prompt chunk starting at absolute position ``pos0``.
+        tokens: (B, S); ``length`` = number of valid leading tokens (None =
+        all; the rest is grid padding).  Returns (logits at the last VALID
+        token (B, 1, V_pad), new cache)."""
         x = self.embed(tokens).to(self.compute_dtype)
-        new_cache = torch.empty_like(cache)
+        new_cache = self._new_cache(cache)
         for j, layer in enumerate(self.layers):
-            x, new_cache[j] = layer.prefill(x, cache[j], length=length)
+            x, new_cache[j] = layer.prefill(x, cache[j], pos0, length=length)
         x = x[:, -1:] if length is None else x[:, length - 1:length]
         return self._head(x), new_cache
 
     def decode_step(self, tokens, cache, pos=0):
-        """tokens: (B, 1) -> (logits (B, 1, V_pad), new cache)."""
-        del pos
+        """tokens: (B, 1); pos: an int or per-row positions (B,) ->
+        (logits (B, 1, V_pad), new cache)."""
         x = self.embed(tokens).to(self.compute_dtype)
-        new_cache = torch.empty_like(cache)
+        if not torch.is_tensor(pos):
+            pos = torch.full((tokens.shape[0],), int(pos),
+                             dtype=torch.int64, device=x.device)
+        new_cache = self._new_cache(cache)
         for j, layer in enumerate(self.layers):
-            x, new_cache[j] = layer.decode(x, cache[j])
+            x, new_cache[j] = layer.decode(x, cache[j], pos)
+        return self._head(x), new_cache
+
+    # --- paged KV layout (reference ``DecoderLM`` :433-512) -------------
+    def paged_layer_names(self):
+        """Stack positions whose cache lives in the page pool."""
+        return {j for j, layer in enumerate(self.layers) if layer.paged()}
+
+    def paged_cache_spec(self, num_pages, page_size, dtype=torch.bfloat16):
+        """Per layer, {leaf: (shape, dtype)} of its shared page pool (no
+        slot axis: the engine hands out pages)."""
+        return [layer.mixer.paged_cache_spec(num_pages, page_size, dtype)
+                for layer in self.layers]
+
+    def init_paged_cache(self, num_pages, page_size, dtype=torch.bfloat16):
+        """Zero pools of :meth:`paged_cache_spec`."""
+        return [{k: torch.zeros(shape, dtype=dt, device=self.device)
+                 for k, (shape, dt) in spec.items()}
+                for spec in self.paged_cache_spec(num_pages, page_size,
+                                                  dtype)]
+
+    def decode_step_paged(self, tokens, cache, pos, bt, active, length,
+                          rows=None):
+        """One slot-batched decode step under the paged KV layout.
+
+        tokens: (B, 1); pos: (B,); active: (B,) bool; bt: (B, max_pages)
+        block table shared by every layer (each indexes its OWN pool with
+        the same page ids); ``length`` = the engine max_len; ``rows`` = the
+        active slots' indices if the caller has them.  Each layer writes
+        only the active slots' K/V, in place.  Returns (logits, cache)."""
+        x = self.embed(tokens).to(self.compute_dtype)
+        if rows is None:
+            rows = torch.nonzero(active).flatten()
+        new_cache = list(cache)
+        for j, layer in enumerate(self.layers):
+            x, new_cache[j] = layer.decode_paged(x, cache[j], pos, bt,
+                                                 active, length, rows=rows)
         return self._head(x), new_cache

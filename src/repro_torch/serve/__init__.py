@@ -1,4 +1,5 @@
 from repro_torch.serve.engine import EngineStats, ServeEngine
+from repro_torch.serve.paged import PagedConfig, PagePool, PrefixCache
 from repro_torch.serve.prefill import chunked_prefill
 from repro_torch.serve.protocol import (DecoderStepModel, MinimalistStepModel,
                                         StepModel, masked_update)

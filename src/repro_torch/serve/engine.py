@@ -1,5 +1,6 @@
 """Fixed-capacity continuous-batching engine (port of
-``repro.serve.engine``, dense layout, FIFO policy).
+``repro.serve.engine``: dense and paged KV layouts, prefix caching, FIFO
+policy).
 
 Layers, as in the reference: STATE (:mod:`repro_torch.serve.state`),
 SCHEDULER (:mod:`repro_torch.serve.scheduler`) and this EXECUTOR, which
@@ -19,8 +20,16 @@ Request lifecycle::
     per-frame output is recorded; the request retires when its stream is
     exhausted.
 
-Paging, prefix caching, preemption, forking and speculative decoding are
-not ported yet.
+Paged KV layout: the engine owns a :class:`~repro_torch.serve.paged.PagePool`.
+Admission reserves a request's worst-case page chain (prompt + budget)
+and DEFERS while the pool cannot cover it; pages are allocated as a
+chain grows (at admission and on decode append), shared pages are copied
+on write, and a slot's pages and reservation return to the pool when it
+retires or is cancelled.  With ``prefix_cache=True`` admission runs
+singleton waves: a request whose page-aligned prompt prefix is cached
+attaches to those pages and prefills only its tail.
+
+Preemption, forking and speculative decoding are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +43,9 @@ from repro_torch.common import pow2ceil
 from repro_torch.configs.base import SamplingParams
 from repro_torch.kernels.linear_scan.ops import linear_scan_kernel
 from repro_torch.kernels.minimalist_block.ops import minimalist_step_kernel
+from repro_torch.kernels.paged_attention.ops import (paged_gqa_kernel,
+                                                     paged_gqa_q8_kernel)
+from repro_torch.serve.paged import PagePool, PrefixCache
 from repro_torch.serve.sampling import KNOB_DTYPES
 from repro_torch.serve.scheduler import make_policy
 from repro_torch.serve.state import Request, SlotTable, _knob_values
@@ -42,7 +54,9 @@ from repro_torch.serve.telemetry import (NULL_TELEMETRY, PercentileWindow,
 
 #: The kernel wrappers whose launch counts ``metrics()`` reports.
 KERNEL_WRAPPERS = {"linear_scan": linear_scan_kernel,
-                   "minimalist_step": minimalist_step_kernel}
+                   "minimalist_step": minimalist_step_kernel,
+                   "paged_gqa": paged_gqa_kernel,
+                   "paged_gqa_q8": paged_gqa_q8_kernel}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +69,9 @@ class EngineStats:
     active_slots: int
     queue_depth: int
     utilization: float         # decode tokens per slot-step paid
+    pages_in_use: int = 0      # paged KV layout only (else 0)
+    pages_free: int = 0
+    pages_reserved: int = 0
     tokens_per_s: float = 0.0
     queue_wait_p50_ms: float = 0.0
     queue_wait_p99_ms: float = 0.0
@@ -63,6 +80,8 @@ class EngineStats:
         return (f"[{self.policy} step {self.n_steps}] "
                 f"slots {self.active_slots}/{self.slots} "
                 f"queue {self.queue_depth} "
+                f"pages {self.pages_in_use} used / {self.pages_free} "
+                f"free / {self.pages_reserved} reserved "
                 f"util {self.utilization:.2f} "
                 f"tok/s {self.tokens_per_s:.0f} "
                 f"qwait {self.queue_wait_p50_ms:.1f}/"
@@ -71,10 +90,12 @@ class EngineStats:
 
 class ServeEngine:
     """Continuous-batching engine over any StepModel (the model owns its
-    parameters).  ``policy`` is "fifo" or a SchedulingPolicy instance."""
+    parameters).  ``policy`` is "fifo" or a SchedulingPolicy instance;
+    ``prefix_cache=True`` (paged layout only) pins finished prompts' pages
+    for later requests to attach to."""
 
     def __init__(self, step_model, *, slots: int = 8, policy="fifo",
-                 telemetry=None):
+                 prefix_cache: bool = False, telemetry=None):
         self.sm = step_model
         self.slots = int(slots)
         if self.slots < 1:
@@ -83,12 +104,36 @@ class ServeEngine:
             else NULL_TELEMETRY
         self.policy = make_policy(policy)
         self.policy.telemetry = self.telemetry
+        # paged KV layout: the engine owns the page allocator — block
+        # tables, free list and per-slot chains live here on the host;
+        # only the page POOLS are device state (inside self.state)
+        self.pool = None
+        if getattr(step_model, "kv_layout", "dense") == "paged":
+            self.pool = PagePool(step_model.num_pages(self.slots),
+                                 self.slots, step_model.max_pages)
+            self.pool.telemetry = self.telemetry
+        self.prefix_cache = None
+        if prefix_cache:
+            if self.pool is None:
+                raise ValueError(
+                    "prefix_cache=True needs kv_layout='paged'")
+            step_model.check_prefix_cacheable()
+            # window-bearing stacks overwrite ring slots during prefill,
+            # so only end-of-prompt page state is cacheable
+            self.prefix_cache = PrefixCache(
+                self.pool, step_model.paged.page_size,
+                full_prompt_only=step_model._has_window)
+            self.prefix_cache.telemetry = self.telemetry
         self.state = step_model.init_state(self.slots)
-        self.st = SlotTable(self.slots, telemetry=self.telemetry)
+        self.st = SlotTable(self.slots, pool=self.pool,
+                            telemetry=self.telemetry)
         self._uid = 0
         self.n_steps = 0
         self.n_emitted = 0          # all tokens, incl. admission prefill
         self._n_decoded = 0         # tokens emitted by slot-batch steps
+        self.n_prefix_hits = 0      # admissions that attached to cache
+        self.n_prefix_tokens = 0    # prompt positions skipped by attaches
+        self.n_cow_copies = 0       # device page copies (decode COW)
         self._rate = RateWindow(maxlen=256)
         self._queue_wait = PercentileWindow(maxlen=512)
         self._verbose_sink: Optional[StatsSink] = None
@@ -109,6 +154,13 @@ class ServeEngine:
     @property
     def finished(self):
         return self.st.finished
+
+    def _pages_for_req(self, req: Request) -> int:
+        """Worst-case reservation of a fresh request: prompt + full
+        budget (0 when unpaged)."""
+        if self.pool is None:
+            return 0
+        return self.sm.pages_for(len(req.prompt) + req.max_new_tokens)
 
     # ------------------------------------------------------------------
     # submission / admission
@@ -136,6 +188,18 @@ class ServeEngine:
                     f"LM requests need max_new_tokens >= 1, got "
                     f"{max_new_tokens}")
             prompt = prompt.astype(np.int32)
+            # attention writes K/V at absolute positions: past max_len the
+            # stream would decode garbage — reject up front.  Under the
+            # paged layout this bound also makes page OOM impossible: the
+            # pool holds one max-length request, so admission only defers
+            if getattr(self.sm, "positional", False):
+                need = len(prompt) + max_new_tokens
+                if need > self.sm.max_len:
+                    raise ValueError(
+                        f"prompt ({len(prompt)}) + max_new_tokens "
+                        f"({max_new_tokens}) = {need} cache positions, "
+                        f"but the engine was built with "
+                        f"max_len={self.sm.max_len}")
         req = Request(self._uid, prompt, max_new_tokens, eos_id, sampling)
         self._uid += 1
         req.submit_t = time.monotonic()
@@ -177,17 +241,29 @@ class ServeEngine:
     def _admit_once(self) -> bool:
         """One admission wave: same-length prompts prefill as one batched
         chunked call and land in one slot write.  Returns True iff at least
-        one request was admitted."""
+        one request was admitted.
+
+        Paged KV: admission RESERVES the request's worst-case page chain
+        (the full worst case even when a prefix attach will share pages),
+        so decode-time appends and copies-on-write never fail; it defers
+        at the queue's head while the pool cannot cover it.  Prefix
+        caching runs SINGLETON waves, so each admission inserts its
+        prompt's pages before the next request's lookup."""
         st = self.st
         admitted = []
         while st.waiting and st.free_mask:
             req = self.policy.admit_order(st.waiting, st)[0]
+            if self.pool is not None and not self.pool.can_admit(
+                    self._pages_for_req(req)):
+                break                      # defer until pages free up
             st.pop_waiting(req)
             wait_ms = (time.monotonic() - req.submit_t) * 1000.0
             self._queue_wait.push(wait_ms)
             if self.telemetry.enabled:
                 self.telemetry.observe("queue_wait_ms", wait_ms)
             slot = st.alloc_slot()
+            if self.pool is not None:
+                self.pool.reserve(slot, self._pages_for_req(req))
             st.slot_req[slot] = req
             st.active[slot] = True
             if self.telemetry.enabled:
@@ -196,6 +272,8 @@ class ServeEngine:
             if st.cur is None:
                 shape = (self.slots,) + tuple(req.prompt.shape[1:])
                 st.cur = np.zeros(shape, req.prompt.dtype)
+            if self.prefix_cache is not None:
+                break                      # singleton waves (see above)
         if not admitted:
             return False
         if not self.sm.autoregressive:
@@ -216,23 +294,81 @@ class ServeEngine:
             cw = self.sm.chunk_for(plen)
             t0 = time.monotonic() if tel.enabled else 0.0
             with tel.span("prefill", plen=plen, wave=len(group),
-                          chunk_w=cw, chunks=-(-plen // cw)):
-                prompts = [r.prompt for r, _s in group]
-                prompts += [prompts[-1]] * (
-                    len(self._pad_slots([s for _r, s in group]))
-                    - len(group))
-                last, carry = self.sm.prefill(np.stack(prompts))
+                          chunk_w=cw, chunks=-(-plen // cw)) as sp:
+                pages = None
+                if self.prefix_cache is not None:
+                    req0, slot0 = group[0]  # singleton wave (see above)
+                    pages, attach = self.prefix_cache.match(req0.prompt, cw)
+                if pages is not None:
+                    last, carry = self._attach_prefill(req0, slot0, pages,
+                                                       attach)
+                    sp.set(attached=attach)
+                else:
+                    if self.pool is not None:
+                        for _r, s in group:
+                            self.pool.grow(s, self.sm.pages_for(plen))
+                    prompts = [r.prompt for r, _s in group]
+                    prompts += [prompts[-1]] * (
+                        len(self._pad_slots([s for _r, s in group]))
+                        - len(group))
+                    last, carry = self.sm.prefill(np.stack(prompts))
                 self._install_wave(plen, group, last, carry)
             if tel.enabled:
                 tel.observe("prefill_ms", (time.monotonic() - t0) * 1000.0)
         return True
 
+    def _attach_prefill(self, req, slot, pages, attach):
+        """Prefix-cache hit: share the resident pages into ``slot``,
+        rebuild the dense cache they hold, and prefill only the tail
+        chunks — the attached stream is bitwise the stream a full prefill
+        would have produced (same chunk grid, same bytes)."""
+        sm, plen = self.sm, len(req.prompt)
+        self.pool.share(slot, pages)
+        # gather BEFORE any detach below rewires the block-table row
+        seed = sm.seed_cache(self.state,
+                             self.pool.block_tables[slot:slot + 1])
+        self.pool.grow(slot, sm.pages_for(plen))
+        if sm._has_window:
+            # ring pages diverge from the entry's frozen bytes the moment
+            # the tail writes — detach them, with no device copy: the wave
+            # write rewrites every chain page of every layer
+            for i in range(len(pages)):
+                self.pool.cow(slot, i, materialize=False)
+            start = attach
+        else:
+            # global: the overlap recompute writes identical bytes, so
+            # shared pages stay shared; recompute at least the last token
+            # (its logits feed the first sampled token)
+            cw = sm.chunk_for(plen)
+            start = (min(attach, plen - 1) // cw) * cw
+        last, carry = sm.prefill(req.prompt[None, :], cache0=seed,
+                                 start=start)
+        self.n_prefix_hits += 1
+        self.n_prefix_tokens += start
+        return last, carry
+
     def _install_wave(self, plen, group, last, carry):
-        """Scatter a prefilled wave into its slots and draw/book-keep the
-        first sampled token (at position plen)."""
+        """Scatter a prefilled wave into its slots (page-granularly under
+        the paged layout), pin its prompts in the prefix cache, and
+        draw/book-keep the first sampled token (at position plen)."""
         st = self.st
-        pad = self._pad_slots([s for _r, s in group])
-        self.state = self.sm.write_slots(self.state, carry, pad)
+        slots = [s for _r, s in group]
+        pad = self._pad_slots(slots)
+        if self.pool is None:
+            self.state = self.sm.write_slots(self.state, carry, pad)
+        else:
+            # padding rows get all-out-of-bounds page ids (never written)
+            pages = np.full((len(pad), self.pool.max_pages),
+                            self.pool.num_pages, np.int32)
+            pages[:len(group)] = self.pool.block_tables[slots]
+            self.state = self.sm.write_slots(self.state, carry, pad,
+                                             pages=pages, plen=plen)
+            if self.prefix_cache is not None:
+                # pin BEFORE an instant retire below releases the chain
+                for r, s in group:
+                    self.prefix_cache.insert(
+                        r.prompt, self.pool.block_tables[s],
+                        self.sm.chunk_for(plen))
         tok0 = self.sm.sample(last, self._wave_sampling(group, len(pad)),
                               np.full(len(pad), plen, np.int64))
         tok0 = tok0.cpu().numpy()
@@ -274,10 +410,11 @@ class ServeEngine:
         return req
 
     def cancel(self, req: Request):
-        """Abort a request: a waiting one leaves the queue, a running one
-        frees its slot before the next step.  Tokens already emitted stay
-        on the request, which is marked finished+cancelled and never joins
-        ``finished``."""
+        """Abort a request: a waiting one leaves the queue (it holds no
+        pages), a running one frees its slot — and, under the paged
+        layout, its pages and reservation — before the next step.  Tokens
+        already emitted stay on the request, which is marked
+        finished+cancelled and never joins ``finished``."""
         if req.finished:
             return
         if not self.st.discard_waiting(req):
@@ -305,7 +442,9 @@ class ServeEngine:
         t0 = time.monotonic()
         d0 = self._n_decoded
         with tel.span("decode_wave", active_slots=st.n_active,
-                      queue_depth=st.queue_depth) as sp:
+                      queue_depth=st.queue_depth,
+                      pages_in_use=(self.pool.pages_in_use
+                                    if self.pool else 0)) as sp:
             self._plain_step()
             sp.set(tokens=self._n_decoded - d0)
         now = time.monotonic()
@@ -319,13 +458,41 @@ class ServeEngine:
             tel.gauge("active_slots", st.n_active)
             tel.gauge("queue_depth", st.queue_depth)
             tel.counter("slots", active=st.n_active, queue=st.queue_depth)
+            if self.pool is not None:
+                tel.gauge("pool_utilization",
+                          self.pool.pages_in_use / self.pool.num_pages)
+                tel.counter("pool", in_use=self.pool.pages_in_use,
+                            free=len(self.pool._free),
+                            reserved=self.pool.reserved_total)
 
     def _plain_step(self):
-        """One slot-batched decode step: one device call, one host sync."""
+        """One slot-batched decode step: one device call, one host sync.
+
+        Paged layout: allocate-on-append — this step writes K/V at
+        pos[slot], so every active chain must cover it (the pages come out
+        of the admission reservation, so growth cannot fail); a write
+        landing in a SHARED page (a prefix-cache pin also holds it) first
+        detaches to a private copy, all copies of the step in one call."""
         st = self.st
+        kw = {}
+        if self.pool is not None:
+            cow_src, cow_dst = [], []
+            for slot in np.flatnonzero(st.active):
+                self.pool.grow(slot,
+                               self.sm.pages_for(int(st.pos[slot]) + 1))
+                for ci in self.sm.write_page_indices(int(st.pos[slot])):
+                    pair = self.pool.cow(slot, ci)
+                    if pair is not None:
+                        cow_src.append(pair[0])
+                        cow_dst.append(pair[1])
+            if cow_src:
+                self.state = self.sm.copy_pages(self.state, cow_src,
+                                                cow_dst)
+                self.n_cow_copies += len(cow_src)
+            kw["bt"] = self.pool.block_tables
         sampling = dict(st.knobs) if self.sm.autoregressive else None
         out, self.state = self.sm.step(st.cur, self.state, st.pos,
-                                       st.active, sampling)
+                                       st.active, sampling, **kw)
         emitted = out.cpu().numpy()
         self.n_steps += 1
         for slot in np.flatnonzero(st.active):
@@ -360,12 +527,27 @@ class ServeEngine:
                 self._verbose_sink = StatsSink()
             sink = self._verbose_sink
         while st.waiting or st.active.any():
+            n_finished = len(st.finished)
             self.step()
             if sink is not None:
                 sink.emit(self.stats())
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
+            if (st.waiting and not st.active.any()
+                    and len(st.finished) == n_finished):
+                # nothing runs to free capacity: the head can never admit
+                head = self.policy.admit_order(st.waiting, st)[0]
+                pool = ("no page pool" if self.pool is None else
+                        f"pool: {self.pool.available} of "
+                        f"{self.pool.num_pages} pages unreserved, "
+                        f"{self.pool.pages_in_use} in use")
+                raise RuntimeError(
+                    f"engine stalled: request uid={head.uid} (prompt="
+                    f"{len(head.prompt)} tokens, max_new_tokens="
+                    f"{head.max_new_tokens}, needs "
+                    f"{self._pages_for_req(head)} pages) cannot admit and "
+                    f"no slot is active to free capacity — {pool}")
         return st.finished
 
     # ------------------------------------------------------------------
@@ -380,6 +562,10 @@ class ServeEngine:
             slots=self.slots,
             active_slots=self.st.n_active,
             queue_depth=self.st.queue_depth,
+            pages_in_use=(self.pool.pages_in_use if self.pool else 0),
+            pages_free=(len(self.pool._free) if self.pool else 0),
+            pages_reserved=(self.pool.reserved_total if self.pool
+                            else 0),
             utilization=self._n_decoded / paid if paid else 0.0,
             tokens_per_s=self._rate.per_s(),
             queue_wait_p50_ms=p50,
@@ -397,11 +583,20 @@ class ServeEngine:
                 "tokens_decoded": self._n_decoded,
                 "requests_finished": len(self.st.finished),
                 "prefill_chunks": getattr(self.sm, "n_prefill_chunks", 0),
+                "cow_copies": self.n_cow_copies,
+                "prefix_hits": self.n_prefix_hits,
+                "prefix_tokens_skipped": self.n_prefix_tokens,
             },
             "gauges": {
                 "slots": float(self.slots),
                 "active_slots": float(s.active_slots),
                 "queue_depth": float(s.queue_depth),
+                "pages_in_use": float(s.pages_in_use),
+                "pages_free": float(s.pages_free),
+                "pages_reserved": float(s.pages_reserved),
+                "pool_utilization": (
+                    s.pages_in_use / self.pool.num_pages
+                    if self.pool else 0.0),
                 "utilization": s.utilization,
             },
             "rates": {

@@ -1,5 +1,6 @@
 """The StepModel protocol: what the serving engine requires of a model
-(port of ``repro.serve.protocol``, dense single-device layout).
+(port of ``repro.serve.protocol``: single device, dense and paged KV
+layouts).
 
 A StepModel reduces a model to a few operations over a slot-batched
 recurrent state:
@@ -12,13 +13,15 @@ recurrent state:
                                             inactive slots stay frozen
   * ``write_slots(state, batch_state, slots)``
                                           — install a wave's carry
+                                            (paged layout: also its
+                                            page rows and prompt length)
 
 The port's modules own their parameters, so no ``params`` argument
-travels through these calls.  The mesh, paged, verify, fork and
-copy-on-write parts of the reference are not ported yet.
+travels through these calls.  The mesh, verify, fork and preemption
+parts of the reference are not ported yet.
 
-  * :class:`DecoderStepModel` — a ``DecoderLM`` of O(1)-state (minGRU)
-    layers; state = the model's (n_layers, slots, d_model) cache.
+  * :class:`DecoderStepModel` — a ``DecoderLM`` of minGRU or GQA layers,
+    with a dense or (attention stacks) a paged KV layout (see the class).
   * :class:`MinimalistStepModel` — the paper's ``MinimalistNetwork``
     streaming frames, optionally through the fused CUDA step kernel on
     exported 2 b codes.
@@ -31,6 +34,10 @@ import torch
 from repro_torch.common import pow2ceil
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, MLA
 from repro_torch.kernels.minimalist_block import ops as mb_ops
+from repro_torch.kernels.paged_attention import quant as kvq
+from repro_torch.kernels.paged_attention.ref import (gather_dequant,
+                                                     gather_pages)
+from repro_torch.serve.paged import PagedConfig
 from repro_torch.serve.prefill import chunked_prefill
 from repro_torch.serve.sampling import (greedy_arrays, knobs_to_device,
                                         sample_tokens)
@@ -61,17 +68,25 @@ def _axis_mask(active, leaf, axis=0):
 
 def masked_update(state, new_state, active, axis=0):
     """Freeze inactive slots: new value where active, old where not.
-    ``state`` is a tensor or a list of tensors (slot axis at ``axis``)."""
+    ``state`` is a tensor, or a list or dict of them (slot axis at
+    ``axis``)."""
     if isinstance(state, (list, tuple)):
         return [masked_update(o, n, active, axis)
                 for o, n in zip(state, new_state)]
+    if isinstance(state, dict):
+        return {k: masked_update(state[k], new_state[k], active, axis)
+                for k in state}
     return torch.where(_axis_mask(active, new_state, axis), new_state, state)
 
 
 def _scatter_slots(s, v, slots, axis):
-    """In place: s[..slots..] = v along ``axis``; entries of ``slots`` >=
-    capacity are admission-wave padding and are dropped (the reference's
-    out-of-bounds scatter semantics)."""
+    """In place: s[..slots..] = v along ``axis`` (tensors, or lists/dicts
+    of them); entries of ``slots`` >= capacity are admission-wave padding
+    and are dropped (the reference's out-of-bounds scatter semantics)."""
+    if isinstance(s, (list, tuple)):
+        return [_scatter_slots(a, b, slots, axis) for a, b in zip(s, v)]
+    if isinstance(s, dict):
+        return {k: _scatter_slots(s[k], v[k], slots, axis) for k in s}
     keep = slots < s.shape[axis]
     idx = torch.as_tensor(slots[keep], dtype=torch.int64, device=s.device)
     sel = torch.as_tensor(np.flatnonzero(keep), dtype=torch.int64,
@@ -81,25 +96,74 @@ def _scatter_slots(s, v, slots, axis):
 
 
 class DecoderStepModel(StepModel):
-    """StepModel over a ``DecoderLM`` of O(1)-state layers; state = the
-    per-layer minGRU carries, (n_layers, slots, d_model) in bf16.  The
-    decode step is one batched ``decode_step`` (the layers are
-    position-free), and the slot axis of the state is 1."""
+    """StepModel over a ``DecoderLM``; state = the per-layer decode caches
+    (``DecoderLM``'s layouts).
+
+    ``kv_layout`` selects where attention caches live:
+
+      * "dense" (default) — every slot owns (max_len, ...) cache rows;
+        positional stacks decode in one batched step with per-slot
+        positions (the reference vmaps a scalar-position step instead).
+      * "paged" — attention caches are shared page pools read through
+        per-slot block tables (``serve.paged``); admission prefill still
+        computes the dense wave cache and ``write_slots`` scatters it
+        PAGE-granularly, and the engine allocates pages as positions cross
+        page boundaries.  ``ModelConfig.paged_impl="kernel"`` (default)
+        reads through the paged GQA decode kernels; ``"gather"`` keeps the
+        decode math bitwise identical to the dense layout.  With
+        ``kv_dtype="int8"`` pools hold symmetric per-page codes plus
+        float32 ``*_scale`` leaves: ``write_slots`` quantizes page rows on
+        install and the decode write requantizes incrementally.
+
+    Pool leaves are updated IN PLACE (the engine's own buffers).
+    """
 
     autoregressive = True
 
     def __init__(self, model, *, max_len: int = 256,
-                 prefill_chunk: int = 256):
+                 prefill_chunk: int = 256, kv_layout: str = "dense",
+                 paged=None):
         self.model = model
         self.max_len = int(max_len)
         self.prefill_chunk = int(prefill_chunk)
         self.vocab = model.cfg.vocab
         kinds = {s.kind for s in model.cfg.layer_specs()}
+        # position-free stacks: every mixer carries O(1) state
         self.positional = bool(kinds & {ATTN, ATTN_LOCAL, MLA})
-        if self.positional:
-            raise NotImplementedError(
-                f"{model.cfg.name}: attention-bearing stacks are not ported "
-                "yet (the port serves O(1)-state minGRU stacks)")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', "
+                             f"got {kv_layout!r}")
+        self.kv_layout = kv_layout
+        self.paged = None
+        if kv_layout == "paged":
+            if len(model.paged_layer_names()) != len(model.layers):
+                raise ValueError(
+                    f"{model.cfg.name}: kv_layout='paged' needs an "
+                    "attention stack — O(1)-state stacks have no KV cache "
+                    "to page (serve them dense)")
+            # the longest in-cache span any layer keeps: global layers
+            # span max_len; a pure sliding-window stack is bounded by its
+            # ring, so its page chains never exceed the window
+            if ATTN in kinds or MLA in kinds:
+                self._page_cap = self.max_len
+            else:
+                self._page_cap = min(model.cfg.sliding_window, self.max_len)
+            self.paged = paged if paged is not None else PagedConfig()
+            self.max_pages = self.pages_for(self.max_len)
+            self.paged.validate_for(self.max_len, self.max_pages)
+            # copy-on-write metadata: the in-chain pages a decode write at
+            # position p touches — page p//ps for global layers, page
+            # (p % L)//ps of each window ring of length L
+            ring, has_global = set(), False
+            for layer in model.layers:
+                L = layer.mixer.ring_length(self.max_len)
+                if L < self.max_len:
+                    ring.add(int(L))
+                else:
+                    has_global = True
+            self._ring_lens = sorted(ring)
+            self._has_global = has_global
+            self._has_window = bool(ring)
         self.n_prefill_chunks = 0      # chunks prefilled, for kernel audits
         self._greedy = {}
 
@@ -107,19 +171,100 @@ class DecoderStepModel(StepModel):
     def device(self):
         return self.model.device
 
+    @property
+    def _slot_axis(self):
+        """Slot axis of the dense state's leaves: 1 in a pure minGRU
+        stack's stacked (n_layers, slots, d) tensor, else 0."""
+        return 1 if self.model.stacked_cache else 0
+
+    # -- paged layout ----------------------------------------------------
+    def pages_for(self, n: int) -> int:
+        """Pages a request needs once it spans ``n`` positions."""
+        ps = self.paged.page_size
+        return -(-min(int(n), self._page_cap) // ps)
+
+    def num_pages(self, slots: int) -> int:
+        """Resolved pool capacity (0 in the config = dense-equivalent)."""
+        return self.paged.resolve_num_pages(slots, self.max_pages)
+
+    def write_page_indices(self, pos: int):
+        """In-chain page indices a decode write at ``pos`` touches (the
+        engine copies-on-write those that are shared)."""
+        ps = self.paged.page_size
+        out = set()
+        if self._has_global:
+            out.add(int(pos) // ps)
+        for L in self._ring_lens:
+            out.add((int(pos) % L) // ps)
+        return sorted(out)
+
+    def check_prefix_cacheable(self):
+        """Prefix caching rebuilds a request's WHOLE decode state from
+        pages — reject stacks where that is impossible."""
+        if self.kv_layout != "paged":
+            raise ValueError("prefix caching needs kv_layout='paged'")
+        if self._page_cap < self.max_len:
+            raise ValueError(
+                "prefix caching needs page chains spanning max_len; a "
+                f"pure sliding-window stack caps them at the ring "
+                f"({self._page_cap} positions) and overwrites prompt "
+                "pages in place")
+        return True
+
+    def copy_pages(self, state, src, dst):
+        """Copy-on-write device copies, in place: page ``src[i]`` ->
+        ``dst[i]`` in every pool leaf (codes and scales alike)."""
+        dev = self.device
+        src = torch.as_tensor(np.asarray(src), dtype=torch.int64, device=dev)
+        dst = torch.as_tensor(np.asarray(dst), dtype=torch.int64, device=dev)
+        with torch.inference_mode():
+            for pool in state:
+                for leaf in pool.values():
+                    leaf[dst] = leaf[src]
+        return state
+
+    def seed_cache(self, state, bt_row):
+        """Prefix attach: the dense (B=1) prefill cache that ``bt_row``'s
+        page chain holds, ready to resume ``prefill(cache0=...,
+        start=...)``.  Int8 pools give the dequantized view.  Entries past
+        the chain gather page 0 — every read of them is position-masked or
+        overwritten by the tail prefill."""
+        bt = torch.as_tensor(np.asarray(bt_row), dtype=torch.int32,
+                             device=self.device)
+        out = []
+        with torch.inference_mode():
+            for layer, sub in zip(self.model.layers, state):
+                Lv = layer.mixer.ring_length(self.max_len)
+                if "k_scale" in sub:
+                    out.append({k: gather_dequant(sub[k], sub[k + "_scale"],
+                                                  bt, Lv, torch.bfloat16)
+                                for k in ("k", "v")})
+                else:
+                    out.append({k: gather_pages(sub[k], bt, Lv).to(
+                        torch.bfloat16) for k in ("k", "v")})
+        return out
+
+    # -- state ------------------------------------------------------------
     def init_state(self, batch):
+        if self.kv_layout == "paged":
+            return self.model.init_paged_cache(self.num_pages(batch),
+                                               self.paged.page_size)
         return self.model.init_cache(batch, self.max_len)
 
     def chunk_for(self, plen: int) -> int:
         """Chunk width of a ``plen``-token prompt: ``prefill_chunk`` capped
-        at the next power of two of the prompt (padding waste < 2x)."""
+        at the next power of two of the prompt (padding waste < 2x).  Part
+        of the prefix-cache key: attaching is bitwise only between
+        requests sharing one chunk grid."""
         return min(self.prefill_chunk, pow2ceil(int(plen)))
 
-    def prefill(self, xs, pos0=0):
-        """xs: (B, P) int prompts -> (last logits (B, V_pad), carry)."""
+    def prefill(self, xs, pos0=0, cache0=None, start=0):
+        """xs: (B, P) int prompts -> (last logits (B, V_pad), carry).
+        ``cache0``/``start``: prefix-attach tail prefill from a seeded
+        cache (:meth:`seed_cache`), from chunk-aligned ``start`` on."""
         with torch.inference_mode():
             return chunked_prefill(self, xs, chunk=self.chunk_for(
-                np.shape(xs)[1]), pos0=pos0)
+                np.shape(xs)[1]), pos0=pos0, cache0=cache0, start=start)
 
     def _sample(self, logits, samp, pos):
         """Per-row counter-keyed sampling over the REAL vocab; an
@@ -133,22 +278,42 @@ class DecoderStepModel(StepModel):
         return sample_tokens(lg, dev["seed"], dev["uid"], dev["uid_hi"], pos,
                              dev["temperature"], dev["top_k"], dev["top_p"])
 
-    def step(self, tok, state, pos, active, sampling=None):
+    def step(self, tok, state, pos, active, sampling=None, bt=None):
         """tok: (slots,) int; pos, active: (slots,) host arrays; sampling:
-        dict of per-slot host knob arrays (None -> all greedy).  Returns
-        (next token per slot (slots,) int32 on the device, merged state)."""
+        dict of per-slot host knob arrays (None -> all greedy); bt:
+        (slots, max_pages) int32 block tables (paged layout only).
+        Returns (next token per slot (slots,) int32 on the device, merged
+        state)."""
         n = int(np.shape(tok)[0])
         if sampling is None:
             if n not in self._greedy:
                 self._greedy[n] = greedy_arrays(n)
             sampling = self._greedy[n]
         dev = self.device
+        active = np.asarray(active)
         with torch.inference_mode():
             tok_t = torch.as_tensor(np.asarray(tok), dtype=torch.int64,
                                     device=dev)
-            act = torch.as_tensor(np.asarray(active), device=dev)
-            logits, new_state = self.model.decode_step(tok_t[:, None], state)
-            merged = masked_update(state, new_state, act, axis=1)
+            act = torch.as_tensor(active, device=dev)
+            pos_t = torch.as_tensor(np.asarray(pos), dtype=torch.int32,
+                                    device=dev)
+            if self.kv_layout == "paged":
+                if bt is None:
+                    raise ValueError("paged kv_layout needs block tables "
+                                     "(the engine passes pool.block_tables)")
+                bt_t = torch.as_tensor(np.asarray(bt), dtype=torch.int32,
+                                       device=dev)
+                rows = torch.as_tensor(np.flatnonzero(active),
+                                       dtype=torch.int64, device=dev)
+                # the pools are written in place for the active slots only
+                logits, merged = self.model.decode_step_paged(
+                    tok_t[:, None], state, pos_t, bt_t, act, self.max_len,
+                    rows=rows)
+            else:
+                logits, new_state = self.model.decode_step(
+                    tok_t[:, None], state, pos_t)
+                merged = masked_update(state, new_state, act,
+                                       axis=self._slot_axis)
             # the token produced from input position p lands at p + 1
             out = self._sample(logits[:, -1, :], sampling,
                                np.asarray(pos, np.int64) + 1)
@@ -163,12 +328,55 @@ class DecoderStepModel(StepModel):
         """Greedy over the REAL vocab (debugging helper)."""
         return torch.argmax(logits[..., :self.vocab], dim=-1).to(torch.int32)
 
-    def write_slots(self, state, batch_state, slots):
+    def _write_pages(self, pool, batch_state, rows, pages, plen):
+        """Install one attention layer's dense wave cache page-granularly,
+        in place: each real wave row's first ceil(min(plen, L)/ps) pages
+        of (length L) K/V land at its chain's page ids; int8 pools
+        quantize each page row on install (absmax scale per page and kv
+        head) and store codes and scales."""
+        ps = self.paged.page_size
+        for key in ("k", "v"):
+            v = batch_state[key]
+            Lv = v.shape[1]
+            n = -(-min(plen, Lv) // ps)
+            take = min(n * ps, Lv)
+            v2 = v[rows, :take]
+            if take < n * ps:               # ring shorter than whole pages
+                v2 = torch.nn.functional.pad(
+                    v2, (0, 0, 0, 0, 0, n * ps - take))
+            v2 = v2.reshape(v2.shape[0], n, ps, *v2.shape[2:])
+            pg = pages[:, :n]
+            if key + "_scale" in pool:
+                sc = kvq.page_abs_scale(v2, page_axis=2)
+                pool[key][pg] = kvq.quantize(v2, sc, page_axis=2)
+                pool[key + "_scale"][pg] = sc
+            else:
+                pool[key][pg] = v2.to(pool[key].dtype)
+
+    def write_slots(self, state, batch_state, slots, pages=None,
+                    plen=None):
         """Install a wave's carry (batch axis aligned with ``slots``) into
         the slot batch, IN PLACE (the state is the engine's own buffer).
-        Padding entries (>= capacity) are dropped."""
+        Padding entries (>= capacity) are dropped.  Paged layout:
+        ``pages`` = the wave's block-table rows (padding rows all out of
+        bounds) and ``plen`` = the wave's prompt length."""
+        slots = np.asarray(slots)
         with torch.inference_mode():
-            return _scatter_slots(state, batch_state, np.asarray(slots), 1)
+            if self.kv_layout != "paged":
+                return _scatter_slots(state, batch_state, slots,
+                                      self._slot_axis)
+            if pages is None or plen is None:
+                raise ValueError("paged write_slots needs the wave's page "
+                                 "rows and its prompt length")
+            # padding rows of the wave hold out-of-bounds page ids
+            pages = np.asarray(pages)
+            real = np.flatnonzero(pages[:, 0] < state[0]["k"].shape[0])
+            dev = self.device
+            rows = torch.as_tensor(real, dtype=torch.int64, device=dev)
+            pg = torch.as_tensor(pages[real], dtype=torch.int64, device=dev)
+            for pool, wave in zip(state, batch_state):
+                self._write_pages(pool, wave, rows, pg, int(plen))
+            return state
 
 
 class MinimalistStepModel(StepModel):

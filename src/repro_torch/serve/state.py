@@ -4,8 +4,9 @@
 :class:`SlotTable` owns the waiting queue, the free-slot bitmask and the
 per-slot position / budget / active / sampling-knob arrays behind small
 explicit mutators (:meth:`alloc_slot` / :meth:`free_slot` /
-:meth:`retire`).  The page pool and preemption snapshots of the
-reference are not ported yet.
+:meth:`retire`).  Under the paged KV layout it also holds the page pool
+and releases a slot's pages and reservation when the slot is freed.
+Preemption snapshots of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -60,12 +61,18 @@ class Request:
 
 
 class SlotTable:
-    """Host-side slot + request state for a fixed-capacity engine."""
+    """Host-side slot + request state for a fixed-capacity engine.
 
-    def __init__(self, slots: int, telemetry=None):
+    ``pool`` (optional) is the paged-KV
+    :class:`~repro_torch.serve.paged.PagePool`; freeing a slot releases
+    its pages and reservation.
+    """
+
+    def __init__(self, slots: int, pool=None, telemetry=None):
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError("slots must be >= 1")
+        self.pool = pool
         self.telemetry = telemetry if telemetry is not None \
             else NULL_TELEMETRY
         self.free_mask = (1 << self.slots) - 1     # bit i set = slot i free
@@ -100,6 +107,11 @@ class SlotTable:
         self.free_mask = int(self.free_mask) | (1 << int(slot))
         self.slot_req[slot] = None
         self.active[slot] = False
+        if self.pool is not None:
+            # pages (and the unused reservation tail) go straight back
+            # into circulation; the pool content is NOT cleared — any
+            # future read of a recycled page is position-masked
+            self.pool.release(slot)
         for k, v in KNOB_GREEDY.items():
             self.knobs[k][slot] = v
         if self.telemetry.enabled:
@@ -126,7 +138,9 @@ class SlotTable:
         self.waiting = deque(r for r in self.waiting if r is not req)
 
     def discard_waiting(self, req: Request) -> bool:
-        """Cancel path: drop a still-queued request (identity match)."""
+        """Cancel path: drop a still-queued request (identity match).
+        Never touches the pool: a queued request holds no slot, pages or
+        reservation."""
         if not any(r is req for r in self.waiting):
             return False
         self.waiting = deque(r for r in self.waiting if r is not req)

@@ -7,7 +7,10 @@ Imports nothing of JAX, so it runs on a machine that has only PyTorch:
 Every test needs a CUDA device and skips without one (the kernels have no
 CPU mode).  Tolerances: the scan and its adjoint 1e-5 in fp32 and 2e-2 in
 bf16; the fused step's h 2e-5 and its gate codes equal away from a code
-step; the fused sequence kernel bit for bit."""
+step; the fused sequence kernel bit for bit; the paged decode kernels
+2e-6 of their plain version in fp32 and, for bf16 outputs, one bf16 ulp
+plus that fp32 bound (both round fp32 results within 2e-6 of each
+other)."""
 import numpy as np
 import pytest
 import torch
@@ -215,3 +218,146 @@ def test_lm_train_step_on_cuda_launches_both_scan_kernels(cuda):
     assert np.isfinite(float(met["loss"]))
     assert scan_ops.linear_scan_kernel.launches - n_fwd == cfg.n_layers
     assert scan_ops.linear_scan_bwd_kernel.launches - n_bwd == cfg.n_layers
+
+
+# -- paged GQA decode: both kernels against their plain version ----------
+
+def _paged_setup(dev, *, B=3, H=6, KV=2, hd=16, L=24, ps=8, num_pages=40,
+                 seed=0, garbage=50.0):
+    """Disjoint random chains over a pool whose other pages hold large
+    garbage; the chains' pages hold dense K/V rows."""
+    rng = np.random.default_rng(seed)
+    n_chain = -(-L // ps)
+    bt = rng.permutation(num_pages)[:B * n_chain].reshape(B, n_chain)
+    pk = rng.standard_normal((num_pages, ps, KV, hd)).astype(np.float32)
+    pv = rng.standard_normal((num_pages, ps, KV, hd)).astype(np.float32)
+    pk *= garbage
+    pv *= garbage
+    for b in range(B):
+        for j in range(L):
+            pk[bt[b, j // ps], j % ps] = rng.standard_normal((KV, hd))
+            pv[bt[b, j // ps], j % ps] = rng.standard_normal((KV, hd))
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    pos = rng.integers(0, 3 * L, size=B)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    return (t(q), t(pk), t(pv), t(bt, torch.int32), t(pos, torch.int32))
+
+
+def _bf16_close(got, want):
+    """bf16 outputs of two fp32 computations within 2e-6 of each other:
+    equal to one bf16 ulp (of the larger magnitude), plus the fp32 bound
+    where cancellation leaves an output near zero."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((got - want).abs() <= ulp + 2e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [4, 8, 16])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_gqa_kernel_matches_plain(cuda, ps, window, dtype):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    L = 24 if window is None else 7
+    q, pk, pv, bt, pos = _paged_setup(cuda, L=L, ps=ps, seed=ps)
+    if window is None:
+        pos = pos.clamp(max=L - 1)
+    q, pk, pv = q.to(dtype), pk.to(dtype), pv.to(dtype)
+    n0 = pa_ops.paged_gqa_kernel.launches
+    got = pa_ops.paged_gqa_kernel(q, pk, pv, bt, pos, length=L,
+                                  window=window)
+    assert pa_ops.paged_gqa_kernel.launches == n0 + 1
+    want = pa_ref.paged_gqa_ref(q, pk, pv, bt, pos, length=L, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-6
+    else:
+        assert _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_gqa_q8_kernel_matches_plain(cuda, window, dtype):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    L = 24 if window is None else 7
+    q, pk, pv, bt, pos = _paged_setup(cuda, L=L, ps=4, seed=11)
+    if window is None:
+        pos = pos.clamp(max=L - 1)
+    ks, vs = kvq.page_abs_scale(pk), kvq.page_abs_scale(pv)
+    ck, cv = kvq.quantize(pk, ks), kvq.quantize(pv, vs)
+    q = q.to(dtype)
+    n0 = pa_ops.paged_gqa_q8_kernel.launches
+    got = pa_ops.paged_gqa_q8_kernel(q, ck, cv, ks, vs, bt, pos, length=L,
+                                     window=window)
+    assert pa_ops.paged_gqa_q8_kernel.launches == n0 + 1
+    want = pa_ref.paged_gqa_ref(q, ck, cv, bt, pos, length=L, window=window,
+                                k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-6
+    else:
+        assert _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_paged_gqa_kernel_chain_permutation_and_stale_pages(cuda):
+    """Where a chain's pages sit in the pool does not matter (bitwise),
+    and neither do foreign pages behind unallocated block-table entries
+    past the live position (the reference's
+    test_chain_permutation_invariance and
+    test_stale_pages_and_unallocated_entries_ignored)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    q, pk, pv, bt, pos = _paged_setup(cuda, L=16, ps=4, seed=3)
+    pos = pos.clamp(max=15)
+    perm = torch.as_tensor(np.random.default_rng(4).permutation(40),
+                           device=cuda)
+    inv = torch.argsort(perm)
+    # page i moves to slot perm[i]; the block table follows it
+    bt2 = perm[bt.long()].to(torch.int32)
+    pk2, pv2 = pk[inv], pv[inv]
+    for fn in (lambda *a: pa_ops.paged_gqa_kernel(*a, length=16),):
+        a = fn(q, pk, pv, bt, pos)
+        b = fn(q, pk2, pv2, bt2, pos)
+        assert torch.equal(a, b)
+    short = pos.clamp(max=3)           # only chain entry 0 is live
+    poison = bt.clone()
+    poison[:, 1:] = (bt[:, 1:] + 1) % 40
+    a = pa_ops.paged_gqa_kernel(q, pk, pv, bt, short, length=16)
+    b = pa_ops.paged_gqa_kernel(q, pk, pv, poison, short, length=16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paged_gqa_wrappers_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+
+    q, pk, pv, bt, pos = _paged_setup(cuda, L=16, ps=4)
+    with pytest.raises(ValueError, match="different devices"):
+        pa_ops.paged_gqa_kernel(q, pk.cpu(), pv.cpu(), bt, pos, length=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_ops.paged_gqa_kernel(q.transpose(0, 1).contiguous()
+                                .transpose(0, 1), pk, pv, bt, pos,
+                                length=16)
+    with pytest.raises(ValueError, match="int32"):
+        pa_ops.paged_gqa_kernel(q, pk, pv, bt.long(), pos, length=16)
+    with pytest.raises(ValueError, match="dtype"):
+        pa_ops.paged_gqa_kernel(q, pk.to(torch.bfloat16),
+                                pv.to(torch.bfloat16), bt, pos, length=16)
+    ks = kvq.page_abs_scale(pk)
+    ck = kvq.quantize(pk, ks)
+    with pytest.raises(ValueError, match="int8"):
+        pa_ops.paged_gqa_q8_kernel(q, pk, pv, ks, ks, bt, pos, length=16)
+    with pytest.raises(ValueError, match="float32"):
+        pa_ops.paged_gqa_q8_kernel(q, ck, ck, ks.double(), ks, bt, pos,
+                                   length=16)
