@@ -39,6 +39,12 @@ Phases, each fatal on failure:
                x32 (whose greedy streams do not just repeat one token), and
                a shared 128-token prefix with and without the prefix cache
                (streams equal).
+  8. attn_train — train full-width smollm-360m with attention_impl="flash"
+               for 20 steps through Trainer (batch 4, seq 2048): loss
+               falls, no restores, every layer runs the flash_fwd kernel
+               and both flash_bwd kernels once per step; then 3 steps at
+               batch 1 x 2048 from the same seed with flash and with the
+               naive softmax, losses and grad norms compared.
 
 Kernel launch counts are zeroed just before each main-path phase and read
 just after it.  The second-to-last stdout line is the card's name and
@@ -58,9 +64,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published peaks (dense): HBM3 rate and fp32 non-tensor rate
+# H100 SXM published peaks (dense): HBM3 rate, fp32 non-tensor rate, and
+# the bf16 tensor-core rate (the flash rows: a bf16 x bf16 product is exact
+# in fp32, so the card could do their work on the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 
 
 def fail(msg):
@@ -68,10 +77,11 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound(bytes_, flops):
+def bound(bytes_, flops, peak_flops=PEAK_FP32_FLOPS):
     """(least time in ms, what bounds it) for moving ``bytes_`` once and
-    doing ``flops`` fp32 operations on the card."""
-    t_mem, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    doing ``flops`` operations at ``peak_flops`` (fp32 unless given) on the
+    card."""
+    t_mem, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / peak_flops
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -316,7 +326,18 @@ def phase_kernels(torch, dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=library_ms)
     rows.update(_kernel_rows_paged(torch, dev, g))
+    rows.update(_kernel_rows_flash(torch, dev, g))
     return rows
+
+
+def _past_bf16_ulp(torch, got, want):
+    """(number of elements where |got - want| exceeds one bf16 ulp of the
+    larger magnitude plus 2e-6, max |got - want|)."""
+    a, w = got.float(), want.float()
+    mag = torch.maximum(a.abs(), w.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    err = (a - w).abs()
+    return int((err > ulp + 2e-6).sum()), err.max().item()
 
 
 def _paged_case(torch, dev, g, *, B, H, KV, hd, ps, length, pos, window,
@@ -360,19 +381,15 @@ def _kernel_rows_paged(torch, dev, g):
             sk = dict(zip(("k_scale", "v_scale"), sc))
             want = pa_ref.paged_gqa_ref(q, pk, pv, bt, pos_t, **kw, **sk)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
             # one bf16 ulp of the output (of the larger magnitude), plus
             # the fp32 bound 2e-6 where cancellation leaves it near zero:
             # both round fp32 results within 2e-6 of each other to bf16
-            mag = torch.maximum(got.float().abs(), want.float().abs())
-            ulp = torch.exp2(torch.floor(torch.log2(
-                mag.clamp(min=2.0 ** -126))) - 7)
+            n_bad, err = _past_bf16_ulp(torch, got, want)
             tag = (f"{name} (B {B}, H {H}, KV {KV}, hd {hd}, page {ps}, "
                    f"length {length}, window {window}) bf16 q")
-            if not (err <= ulp + 2e-6).all():
+            if n_bad:
                 fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
-                     f"(max {err.max().item()})")
-            err = err.max().item()
+                     f"(max {err})")
 
             def kernel():
                 kern(q, pk, pv, *sc, bt, pos_t, **kw)
@@ -418,6 +435,110 @@ def _kernel_rows_paged(torch, dev, g):
                 rows[name] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=by, library_ms=library_ms)
+    return rows
+
+
+def _kernel_rows_flash(torch, dev, g):
+    """flash_fwd and flash_bwd at the attn_train phase's shape (smollm-360m:
+    batch 4, 15/5 heads of 64, seq 2048, causal, bf16) and at gemma3-4b's
+    local layers (8/4 heads of 256, window 1024), against their plain
+    versions.  Every bf16 output (out, dq, dk, dv) within one bf16 ulp of
+    the larger magnitude plus 2e-6 (both round to bf16 the fp32 results of
+    the same sums taken in another order); lse (fp32) within 2e-5 + 2e-5
+    |plain|."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for B, H, KV, S, D, window in [(4, 15, 5, 2048, 64, None),
+                                   (1, 8, 4, 2048, 256, 1024)]:
+        path = window is None
+        bf = torch.bfloat16
+        q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(bf)
+        k = (torch.randn(B, KV, S, D, device=dev, generator=g) * 0.5).to(bf)
+        v = torch.randn(B, KV, S, D, device=dev, generator=g).to(bf)
+        do = torch.randn(B, H, S, D, device=dev, generator=g).to(bf)
+        tag = (f"(B {B}, H {H}, KV {KV}, S {S}, D {D}, causal, window "
+               f"{window}) bf16")
+        out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, window)
+        want, want_lse = fa_ref.flash_attention_ref(q, k, v, True, window)
+        torch.cuda.synchronize()
+        n_bad, err = _past_bf16_ulp(torch, out, want)
+        lse_diff = (lse - want_lse).abs()
+        lse_err = lse_diff.max().item()
+        if n_bad or not (lse_diff <= 2e-5 + 2e-5 * want_lse.abs()).all():
+            fail(f"flash_fwd {tag}: {n_bad} outputs past one bf16 ulp + "
+                 f"2e-6 (max {err}), max |lse - plain| {lse_err}")
+        grads = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, window)
+        wgrads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True,
+                                                window)
+        torch.cuda.synchronize()
+        gerr = 0.0
+        for name, a, w in zip(("dq", "dk", "dv"), grads, wgrads):
+            n_bad, e = _past_bf16_ulp(torch, a, w)
+            if n_bad:
+                fail(f"flash_bwd {tag}: {n_bad} {name} entries past one bf16 "
+                     f"ulp + 2e-6 (max |diff| {e})")
+            gerr = max(gerr, e)
+
+        def fwd():
+            fa_ops.flash_fwd_kernel(q, k, v, True, window)
+
+        def bwd():
+            fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, window)
+        f_ms, f_call = device_ms(torch, fwd, 20), eager_ms(torch, fwd, 20)
+        b_ms, b_call = device_ms(torch, bwd, 10), eager_ms(torch, bwd, 10)
+        f_plain = device_ms(torch, lambda: fa_ref.flash_attention_ref(
+            q, k, v, True, window), 2)
+        b_plain = device_ms(torch, lambda: fa_ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, True, window), 2)
+        # yardstick the port never calls: SDPA (GQA), causal, or with a
+        # boolean window mask; its backward alone, timed on a retained
+        # autograd graph
+        if path:
+            kw = dict(is_causal=True, enable_gqa=True)
+        else:
+            kw = dict(attn_mask=fa_ref.attend_mask(S, True, window, dev),
+                      enable_gqa=True)
+        f_lib = device_ms(torch, lambda: sdpa(q, k, v, **kw), 20)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = sdpa(ql, kl, vl, **kw)
+        b_lib = eager_ms(torch, lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), 10)
+        del ol, ql, kl, vl
+        # the reference's cost model: the forward is the inference call;
+        # the backward's flops are the training call's less the forward's,
+        # its bytes each input (q, k, v, out, do, lse) read and each
+        # gradient written once
+        ff, fb = fa_ops.cost_model(B, H, KV, S, D, window=window,
+                                   train=False)
+        tf, _ = fa_ops.cost_model(B, H, KV, S, D, window=window, train=True)
+        el = q.element_size()
+        bb = 2 * B * (H + 2 * KV) * S * D * el + 2 * B * H * S * D * el \
+            + B * H * S * 4
+        fb_ms, f_by = bound(fb, ff, PEAK_BF16_TENSOR_FLOPS)
+        bb_ms, b_by = bound(bb, tf - ff, PEAK_BF16_TENSOR_FLOPS)
+        print(f"kernel flash_fwd {tag}: max_abs_err {err:.3g} (tol one bf16 "
+              f"ulp + 2e-6; lse {lse_err:.3g}) kernel {f_ms:.4f} ms (eager "
+              f"call {f_call:.4f} ms), plain {f_plain:.4f} ms, library (SDPA) "
+              f"{f_lib:.4f} ms, bound {fb_ms:.5f} ms ({f_by}, bf16 tensor "
+              f"peak; {ff / 1e9:.1f} GFLOP, {fb / 1e6:.1f} MB)", flush=True)
+        print(f"kernel flash_bwd {tag}: max_abs_err {gerr:.3g} (tol one bf16 "
+              f"ulp + 2e-6) kernels dq+dkv {b_ms:.4f} ms (eager call "
+              f"{b_call:.4f} ms), plain {b_plain:.4f} ms, library (SDPA "
+              f"backward on a retained graph) {b_lib:.4f} ms, bound "
+              f"{bb_ms:.5f} ms ({b_by}, bf16 tensor peak; "
+              f"{(tf - ff) / 1e9:.1f} GFLOP, {bb / 1e6:.1f} MB)", flush=True)
+        if path:
+            rows["flash_fwd"] = dict(
+                max_abs_err=err, ms=f_ms, plain_ms=f_plain, bound_ms=fb_ms,
+                bound_by=f_by, library_ms=f_lib)
+            rows["flash_bwd"] = dict(
+                max_abs_err=gerr, ms=b_ms, plain_ms=b_plain, bound_ms=bb_ms,
+                bound_by=b_by, library_ms=b_lib)
+        del q, k, v, do, out, lse, want, want_lse, grads, wgrads
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1016,6 +1137,118 @@ def phase_paged(torch, dev):
     return {"paged_gqa": launches, "paged_gqa_q8": q8_launches}
 
 
+def phase_attn_train(torch, dev):
+    """Full-width smollm-360m trained through Trainer with flash
+    attention on the card, then flash against the naive softmax."""
+    import math
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule, param_groups
+    from repro_torch.train import TrainConfig, Trainer, build_train_step
+
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              attention_impl="flash")
+    steps, batch, seq, seed = 20, 4, 2048, 0
+    fwd_k, bwd_k = fa_ops.flash_fwd_kernel, fa_ops.flash_bwd_kernel
+
+    def make(config):
+        model = build_model(config, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        opt = AdamW(param_groups(model), lr=cosine_schedule(
+            3e-4, warmup=steps // 20, total=steps))
+        return model, opt
+
+    def launches():
+        return (fwd_k.launches, bwd_k.launches_dq, bwd_k.launches_dkv)
+
+    loader = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq),
+                           global_batch=batch)
+    model, opt = make(cfg)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = Trainer(model, opt, TrainConfig(
+            steps=steps, ckpt_every=steps + 1, ckpt_dir=ckpt_dir,
+            log_every=10), loader=loader, seed=seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fwd_k.launches = bwd_k.launches_dq = bwd_k.launches_dkv = 0
+        t0 = time.perf_counter()
+        _, step = trainer.run()
+        wall = time.perf_counter() - t0
+        n_fwd, n_dq, n_dkv = launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if step != steps or len(hist) != steps:
+        fail(f"attn_train: stopped at step {step} with {len(hist)} steps run")
+    if trainer.restores:
+        fail(f"attn_train: {trainer.restores} crash-restores (a step raised)")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"attn_train: non-finite loss in {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        fail(f"attn_train: loss did not fall (first-5 mean {first:.4f}, "
+             f"last-5 mean {last:.4f})")
+    want = cfg.n_layers * steps
+    if (n_fwd, n_dq, n_dkv) != (want,) * 3:
+        fail(f"attn_train: flash launches fwd {n_fwd}, bwd dq {n_dq}, bwd "
+             f"dkv {n_dkv} != {cfg.n_layers} layers x {steps} steps")
+    dts = sorted(h["dt"] for h in hist[3:])
+    step_ms = dts[len(dts) // 2] * 1e3
+    print(f"attn_train: {cfg.name} attention_impl=flash {steps} steps "
+          f"(batch {batch}, seq {seq}) in {wall:.1f} s incl. the final "
+          f"checkpoint; step p50 {step_ms:.1f} ms (first "
+          f"{hist[0]['dt'] * 1e3:.0f} ms) -> "
+          f"{batch * seq / (step_ms / 1e3):.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(first-5 mean {first:.4f}, last-5 mean {last:.4f}); restores 0; "
+          f"flash_fwd launches {n_fwd}, flash_bwd launches dq {n_dq} dkv "
+          f"{n_dkv} = {cfg.n_layers} x {steps}", flush=True)
+    del trainer, model, opt
+    torch.cuda.empty_cache()
+
+    # batch 1 x 2048, the same seed and batches: flash, then the naive
+    # softmax (whose (B, H, S, S) scores do not fit at batch 4)
+    one = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq),
+                        global_batch=1)
+    runs = {}
+    for impl in ("flash", "naive"):
+        model, opt = make(dataclasses.replace(cfg, attention_impl=impl))
+        step_fn = build_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n0 = launches()
+        mets = []
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(dev, torch.int64)
+                 for k, v in one.batch_at(i).items()}
+            _, met = step_fn({}, b)
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+        ran = tuple(a - b for a, b in zip(launches(), n0))
+        runs[impl] = (mets, torch.cuda.max_memory_allocated(dev) / 2**30,
+                      ran)
+        del model, opt, step_fn
+        torch.cuda.empty_cache()
+    (fm, f_gb, f_ran), (nm, n_gb, n_ran) = runs["flash"], runs["naive"]
+    if f_ran != (3 * cfg.n_layers,) * 3:
+        fail(f"attn_train: the batch-1 flash run launched {f_ran}")
+    if any(n_ran):
+        fail(f"attn_train: the naive run launched flash kernels {n_ran}")
+    for i, ((fl, fg), (nl, ng)) in enumerate(zip(fm, nm)):
+        dl, dg = abs(fl - nl), abs(fg - ng) / ng
+        print(f"attn_train: batch 1 step {i} flash loss {fl:.5f} grad norm "
+              f"{fg:.5f}; naive loss {nl:.5f} grad norm {ng:.5f} (|dloss| "
+              f"{dl:.2e} tol 2e-2, grad norm {dg:.2%} tol 2 %)", flush=True)
+        if not (dl <= 2e-2 and dg <= 0.02):
+            fail(f"attn_train: batch-1 step {i}: flash differs from naive")
+    print(f"attn_train: batch 1 x {seq} peak memory flash {f_gb:.2f} GiB, "
+          f"naive {n_gb:.2f} GiB", flush=True)
+    return {"flash_fwd": n_fwd, "flash_bwd": n_dkv}
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1052,6 +1285,7 @@ def main():
                 "linear_scan_bwd": phase_train(torch, dev),
                 "minimalist_block": phase_system(torch, dev)}
     launches.update(phase_paged(torch, dev))
+    launches.update(phase_attn_train(torch, dev))
 
     meta = {
         "linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -1070,6 +1304,12 @@ def main():
         "paged_gqa_q8": (
             "src/repro_torch/kernels/csrc/paged_gqa_q8.cu",
             "src/repro/kernels/paged_attention/paged_attention.py:179"),
+        "flash_fwd": (
+            "src/repro_torch/kernels/csrc/flash_fwd.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:102"),
+        "flash_bwd": (
+            "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:232"),
     }
     kernels = []
     for name in build.KERNELS:

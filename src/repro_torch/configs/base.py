@@ -2,7 +2,8 @@
 ``repro.configs.base``).
 
 The dataclasses are the reference's own, field for field, with the same
-``__post_init__`` validation.  Two fields name port backends instead of
+``__post_init__`` validation, plus a check of ``attention_impl``
+against :data:`ATTENTION_IMPLS`.  Two fields name port backends instead of
 the TPU ones: ``ModelConfig.scan_backend`` takes a value of
 :data:`SCAN_BACKENDS` (the hand-written CUDA kernel replaces
 ``pallas``/``pallas_tpu``), and ``paged_impl`` takes a value of
@@ -31,6 +32,14 @@ MOE_DISPATCH_MODES = ("pooled", "per_request", "auto")
 #:   gather — the dense-view oracle: gathers each slot's page chain and
 #:            runs the dense decode math (bitwise equal to kv_layout="dense")
 PAGED_IMPLS = ("gather", "kernel")
+
+#: Legal values of :attr:`ModelConfig.attention_impl`:
+#:   naive — the masked softmax over the full (S, S) scores
+#:   flash — the flash-attention op: the hand-written CUDA forward and
+#:           backward kernels on CUDA tensors, their plain versions on CPU
+#:           tensors (the reference's ``stub`` belongs to the dry-run,
+#:           which is not ported)
+ATTENTION_IMPLS = ("naive", "flash")
 
 #: Legal values of :attr:`ModelConfig.kv_dtype`.
 KV_DTYPES = ("bf16", "int8")
@@ -137,6 +146,10 @@ class ModelConfig:
             raise ValueError(
                 f"kv_dtype must be one of {KV_DTYPES}, "
                 f"got {self.kv_dtype!r}")
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"attention_impl must be one of {ATTENTION_IMPLS}, "
+                f"got {self.attention_impl!r}")
         if self.scan_backend not in SCAN_BACKENDS:
             raise ValueError(
                 f"scan_backend must be one of {SCAN_BACKENDS}, "

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.POINTER(ctypes.c_longlong)     # a host array of int64 strides
 
 #: The C entry points of every kernel source, with their argument types
 #: (pointers and the stream as ``c_void_p``: ctypes would cut them to 32
@@ -55,6 +56,16 @@ SIGNATURES = {
     "paged_gqa_q8": {
         "paged_gqa_q8_f32": [_P] * 8 + [_I] * 9 + [_P],
         "paged_gqa_q8_bf16": [_P] * 8 + [_I] * 9 + [_P],
+    },
+    "flash_fwd": {
+        "flash_fwd_f32": [_P] * 5 + [_L] + [_I] * 7 + [_P],
+        "flash_fwd_bf16": [_P] * 5 + [_L] + [_I] * 7 + [_P],
+    },
+    "flash_bwd": {
+        "flash_bwd_dq_f32": [_P] * 10 + [_L] + [_I] * 7 + [_P],
+        "flash_bwd_dq_bf16": [_P] * 10 + [_L] + [_I] * 7 + [_P],
+        "flash_bwd_dkv_f32": [_P] * 10 + [_L] + [_I] * 7 + [_P],
+        "flash_bwd_dkv_bf16": [_P] * 10 + [_L] + [_I] * 7 + [_P],
     },
 }
 

@@ -4,20 +4,26 @@
         --arch minimalist-lm-360m --steps 300 --batch 8 --seq 256
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --device cpu --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --attention-impl flash --batch 4 --seq 2048
 
 Runs on one CUDA device unless ``--device`` names another.  Uses the
 synthetic structured-token pipeline, AdamW + cosine with the reference's
 decay mask, checkpoint/restart, straggler monitoring and optional int8
 gradient compression.  The minGRU scans go through the forward and
-adjoint CUDA kernels on the card.
+adjoint CUDA kernels on the card; with ``--attention-impl flash`` an
+attention LM's layers go through the flash-attention forward and
+backward kernels.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ATTENTION_IMPLS
 from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, cosine_schedule, param_groups
@@ -42,9 +48,15 @@ def main(argv=None):
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the parameter initialisation")
+    ap.add_argument("--attention-impl", default=None,
+                    choices=ATTENTION_IMPLS,
+                    help="attention LMs: the naive softmax or the flash-"
+                    "attention kernels (default: the config's own)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
+    if args.attention_impl:
+        cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
     model = build_model(cfg, device=args.device,
                         generator=torch.Generator(
                             device=args.device).manual_seed(args.seed))

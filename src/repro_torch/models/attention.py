@@ -3,7 +3,8 @@ parts of ``repro.models.attention``).
 
 Execution regimes, as in the reference:
 
-  * ``forward``      — full-sequence causal attention (naive softmax)
+  * ``forward``      — full-sequence causal attention (naive softmax or
+                       flash attention, ``cfg.attention_impl``)
   * ``prefill``      — one chunk against a dense cache: global layers
                        scatter K/V at absolute positions, window layers do
                        the wrap-aware ring write
@@ -16,9 +17,12 @@ Execution regimes, as in the reference:
                        math (bitwise the dense layout), ``"kernel"`` reads
                        through the paged GQA decode kernels
 
-Parameter shapes are the reference's: ``wq`` (d, H, hd), ``wk``/``wv``
-(d, KV, hd), ``wo`` (H, hd, d), so the bridge maps them by path.  MLA,
-flash attention, speculative verify/commit are not ported and raise.
+``forward`` runs the naive softmax (``attention_impl="naive"``) or the
+flash-attention op (``"flash"``: the CUDA forward and backward kernels on
+the card, their plain versions on the CPU).  Parameter shapes are the
+reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd,
+d), so the bridge maps them by path.  MLA and speculative verify/commit
+are not ported yet.
 
 JAX drops out-of-bounds scatter writes and clamps out-of-bounds gathers,
 and the reference leans on both (inactive slots write to page ``P``,
@@ -35,6 +39,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention import quant as kvq
 from repro_torch.kernels.paged_attention.ref import (gather_dequant,
                                                      gather_pages,
@@ -156,15 +161,23 @@ class GQAAttention(nn.Module):
         return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
 
     def forward(self, x, positions=None):
-        """Full-sequence causal attention. x: (B, S, D)."""
+        """Full-sequence causal attention. x: (B, S, D).
+
+        ``naive``: the masked softmax over ``positions``.  ``flash``: the
+        flash-attention op on the (B, S, H, hd) projections passed as
+        (B, H, S, hd) views (no copies; its output comes back in the same
+        layout); as in the reference, rope is applied at ``positions`` but
+        the causal and window mask is on the sequence index 0..S-1.  (The
+        config admits no other value: the dry-run's ``stub`` is not
+        ported.)"""
         B, S, _ = x.shape
-        if self.cfg.attention_impl != "naive":
-            raise NotImplementedError(
-                f"attention_impl={self.cfg.attention_impl!r} is not ported "
-                "yet (the port runs the naive softmax path)")
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q, k, v = self._qkv(x, positions)
+        if self.cfg.attention_impl == "flash":
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), True, self.window)
+            return self._out(out.transpose(1, 2), x)
         pos = positions.expand(B, S) if positions.dim() == 1 else positions
         mask = causal_mask(pos, pos, self.window)[:, None]
         return self._out(_sdpa(q, k, v, mask), x)

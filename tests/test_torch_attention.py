@@ -64,6 +64,37 @@ def test_forward_matches_reference(local):
 
 
 @pytest.mark.parametrize("local", [False, True])
+def test_flash_forward_and_grads_match_reference(local):
+    """attention_impl="flash" in both packages (the reference's Pallas
+    kernels in interpret mode, with 1-row blocks at the odd S 13; the
+    port's plain versions of its CUDA kernels), positions offset by 5 so
+    rope reads them while the mask stays on the sequence index: outputs at
+    the module's fp32 bound, the input's gradient at the flash tests'
+    atol 5e-5 / rtol 5e-4."""
+    jcfg, jm, jp, tm = _module("gemma3-4b-smoke", local, seed=4,
+                               attention_impl="flash")
+    x = np.random.default_rng(4).standard_normal(
+        (2, 13, jcfg.d_model)).astype(np.float32)
+    pos = np.arange(5, 18)
+    w = np.cos(np.arange(jcfg.d_model)).astype(np.float32)
+
+    def jloss(x):
+        return jnp.sum(jnp.sin(jm(jp, x, jnp.asarray(pos))) * w)
+
+    want, jgx = jax.value_and_grad(jloss)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = tm(xt, torch.from_numpy(pos))
+    np.testing.assert_allclose(_np(out.detach()), _np(jm(jp, jnp.asarray(x),
+                                                       jnp.asarray(pos))),
+                               **F32)
+    got = (torch.sin(out) * torch.from_numpy(w)).sum()
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), atol=5e-5,
+                               rtol=5e-4)
+
+
+@pytest.mark.parametrize("local", [False, True])
 def test_chunked_prefill_and_ring_wrap_match_reference(local):
     """Three chunks of 6 into a cache of 16 (window 8 for the ring, so the
     second and third chunks wrap it); the last chunk is grid-padded to

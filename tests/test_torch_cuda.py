@@ -10,7 +10,9 @@ bf16; the fused step's h 2e-5 and its gate codes equal away from a code
 step; the fused sequence kernel bit for bit; the paged decode kernels
 2e-6 of their plain version in fp32 and, for bf16 outputs, one bf16 ulp
 plus that fp32 bound (both round fp32 results within 2e-6 of each
-other)."""
+other); the flash-attention forward 2e-5 in fp32 and one bf16 ulp plus
+2e-6 in bf16, its gradients the reference's atol 5e-5 / rtol 5e-4 in
+fp32 and one bf16 ulp on top of that in bf16."""
 import numpy as np
 import pytest
 import torch
@@ -361,3 +363,186 @@ def test_paged_gqa_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="float32"):
         pa_ops.paged_gqa_q8_kernel(q, ck, ck, ks.double(), ks, bt, pos,
                                    length=16)
+
+
+# -- flash attention: forward and backward kernels against their plain
+#    versions ---------------------------------------------------------------
+
+# (B, H, KV, S, D, causal, window): head dims 16/32/64/128/256, ragged S
+# (100, 255), the training path's shape, gemma3's local layers, windows 8
+# and 1024, GQA groups 1, 3 and 8, non-causal with and without a window
+FLASH_CASES = [
+    (2, 3, 3, 100, 16, True, None),
+    (1, 6, 2, 255, 64, True, 8),
+    (1, 8, 1, 255, 256, False, None),
+    (2, 4, 4, 100, 64, False, 8),
+    (1, 3, 1, 128, 32, True, 16),
+    (1, 2, 2, 64, 128, True, None),
+    (4, 15, 5, 2048, 64, True, None),
+    (1, 8, 4, 2048, 256, True, 1024),
+]
+
+
+def _flash_inputs(dev, B, H, KV, S, D, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(dtype)
+    k = (torch.randn(B, KV, S, D, device=dev, generator=g) * 0.5).to(dtype)
+    v = torch.randn(B, KV, S, D, device=dev, generator=g).to(dtype)
+    do = torch.randn(B, H, S, D, device=dev, generator=g).to(dtype)
+    return q, k, v, do
+
+
+def _flash_check(got, want, dtype, atol, rtol):
+    """fp32: within (atol, rtol) of the plain version.  bf16 outputs of
+    two fp32 computations that agree to that bound: one bf16 ulp of the
+    larger magnitude on top of it."""
+    a, w = got.float(), want.float()
+    bound = atol + rtol * w.abs()
+    if dtype == torch.bfloat16:
+        mag = torch.maximum(a.abs(), w.abs()).clamp(min=2.0 ** -126)
+        bound = bound + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    err = (a - w).abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_fwd_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, H, KV, S, D, causal, window = case
+    q, k, v, _ = _flash_inputs(cuda, B, H, KV, S, D, dtype)
+    n0 = fa_ops.flash_fwd_kernel.launches
+    out, lse = fa_ops.flash_fwd_kernel(q, k, v, causal, window)
+    assert fa_ops.flash_fwd_kernel.launches == n0 + 1
+    want, want_lse = fa_ref.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    # fp32: the reference's 2e-5; bf16: one ulp plus 2e-6 (chip_smoke's)
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (2e-6, 0.0)
+    _flash_check(out, want, dtype, atol, rtol)
+    _flash_check(lse, want_lse, torch.float32, 2e-5, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    """Gradients at the reference's atol 5e-5 / rtol 5e-4; in bf16 one
+    ulp on top (the fp32 sums over thousands of rows already part by a
+    few 1e-6)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, H, KV, S, D, causal, window = case
+    q, k, v, do = _flash_inputs(cuda, B, H, KV, S, D, dtype, seed=1)
+    out, lse = fa_ref.flash_attention_ref(q, k, v, causal, window)
+    n_dq = fa_ops.flash_bwd_kernel.launches_dq
+    n_dkv = fa_ops.flash_bwd_kernel.launches_dkv
+    got = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, causal, window)
+    assert fa_ops.flash_bwd_kernel.launches_dq == n_dq + 1
+    assert fa_ops.flash_bwd_kernel.launches_dkv == n_dkv + 1
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                          window)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        _flash_check(g, w, dtype, 5e-5, 5e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_bitwise_repeatable_and_strided(cuda):
+    """Two calls give bitwise the same outputs and gradients (no atomics);
+    (B, S, H, D) tensors passed as (B, H, S, D) views give the same bits
+    as contiguous copies, and the outputs keep the views' layout."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v, do = _flash_inputs(cuda, 2, 6, 2, 300, 64, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, None)
+        runs.append((out, lse) + fa_ops.flash_bwd_kernel(
+            q, k, v, out, lse, do, True, None))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v, do)]
+    out, lse = fa_ops.flash_fwd_kernel(*views[:3], True, None)
+    assert out.stride() == views[0].stride()
+    grads = fa_ops.flash_bwd_kernel(*views[:3], out, lse, views[3], True,
+                                    None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
+    assert all(torch.equal(a, b) for a, b in zip(grads, runs[0][2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_differentiable_on_cuda(cuda, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v, do = _flash_inputs(cuda, 2, 6, 3, 130, 32, dtype, seed=2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    n = (fa_ops.flash_fwd_kernel.launches,
+         fa_ops.flash_bwd_kernel.launches_dq,
+         fa_ops.flash_bwd_kernel.launches_dkv)
+    out = fa_ops.flash_attention(q, k, v, True, 16)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_fwd_kernel.launches,
+            fa_ops.flash_bwd_kernel.launches_dq,
+            fa_ops.flash_bwd_kernel.launches_dkv) == tuple(x + 1 for x in n)
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.dtype == dtype
+        assert bool(torch.isfinite(t.grad).all()) and t.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_attention_lm_train_step_on_cuda_launches_flash_kernels(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, param_groups
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(get_config("gemma3-4b-smoke"),
+                              attention_impl="flash")
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    step = build_train_step(model, AdamW(param_groups(model), lr=1e-3))
+    batch = {k: torch.from_numpy(v).to(cuda, torch.int64) for k, v in
+             SyntheticLMDataset(vocab=cfg.vocab, seq_len=40).sample(
+                 2, 0).items()}
+    n = (fa_ops.flash_fwd_kernel.launches,
+         fa_ops.flash_bwd_kernel.launches_dq,
+         fa_ops.flash_bwd_kernel.launches_dkv)
+    _, met = step({}, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(met["loss"]))
+    assert (fa_ops.flash_fwd_kernel.launches - n[0],
+            fa_ops.flash_bwd_kernel.launches_dq - n[1],
+            fa_ops.flash_bwd_kernel.launches_dkv - n[2]) == (cfg.n_layers,) * 3
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v, _ = _flash_inputs(cuda, 1, 4, 2, 32, 64, torch.float32)
+    with pytest.raises(ValueError, match="different devices"):
+        fa_ops.flash_fwd_kernel(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_ops.flash_fwd_kernel(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_fwd_kernel(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="H % KV"):
+        fa_ops.flash_fwd_kernel(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_fwd_kernel(q.transpose(2, 3), k.transpose(2, 3),
+                                v.transpose(2, 3))

@@ -134,6 +134,59 @@ def test_decay_mask_follows_the_reference_tree():
                                    atol=1e-7, rtol=1e-6, err_msg=n)
 
 
+@pytest.mark.parametrize("arch", ["smollm-360m-smoke", "gemma3-4b-smoke"])
+def test_decay_mask_of_attention_lms_follows_the_reference_tree(arch):
+    """The attention LMs: the reference scans the repeated pattern unit,
+    so every leaf of those layers (wq, wk, wv, wo, the MLP weights and the
+    norm scales) is stacked and decayed; gemma3's tail layers are not
+    scanned, so their 1-D norm scales are not decayed, nor is final_norm.
+    Every port parameter's flag equals ``leaf.ndim >= 2`` of the
+    reference leaf the bridge loads it from, and one step with zero grads
+    moves each parameter as the reference's AdamW moves the tree."""
+    jm = JLM(jget(arch))
+    assert jm.scan_layers
+    jp = jm.init(jax.random.PRNGKey(1))
+    tm = build_model(get_config(arch), device="cpu")
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, jp))
+    groups = param_groups(tm)
+    decayed = {id(p) for p in groups[0]["params"]}
+    cfg = tm.cfg
+    n_unit = cfg.n_repeats * len(cfg.pattern)
+    for name, p in tm.named_parameters():
+        keys = name.split(".")
+        if keys[0] == "layers":
+            j = int(keys[1])
+            if j < n_unit:
+                r, i = divmod(j, len(cfg.pattern))
+                node, keys = jp[f"unit{i}"], keys[2:]
+            else:
+                node, keys = jp[f"tail{j - n_unit}"], keys[2:]
+        else:
+            node = jp
+        for k in keys:
+            node = node[k]
+        assert (id(p) in decayed) == (np.ndim(node) >= 2), name
+    not_decayed = sorted(n for n, p in tm.named_parameters()
+                         if id(p) not in decayed)
+    tail_norms = [f"layers.{j}.{n}.scale" for j in range(n_unit,
+                                                          cfg.n_layers)
+                  for n in ("norm1", "norm2")]
+    assert not_decayed == sorted(["final_norm.scale"] + tail_norms)
+    jopt = JAdamW(lr=1e-2, max_grad_norm=None)
+    jg = jax.tree_util.tree_map(jnp.zeros_like, jp)
+    jp1, _, _ = jopt.update(jg, jopt.init(jp), jp)
+    topt = AdamW(groups, lr=1e-2, max_grad_norm=None)
+    for p in tm.parameters():
+        p.grad = torch.zeros_like(p)
+    topt.step()
+    want = build_model(get_config(arch), device="cpu")
+    load_jax_params(want, jax.tree_util.tree_map(np.asarray, jp1))
+    for (n, p), (_, q) in zip(tm.named_parameters(),
+                              want.named_parameters()):
+        np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(),
+                                   atol=1e-7, rtol=1e-6, err_msg=n)
+
+
 def test_compress_grads_bitwise():
     rng = np.random.default_rng(3)
     gs = {"w": (rng.standard_normal((16, 8)) * 3).astype(np.float32),

@@ -3,6 +3,7 @@ data/pipeline.py, launch/train.py).  The loop and checkpoint tests mirror
 tests/test_train_loop.py and tests/test_checkpoint.py on the port; the
 data stream is held bitwise to the reference's.  The loss and gradients
 are held to the reference in tests/test_torch_lm_grads.py."""
+import dataclasses
 import os
 
 import numpy as np
@@ -87,6 +88,25 @@ def test_loss_decreases(tmp_path):
     assert tr.restores == 0 and tr.ckpt.latest_step() == 25
 
 
+def test_attention_lm_trains_through_flash(tmp_path):
+    """smollm-360m-smoke with attention_impl="flash" through the Trainer:
+    the loss falls, with no restores (the flash op's plain versions on the
+    CPU; the CUDA kernels on the card, chip_smoke phase attn_train)."""
+    cfg = dataclasses.replace(get_config("smollm-360m-smoke"),
+                              attention_impl="flash")
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    loader = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=32),
+                           global_batch=4)
+    tr = Trainer(model, AdamW(param_groups(model), lr=1e-3), TrainConfig(
+        steps=20, ckpt_every=100, ckpt_dir=str(tmp_path), log_every=1000),
+        loader=loader)
+    tr.run()
+    losses = [h["loss"] for h in tr.history]
+    assert np.isfinite(losses).all() and tr.restores == 0
+    assert np.mean(losses[-5:]) < np.mean(losses[:5])
+
+
 def test_crash_restores_and_continues(tmp_path):
     tr = _trainer(tmp_path, steps=12, fail_at=(10,))
     _, step = tr.run()
@@ -166,6 +186,26 @@ def test_launch_train_smoke_cli(tmp_path, capsys):
     assert [h["step"] for h in tr.history] == [0, 1, 2]
     assert tr.ckpt.latest_step() == 3
     assert "done at step 3" in capsys.readouterr().out
+
+
+def test_launch_train_attention_impl_flash(tmp_path, capsys, monkeypatch):
+    """--attention-impl sets the config field the attention layers read:
+    every layer's forward goes through the flash op."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    calls = []
+    real = fa_ops.FlashAttention.apply
+    monkeypatch.setattr(fa_ops.FlashAttention, "apply",
+                        lambda *a: calls.append(a[3:]) or real(*a))
+    tr = train_cli.main(["--arch", "smollm-360m", "--smoke", "--device",
+                         "cpu", "--attention-impl", "flash", "--steps", "2",
+                         "--seq", "16", "--batch", "2", "--ckpt-dir",
+                         str(tmp_path)])
+    assert tr.model.cfg.attention_impl == "flash"
+    assert calls == [(True, None)] * (2 * tr.model.cfg.n_layers)
+    assert "done at step 2" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        train_cli.main(["--smoke", "--device", "cpu", "--attention-impl",
+                        "stub"])
 
 
 # ---------------------------------------------------------------------------
