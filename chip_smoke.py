@@ -45,6 +45,15 @@ Phases, each fatal on failure:
                and both flash_bwd kernels once per step; then 3 steps at
                batch 1 x 2048 from the same seed with flash and with the
                naive softmax, losses and grad norms compared.
+  9. mamba_train — train full-width falcon-mamba-7b (8 of its 64 layers:
+               fp32 AdamW state for all 64 would not fit one card) with
+               ssm_impl="fused" for 20 steps through Trainer (batch 4, seq
+               2048): loss falls, no restores, every layer runs the
+               fused_ssm_fwd and fused_ssm_bwd kernels once per step and
+               the linear-scan kernels never; the fp32 w_out products of a
+               layer timed alone; then 3 steps at batch 1 x 2048 from the
+               same seed with the fused scan and with the materializing
+               "xla" path, losses and grad norms compared.
 
 Kernel launch counts are zeroed just before each main-path phase and read
 just after it.  The second-to-last stdout line is the card's name and
@@ -327,6 +336,7 @@ def phase_kernels(torch, dev):
                 bound_by=by, library_ms=library_ms)
     rows.update(_kernel_rows_paged(torch, dev, g))
     rows.update(_kernel_rows_flash(torch, dev, g))
+    rows.update(_kernel_rows_ssm(torch, dev, g))
     return rows
 
 
@@ -538,6 +548,109 @@ def _kernel_rows_flash(torch, dev, g):
                 max_abs_err=gerr, ms=b_ms, plain_ms=b_plain, bound_ms=bb_ms,
                 bound_by=b_by, library_ms=b_lib)
         del q, k, v, do, out, lse, want, want_lse, grads, wgrads
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _kernel_rows_ssm(torch, dev, g):
+    """fused_ssm_fwd and fused_ssm_bwd at the mamba_train phase's shape
+    (falcon-mamba-7b: batch 4, seq 2048, d_inner 8192, d_state 16, fp32)
+    and at an odd one (T and d_inner off the kernels' 32-step chunks and
+    16-channel blocks), against their plain versions on the same inputs:
+    y and the entry states at the reference's atol 2e-5 / rtol 2e-5, the
+    gradients at 5e-5 / 5e-4, atol scaled by the largest magnitude of the
+    plain result (the gradients sum over thousands of steps and
+    channels)."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.fused_ssm import ref as ssm_ref
+
+    def err_within(name, got, want, atol, rtol):
+        err = (got - want).abs()
+        if not bool((err <= atol * want.abs().max()
+                     + rtol * want.abs()).all()):
+            fail(f"{name}: max |kernel - plain| {err.max().item()} past "
+                 f"atol {atol} x max|plain| {want.abs().max().item()} + "
+                 f"rtol {rtol}")
+        return err.max().item()
+
+    rows = {}
+    for B, T, di, n in [(4, 2048, 8192, 16), (3, 1000, 1000, 16)]:
+        path = B == 4
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, T, di, device=dev, generator=g)) * 0.2
+        x = torch.randn(B, T, di, device=dev, generator=g)
+        Bm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+        Cm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+        A = -torch.exp(torch.randn(di, n, device=dev, generator=g) * 0.3)
+        dy = torch.randn(B, T, di, device=dev, generator=g)
+        ins = (dt, x, Bm, Cm, A)
+        tag = f"(B {B}, T {T}, d_inner {di}, d_state {n}) fp32"
+        y, ent = ssm_ops.fused_ssm_fwd_kernel(*ins)
+        yp, entp = ssm_ref.fused_ssm_fwd_ref(*ins, ssm_ops.CHUNK)
+        grads = ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy)
+        wgrads = ssm_ref.fused_ssm_bwd_ref(*ins, entp, dy, ssm_ops.CHUNK)
+        torch.cuda.synchronize()
+        errs = {"y": err_within(f"fused_ssm_fwd {tag} y", y, yp, 2e-5, 2e-5),
+                "h_entries": err_within(f"fused_ssm_fwd {tag} h_entries",
+                                        ent, entp, 2e-5, 2e-5)}
+        for name, a, w in zip(("ddt", "dx", "dB", "dC", "dA"), grads,
+                              wgrads):
+            errs[name] = err_within(f"fused_ssm_bwd {tag} {name}", a, w,
+                                    5e-5, 5e-4)
+        scale = {k: v.abs().max().item() for k, v in zip(
+            ("y", "h_entries", "ddt", "dx", "dB", "dC", "dA"),
+            (yp, entp) + tuple(wgrads))}
+
+        def fwd():
+            ssm_ops.fused_ssm_fwd_kernel(*ins)
+
+        def bwd():
+            ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy)
+        f_ms, f_call = device_ms(torch, fwd, 10), eager_ms(torch, fwd, 10)
+        b_ms, b_call = device_ms(torch, bwd, 5), eager_ms(torch, bwd, 5)
+        f_plain = device_ms(torch, lambda: ssm_ref.fused_ssm_fwd_ref(
+            *ins, ssm_ops.CHUNK), 1)
+        b_plain = device_ms(torch, lambda: ssm_ref.fused_ssm_bwd_ref(
+            *ins, ent, dy, ssm_ops.CHUNK), 1)
+        # bounds from the reference's cost model at 4 bytes an element:
+        # each input read and each output written once, the residual
+        # states at the reference's 256-step spacing (not this kernel's
+        # CHUNK, a design choice); the backward is the training totals
+        # less the forward's.  Flops 6 per (t, d, n) forward, 15 backward
+        ff, f_bytes = ssm_ops.cost_model(B, T, di, n, train=False,
+                                         dtype_bytes=4)
+        tf, t_bytes = ssm_ops.cost_model(B, T, di, n, train=True,
+                                         dtype_bytes=4)
+        b_bytes = t_bytes - f_bytes
+        fb_ms, f_by = bound(f_bytes, ff)
+        bb_ms, b_by = bound(b_bytes, tf - ff)
+        print(f"kernel fused_ssm_fwd {tag}: max_abs_err y {errs['y']:.3g}, "
+              f"h_entries {errs['h_entries']:.3g} (tol 2e-5 x max|plain| "
+              f"{scale['y']:.3g} / {scale['h_entries']:.3g} + 2e-5 rel) "
+              f"kernel {f_ms:.4f} ms (eager call {f_call:.4f} ms), plain "
+              f"{f_plain:.4f} ms, library none, bound {fb_ms:.5f} ms "
+              f"({f_by}; {ff / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB)",
+              flush=True)
+        print(f"kernel fused_ssm_bwd {tag}: max_abs_err "
+              + ", ".join(f"{k} {errs[k]:.3g} (max|plain| {scale[k]:.3g})"
+                          for k in ("ddt", "dx", "dB", "dC", "dA"))
+              + f" (tol 5e-5 x max|plain| + 5e-4 rel) kernel {b_ms:.4f} ms "
+              f"(eager call {b_call:.4f} ms, partial sums included), plain "
+              f"{b_plain:.4f} ms, library none, bound {bb_ms:.5f} ms "
+              f"({b_by}; {(tf - ff) / 1e9:.2f} GFLOP, {b_bytes / 1e6:.1f} "
+              "MB)", flush=True)
+        if path:
+            # no single PyTorch call computes a selective scan: library none
+            rows["fused_ssm_fwd"] = dict(
+                max_abs_err=max(errs["y"], errs["h_entries"]), ms=f_ms,
+                plain_ms=f_plain, bound_ms=fb_ms, bound_by=f_by,
+                library_ms=None)
+            rows["fused_ssm_bwd"] = dict(
+                max_abs_err=max(errs[k] for k in ("ddt", "dx", "dB", "dC",
+                                                  "dA")),
+                ms=b_ms, plain_ms=b_plain, bound_ms=bb_ms, bound_by=b_by,
+                library_ms=None)
+        del dt, x, Bm, Cm, A, dy, ins, y, ent, yp, entp, grads, wgrads
         torch.cuda.empty_cache()
     return rows
 
@@ -1249,6 +1362,170 @@ def phase_attn_train(torch, dev):
     return {"flash_fwd": n_fwd, "flash_bwd": n_dkv}
 
 
+#: Layers of falcon-mamba-7b's 64 that the mamba_train phase keeps: the
+#: port's AdamW holds fp32 params, grads and two moments, 16 B a parameter;
+#: 64 layers (7.27 B parameters) would need 116 GB, 8 need 22 GB.
+MAMBA_LAYERS = 8
+
+
+def phase_mamba_train(torch, dev):
+    """Full-width falcon-mamba-7b (8 of 64 layers) trained through Trainer
+    with the fused selective scan on the card, then fused against the
+    materializing path (the linear-scan kernels) at batch 1."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticLMDataset
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule, param_groups
+    from repro_torch.train import TrainConfig, Trainer, build_train_step
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=MAMBA_LAYERS, ssm_impl="fused")
+    steps, batch, seq, seed = 20, 4, 2048, 0
+    counters = (ssm_ops.fused_ssm_fwd_kernel, ssm_ops.fused_ssm_bwd_kernel,
+                scan_ops.linear_scan_kernel, scan_ops.linear_scan_bwd_kernel)
+
+    def make(config):
+        model = build_model(config, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        opt = AdamW(param_groups(model), lr=cosine_schedule(
+            3e-4, warmup=steps // 20, total=steps))
+        return model, opt
+
+    def launches():
+        return tuple(k.launches for k in counters)
+
+    loader = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq),
+                           global_batch=batch)
+    model, opt = make(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+        trainer = Trainer(model, opt, TrainConfig(
+            steps=steps, ckpt_every=steps + 1, ckpt_dir=ckpt_dir,
+            log_every=10), loader=loader, seed=seed)
+        saves = []
+        real_save = trainer.ckpt.save
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            real_save(*a, **kw)
+            saves.append(time.perf_counter() - t)
+        # on the checkpointer, not the trainer: a closure over the trainer
+        # would keep it, and the model, alive after `del trainer`
+        trainer.ckpt.save = timed_save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        _, step = trainer.run()
+        wall = time.perf_counter() - t0
+        n_fwd, n_bwd, n_scan, n_scan_bwd = launches()
+        ckpt_gb = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(ckpt_dir) for f in fs) / 1e9
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if step != steps or len(hist) != steps:
+        fail(f"mamba_train: stopped at step {step} with {len(hist)} steps "
+             "run")
+    if trainer.restores:
+        fail(f"mamba_train: {trainer.restores} crash-restores (a step "
+             "raised)")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"mamba_train: non-finite loss in {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        fail(f"mamba_train: loss did not fall (first-5 mean {first:.4f}, "
+             f"last-5 mean {last:.4f})")
+    want = cfg.n_layers * steps
+    if (n_fwd, n_bwd) != (want, want) or n_scan or n_scan_bwd:
+        fail(f"mamba_train: launches fused_ssm_fwd {n_fwd}, fused_ssm_bwd "
+             f"{n_bwd} (want {cfg.n_layers} layers x {steps} steps each), "
+             f"linear_scan {n_scan}, linear_scan_bwd {n_scan_bwd} (want 0)")
+    dts = sorted(h["dt"] for h in hist[3:])
+    step_ms = dts[len(dts) // 2] * 1e3
+    print(f"mamba_train: {cfg.name} ({cfg.n_layers} of 64 layers, "
+          f"{n_params / 1e9:.3f} B params) ssm_impl=fused {steps} steps "
+          f"(batch {batch}, seq {seq}) in {wall:.1f} s incl. the final "
+          f"checkpoint; step p50 {step_ms:.1f} ms (first "
+          f"{hist[0]['dt'] * 1e3:.0f} ms) -> "
+          f"{batch * seq / (step_ms / 1e3):.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(first-5 mean {first:.4f}, last-5 mean {last:.4f}); restores 0; "
+          f"fused_ssm_fwd launches {n_fwd}, fused_ssm_bwd launches {n_bwd} "
+          f"= {cfg.n_layers} x {steps}, linear_scan 0, linear_scan_bwd 0; "
+          f"final checkpoint {ckpt_gb:.2f} GB in {saves[-1]:.1f} s "
+          f"({free_gb:.0f} GB were free there)", flush=True)
+    del trainer, model, opt
+    torch.cuda.empty_cache()
+
+    # one layer's fp32 w_out products a step, timed alone: the reference's
+    # promoted product of the fp32 tail with the bf16-rounded w_out, its
+    # forward and its two backward products
+    di, d, rows = cfg.mamba.d_inner(cfg.d_model), cfg.d_model, batch * seq
+    y = torch.randn(rows, di, device=dev)
+    w = torch.randn(di, d, device=dev).bfloat16().float()
+    gy = torch.randn(rows, d, device=dev)
+    gemm_ms = device_ms(torch, lambda: (y @ w, gy @ w.T, y.T @ gy), 5)
+    del y, w, gy
+    torch.cuda.empty_cache()
+    print(f"mamba_train: one layer's fp32 w_out products (forward and both "
+          f"backward, {6 * rows * di * d / 1e12:.2f} TFLOP) {gemm_ms:.2f} "
+          f"ms; x {cfg.n_layers} layers = {gemm_ms * cfg.n_layers:.1f} ms, "
+          f"{gemm_ms * cfg.n_layers / step_ms:.0%} of the step p50",
+          flush=True)
+
+    # batch 1 x 2048, the same seed and batches: fused, then the
+    # materializing path (prefill from a blank carry through the linear
+    # scan kernels), whose (B, T, d_inner, d_state) terms do not fit at 4
+    one = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq),
+                        global_batch=1)
+    runs = {}
+    for impl in ("fused", "xla"):
+        model, opt = make(dataclasses.replace(cfg, ssm_impl=impl))
+        step_fn = build_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n0 = launches()
+        mets = []
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(dev, torch.int64)
+                 for k, v in one.batch_at(i).items()}
+            _, met = step_fn({}, b)
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+        ran = tuple(a - b for a, b in zip(launches(), n0))
+        runs[impl] = (mets, torch.cuda.max_memory_allocated(dev) / 2**30,
+                      ran)
+        del model, opt, step_fn
+        torch.cuda.empty_cache()
+    (fm, f_gb, f_ran), (xm, x_gb, x_ran) = runs["fused"], runs["xla"]
+    k = 3 * cfg.n_layers
+    if f_ran != (k, k, 0, 0):
+        fail(f"mamba_train: the batch-1 fused run launched (fused_ssm_fwd, "
+             f"fused_ssm_bwd, linear_scan, linear_scan_bwd) = {f_ran}")
+    if x_ran != (0, 0, k, k):
+        fail(f"mamba_train: the batch-1 xla run launched (fused_ssm_fwd, "
+             f"fused_ssm_bwd, linear_scan, linear_scan_bwd) = {x_ran}")
+    for i, ((fl, fg), (xl, xg)) in enumerate(zip(fm, xm)):
+        dl, dg = abs(fl - xl), abs(fg - xg) / xg
+        print(f"mamba_train: batch 1 step {i} fused loss {fl:.5f} grad norm "
+              f"{fg:.5f}; xla loss {xl:.5f} grad norm {xg:.5f} (|dloss| "
+              f"{dl:.2e} tol 2e-2, grad norm {dg:.2%} tol 2 %)", flush=True)
+        if not (dl <= 2e-2 and dg <= 0.02):
+            fail(f"mamba_train: batch-1 step {i}: fused differs from xla")
+    print(f"mamba_train: batch 1 x {seq}, {cfg.n_layers} layers, peak "
+          f"memory fused {f_gb:.2f} GiB, xla {x_gb:.2f} GiB", flush=True)
+    return {"fused_ssm_fwd": n_fwd, "fused_ssm_bwd": n_bwd}
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1286,6 +1563,7 @@ def main():
                 "minimalist_block": phase_system(torch, dev)}
     launches.update(phase_paged(torch, dev))
     launches.update(phase_attn_train(torch, dev))
+    launches.update(phase_mamba_train(torch, dev))
 
     meta = {
         "linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -1310,6 +1588,12 @@ def main():
         "flash_bwd": (
             "src/repro_torch/kernels/csrc/flash_bwd.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:232"),
+        "fused_ssm_fwd": (
+            "src/repro_torch/kernels/csrc/fused_ssm_fwd.cu",
+            "src/repro/kernels/fused_ssm/fused_ssm.py:113"),
+        "fused_ssm_bwd": (
+            "src/repro_torch/kernels/csrc/fused_ssm_bwd.cu",
+            "src/repro/kernels/fused_ssm/fused_ssm.py:147"),
     }
     kernels = []
     for name in build.KERNELS:

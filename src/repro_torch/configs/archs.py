@@ -1,15 +1,15 @@
 """The architectures of the port so far (port of ``repro.configs.archs``):
 SmolLM-360M (global GQA), Gemma-3-4B (5:1 sliding-window:global GQA),
-the paper's technique at LM scale, its hardware-mode twin, the paper's
-sMNIST network dims, ``reduced()`` and ``get_config``.  Values are the
-reference's own."""
+Falcon-Mamba-7B (attention-free Mamba-1), the paper's technique at LM
+scale, its hardware-mode twin, the paper's sMNIST network dims,
+``reduced()`` and ``get_config``.  Values are the reference's own."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MINGRU, LayerSpec,
-                                      MambaConfig, MLAConfig, ModelConfig,
-                                      MoEConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU,
+                                      LayerSpec, MambaConfig, MLAConfig,
+                                      ModelConfig, MoEConfig)
 
 SMOLLM_360M = ModelConfig(
     # [hf:HuggingFaceTB/SmolLM-360M; hf] — llama-arch small
@@ -29,6 +29,16 @@ GEMMA3_4B = ModelConfig(
     rope_theta=1e6, tie_embeddings=True,
 )
 
+FALCON_MAMBA_7B = ModelConfig(
+    # [arXiv:2410.05355; unverified] — mamba1 arch, attention-free
+    name="falcon-mamba-7b",
+    n_layers=64, d_model=4096, n_heads=0, n_kv_heads=0, head_dim=0,
+    d_ff=0, vocab=65024,
+    pattern=(LayerSpec(MAMBA),),
+    mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
+    tie_embeddings=False,
+)
+
 # sMNIST network of paper Fig. 5: dims 1-64-64-64-64-10
 MINIMALIST_SMNIST_DIMS = (1, 64, 64, 64, 64, 10)
 
@@ -43,8 +53,8 @@ MINIMALIST_LM_360M = dataclasses.replace(
 MINIMALIST_LM_HW = dataclasses.replace(
     MINIMALIST_LM_360M, name="minimalist-lm-360m-hw", mingru_quant="hardware")
 
-ARCHS = {c.name: c for c in [SMOLLM_360M, GEMMA3_4B, MINIMALIST_LM_360M,
-                             MINIMALIST_LM_HW]}
+ARCHS = {c.name: c for c in [SMOLLM_360M, GEMMA3_4B, FALCON_MAMBA_7B,
+                             MINIMALIST_LM_360M, MINIMALIST_LM_HW]}
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

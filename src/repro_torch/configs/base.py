@@ -2,9 +2,10 @@
 ``repro.configs.base``).
 
 The dataclasses are the reference's own, field for field, with the same
-``__post_init__`` validation, plus a check of ``attention_impl``
-against :data:`ATTENTION_IMPLS`.  Two fields name port backends instead of
-the TPU ones: ``ModelConfig.scan_backend`` takes a value of
+``__post_init__`` validation, plus checks of ``attention_impl`` against
+:data:`ATTENTION_IMPLS` and of ``ssm_impl`` against :data:`SSM_IMPLS`.
+Two fields name port backends instead of the TPU ones:
+``ModelConfig.scan_backend`` takes a value of
 :data:`SCAN_BACKENDS` (the hand-written CUDA kernel replaces
 ``pallas``/``pallas_tpu``), and ``paged_impl`` takes a value of
 :data:`PAGED_IMPLS` (``kernel``, the hand-written paged GQA decode
@@ -43,6 +44,16 @@ ATTENTION_IMPLS = ("naive", "flash")
 
 #: Legal values of :attr:`ModelConfig.kv_dtype`.
 KV_DTYPES = ("bf16", "int8")
+
+#: Legal values of :attr:`ModelConfig.ssm_impl` (Mamba layers):
+#:   xla   — the reference's name for the materializing path: the
+#:           full-sequence forward is prefill from a blank carry, one
+#:           linear scan over the (B, T, d_inner·d_state) discretized terms
+#:   fused — the fused selective-scan op: the hand-written CUDA forward and
+#:           backward kernels on CUDA tensors, their plain versions on CPU
+#:           tensors (the reference's ``stub`` belongs to the dry-run,
+#:           which is not ported)
+SSM_IMPLS = ("xla", "fused")
 
 #: Legal values of :attr:`ModelConfig.scan_backend`:
 #:   kernel — the hand-written CUDA scan on CUDA tensors, its plain
@@ -150,6 +161,10 @@ class ModelConfig:
             raise ValueError(
                 f"attention_impl must be one of {ATTENTION_IMPLS}, "
                 f"got {self.attention_impl!r}")
+        if self.ssm_impl not in SSM_IMPLS:
+            raise ValueError(
+                f"ssm_impl must be one of {SSM_IMPLS}, "
+                f"got {self.ssm_impl!r}")
         if self.scan_backend not in SCAN_BACKENDS:
             raise ValueError(
                 f"scan_backend must be one of {SCAN_BACKENDS}, "

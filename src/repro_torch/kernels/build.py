@@ -67,6 +67,12 @@ SIGNATURES = {
         "flash_bwd_dkv_f32": [_P] * 10 + [_L] + [_I] * 7 + [_P],
         "flash_bwd_dkv_bf16": [_P] * 10 + [_L] + [_I] * 7 + [_P],
     },
+    "fused_ssm_fwd": {
+        "fused_ssm_fwd_f32": [_P] * 7 + [_I] * 5 + [_P],
+    },
+    "fused_ssm_bwd": {
+        "fused_ssm_bwd_f32": [_P] * 12 + [_I] * 6 + [_P],
+    },
 }
 
 #: Every kernel of the port, by source stem.

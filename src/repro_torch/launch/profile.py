@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
-(batch 8, seq 256) and a QAT step of the paper's network (dims
-1-64-64-64-64-10, T 784, batch 64, hardware phase):
+(batch 8, seq 256), a QAT step of the paper's network (dims
+1-64-64-64-64-10, T 784, batch 64, hardware phase) and a full-width
+``falcon-mamba-7b`` step (8 of its 64 layers, ``ssm_impl="fused"``,
+batch 4, seq 2048):
 
   * the host-clock split of the step into forward + backward and
     ``AdamW.step``, each ending in ``torch.cuda.synchronize()``;
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import re
 import subprocess
 import time
@@ -141,6 +144,26 @@ def main(argv=None):
           f"{[round(_sync_ms(qat_step), 1) for _ in range(5)]} ms",
           flush=True)
     profile_window(qat_step, 5, "qat step (paper dims, T 784)")
+    del net, qopt
+    torch.cuda.empty_cache()
+
+    mcfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=8,
+                               ssm_impl="fused")
+    model = build_model(mcfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    opt = AdamW(param_groups(model), lr=3e-4)
+    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in
+             SyntheticLMDataset(vocab=mcfg.vocab, seq_len=2048).sample(
+                 4, 0).items()}
+    for _ in range(2):
+        fwd_bwd()      # reads model, opt and batch as now bound
+        opt.step()
+    split = [(_sync_ms(fwd_bwd), _sync_ms(opt.step)) for _ in range(3)]
+    print("falcon-mamba train step, 8 layers (host clock): forward+backward "
+          f"ms {[round(a, 1) for a, _ in split]}, AdamW.step ms "
+          f"{[round(b, 1) for _, b in split]}", flush=True)
+    profile_window(fwd_bwd, 1, "falcon-mamba forward+backward", top=12)
+    profile_window(opt.step, 1, "falcon-mamba AdamW.step", top=4)
 
 
 if __name__ == "__main__":

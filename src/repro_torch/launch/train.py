@@ -6,6 +6,10 @@
         --device cpu --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
         --attention-impl flash --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --smoke --device cpu --ssm-impl fused --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --layers 8 --ssm-impl fused --batch 4 --seq 2048 --steps 20
 
 Runs on one CUDA device unless ``--device`` names another.  Uses the
 synthetic structured-token pipeline, AdamW + cosine with the reference's
@@ -13,7 +17,8 @@ decay mask, checkpoint/restart, straggler monitoring and optional int8
 gradient compression.  The minGRU scans go through the forward and
 adjoint CUDA kernels on the card; with ``--attention-impl flash`` an
 attention LM's layers go through the flash-attention forward and
-backward kernels.
+backward kernels; with ``--ssm-impl fused`` a Mamba LM's layers go
+through the fused selective-scan forward and backward kernels.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ATTENTION_IMPLS
+from repro_torch.configs.base import ATTENTION_IMPLS, SSM_IMPLS
 from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW, cosine_schedule, param_groups
@@ -52,11 +57,22 @@ def main(argv=None):
                     choices=ATTENTION_IMPLS,
                     help="attention LMs: the naive softmax or the flash-"
                     "attention kernels (default: the config's own)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the stack to this many layers (default: the "
+                    "config's own; falcon-mamba-7b's 64 need ~116 GB of "
+                    "fp32 AdamW state, 8 fit one 80 GB card)")
+    ap.add_argument("--ssm-impl", default=None, choices=SSM_IMPLS,
+                    help="Mamba LMs: the materializing scan or the fused "
+                    "selective-scan kernels (default: the config's own)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
     if args.attention_impl:
         cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
+    if args.ssm_impl:
+        cfg = dataclasses.replace(cfg, ssm_impl=args.ssm_impl)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg, device=args.device,
                         generator=torch.Generator(
                             device=args.device).manual_seed(args.seed))

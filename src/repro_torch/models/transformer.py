@@ -1,11 +1,11 @@
-"""Decoder LM over minGRU and GQA layers (port of the MINGRU, ATTN and
-ATTN_LOCAL layer kinds of ``repro.models.transformer``).
+"""Decoder LM over minGRU, GQA and Mamba layers (port of the MINGRU,
+ATTN, ATTN_LOCAL and MAMBA layer kinds of ``repro.models.transformer``).
 
 The reference scans a stacked pattern unit with ``lax.scan``; here the
 layers are written out as an ``nn.ModuleList`` (``layers[j]`` is stack
 position j; :func:`repro_torch.bridge.load_jax_params` unstacks the
-reference's layer axis onto it).  MLA, Mamba and MoE layers are not
-ported yet and raise.
+reference's layer axis onto it).  MLA and MoE layers are not ported yet
+and raise.
 
 Dtypes mirror the reference: fp32 parameters, bf16 compute
 (``DecoderLM.compute_dtype``), fp32 RMSNorm internals, fp32 logits, and
@@ -18,7 +18,9 @@ a bf16 decode cache.  Cache layouts:
     layer, (B, L, KV, hd) with L = max_len or a window layer's ring
     length; under the paged KV layout each entry is a shared page pool
     (P, page, KV, hd) (int8 pools add ``k_scale`` and ``v_scale`` (P, KV))
-    with no slot axis, whose pages the serving engine hands out.
+    with no slot axis, whose pages the serving engine hands out;
+  * a Mamba stack keeps a list with one ``{"ssm": (B, d_inner, d_state),
+    "conv": (B, d_conv - 1, d_inner)}`` carry per layer.
 
 Stacks that mix minGRU and attention layers are not ported yet.
 """
@@ -27,11 +29,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MINGRU, LayerSpec,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU,
+                                      LayerSpec, ModelConfig)
 from repro_torch.core.mingru import MinGRUBlock
 from repro_torch.core.quant import QuantConfig
 from repro_torch.models.attention import GQAAttention
+from repro_torch.models.mamba import MambaBlock
 from repro_torch.models.module import Embedding, RMSNorm
 from repro_torch.models.moe import DenseMLP
 
@@ -82,18 +85,22 @@ class MinGRUMixer(nn.Module):
 
 class DecoderLayer(nn.Module):
     """pre-norm mixer + residual, then pre-norm dense MLP + residual
-    (``transformer.DecoderLayer``)."""
+    (``transformer.DecoderLayer``); Mamba layers of a pure-SSM stack
+    (falcon-mamba) have no MLP (d_ff = 0)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if spec.kind not in (MINGRU, ATTN, ATTN_LOCAL) or spec.moe:
+        if spec.kind not in (MINGRU, ATTN, ATTN_LOCAL, MAMBA) or spec.moe:
             raise NotImplementedError(
                 f"layer kind {spec.kind!r} (moe={spec.moe}) is not ported "
-                "yet: the port runs minGRU and GQA layers with dense MLPs")
+                "yet: the port runs minGRU, GQA and Mamba layers with dense "
+                "MLPs")
         kw = dict(dtype=dtype, device=device)
         if spec.kind == MINGRU:
             self.mixer = MinGRUMixer(cfg, **kw)
+        elif spec.kind == MAMBA:
+            self.mixer = MambaBlock(cfg, **kw)
         else:
             self.mixer = GQAAttention(cfg, local=spec.kind == ATTN_LOCAL,
                                       **kw)

@@ -12,7 +12,9 @@ step; the fused sequence kernel bit for bit; the paged decode kernels
 plus that fp32 bound (both round fp32 results within 2e-6 of each
 other); the flash-attention forward 2e-5 in fp32 and one bf16 ulp plus
 2e-6 in bf16, its gradients the reference's atol 5e-5 / rtol 5e-4 in
-fp32 and one bf16 ulp on top of that in bf16."""
+fp32 and one bf16 ulp on top of that in bf16; the fused selective scan
+the reference's 2e-5 (forward) and atol 5e-5 / rtol 5e-4 (gradients),
+with atol scaled by the largest magnitude of the plain result."""
 import numpy as np
 import pytest
 import torch
@@ -546,3 +548,164 @@ def test_flash_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_fwd_kernel(q.transpose(2, 3), k.transpose(2, 3),
                                 v.transpose(2, 3))
+
+
+# ---------------------------------------------------------------------------
+# the fused selective scan (forward and backward kernels)
+
+SSM_CASES = [
+    (2, 16, 128, 4),      # falcon-mamba-7b-smoke
+    (3, 77, 1000, 16),    # tail chunk and tail d-block at d_state 16
+    (1, 33, 300, 5),      # d_state not a power of two
+    (2, 64, 256, 1),
+    (1, 40, 8, 32),       # one d a warp
+    (1, 300, 8192, 16),   # the main path's width
+]
+
+
+def _ssm_inputs(dev, B, T, di, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, di, device=dev, generator=g)) * 0.2
+    x = torch.randn(B, T, di, device=dev, generator=g)
+    Bm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+    Cm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+    A = -torch.exp(torch.randn(di, n, device=dev, generator=g) * 0.3)
+    dy = torch.randn(B, T, di, device=dev, generator=g)
+    return dt, x, Bm, Cm, A, dy
+
+
+def _ssm_check(got, want, atol, rtol):
+    """The reference's (atol, rtol) with atol scaled by the largest
+    magnitude of the plain result (sums over T and d_inner grow with
+    the size)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got - want).abs()
+    bound = atol * want.abs().max() + rtol * want.abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_CASES, ids=str)
+def test_fused_ssm_fwd_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.fused_ssm import ref as ssm_ref
+
+    dt, x, Bm, Cm, A, _ = _ssm_inputs(cuda, *case)
+    n0 = ssm_ops.fused_ssm_fwd_kernel.launches
+    y, entries = ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A)
+    assert ssm_ops.fused_ssm_fwd_kernel.launches == n0 + 1
+    want, want_entries = ssm_ref.fused_ssm_fwd_ref(dt, x, Bm, Cm, A,
+                                                   ssm_ops.CHUNK)
+    torch.cuda.synchronize()
+    _ssm_check(y, want, 2e-5, 2e-5)
+    _ssm_check(entries, want_entries, 2e-5, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_CASES, ids=str)
+def test_fused_ssm_bwd_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.fused_ssm import ref as ssm_ref
+
+    dt, x, Bm, Cm, A, dy = _ssm_inputs(cuda, *case, seed=1)
+    _, entries = ssm_ref.fused_ssm_fwd_ref(dt, x, Bm, Cm, A, ssm_ops.CHUNK)
+    n0 = ssm_ops.fused_ssm_bwd_kernel.launches
+    got = ssm_ops.fused_ssm_bwd_kernel(dt, x, Bm, Cm, A, entries, dy)
+    assert ssm_ops.fused_ssm_bwd_kernel.launches == n0 + 1
+    want = ssm_ref.fused_ssm_bwd_ref(dt, x, Bm, Cm, A, entries, dy,
+                                     ssm_ops.CHUNK)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _ssm_check(g, w, 5e-5, 5e-4)
+
+
+@pytest.mark.cuda
+def test_fused_ssm_kernels_bitwise_repeatable(cuda):
+    """No atomics: two calls give bitwise the same outputs and
+    gradients."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+
+    dt, x, Bm, Cm, A, dy = _ssm_inputs(cuda, 2, 100, 1000, 16, seed=2)
+    runs = []
+    for _ in range(2):
+        y, entries = ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A)
+        runs.append((y, entries) + ssm_ops.fused_ssm_bwd_kernel(
+            dt, x, Bm, Cm, A, entries, dy))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_selective_scan_is_differentiable_on_cuda(cuda):
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+
+    dt, x, Bm, Cm, A, dy = _ssm_inputs(cuda, 2, 45, 96, 16, seed=3)
+    ins = [t.requires_grad_() for t in (dt, x, Bm, Cm, A)]
+    n = (ssm_ops.fused_ssm_fwd_kernel.launches,
+         ssm_ops.fused_ssm_bwd_kernel.launches)
+    y = ssm_ops.selective_scan(*ins)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (ssm_ops.fused_ssm_fwd_kernel.launches,
+            ssm_ops.fused_ssm_bwd_kernel.launches) == (n[0] + 1, n[1] + 1)
+    for t in ins:
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert bool(torch.isfinite(t.grad).all()) and t.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_mamba_lm_train_step_on_cuda_launches_fused_kernels(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, param_groups
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b-smoke"),
+                              ssm_impl="fused")
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    step = build_train_step(model, AdamW(param_groups(model), lr=1e-3))
+    batch = {k: torch.from_numpy(v).to(cuda, torch.int64) for k, v in
+             SyntheticLMDataset(vocab=cfg.vocab, seq_len=40).sample(
+                 2, 0).items()}
+    n = (ssm_ops.fused_ssm_fwd_kernel.launches,
+         ssm_ops.fused_ssm_bwd_kernel.launches,
+         scan_ops.linear_scan_kernel.launches,
+         scan_ops.linear_scan_bwd_kernel.launches)
+    _, met = step({}, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(met["loss"]))
+    assert (ssm_ops.fused_ssm_fwd_kernel.launches - n[0],
+            ssm_ops.fused_ssm_bwd_kernel.launches - n[1],
+            scan_ops.linear_scan_kernel.launches - n[2],
+            scan_ops.linear_scan_bwd_kernel.launches - n[3]) == (
+                cfg.n_layers, cfg.n_layers, 0, 0)
+
+
+@pytest.mark.cuda
+def test_fused_ssm_wrappers_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+
+    dt, x, Bm, Cm, A, dy = _ssm_inputs(cuda, 1, 8, 16, 4)
+    with pytest.raises(ValueError, match="different devices"):
+        ssm_ops.fused_ssm_fwd_kernel(dt.cpu(), x, Bm, Cm, A)
+    with pytest.raises(ValueError, match="different devices"):
+        ssm_ops.fused_ssm_fwd_kernel(dt, x.cpu(), Bm, Cm, A)
+    with pytest.raises(ValueError, match="float32"):
+        ssm_ops.fused_ssm_fwd_kernel(dt, x.bfloat16(), Bm, Cm, A)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_ops.fused_ssm_fwd_kernel(
+            dt, x.transpose(1, 2).contiguous().transpose(1, 2), Bm, Cm, A)
+    big = torch.zeros(1, 8, 33, device=cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ssm_ops.fused_ssm_fwd_kernel(dt, x, big, big,
+                                     torch.zeros(16, 33, device=cuda))
+    _, entries = ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A)
+    with pytest.raises(ValueError, match="h_entries"):
+        ssm_ops.fused_ssm_bwd_kernel(dt, x, Bm, Cm, A, entries[:, :0], dy)

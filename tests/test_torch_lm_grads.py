@@ -9,7 +9,8 @@ of the hardware LM): loss within 2e-2 and every gradient tensor with
 cosine > 0.99 and relative L2 error < 5e-2 (bf16 compute).  The
 attention LMs run with ``attention_impl`` naive and flash in both
 packages (the reference's flash path is its Pallas kernels in interpret
-mode; the port's is the plain versions of its CUDA kernels)."""
+mode; the port's is the plain versions of its CUDA kernels).  The Mamba
+LM runs ``ssm_impl`` xla and fused in both packages the same way."""
 import dataclasses
 
 import jax
@@ -38,15 +39,17 @@ def _tensors(b):
     return {k: torch.from_numpy(v).long() for k, v in b.items()}
 
 
-@pytest.mark.parametrize("arch,impl", [
-    pytest.param(ARCH, None, id=ARCH),
-    pytest.param("minimalist-lm-360m-hw-smoke", None,
+@pytest.mark.parametrize("arch,kw", [
+    pytest.param(ARCH, {}, id=ARCH),
+    pytest.param("minimalist-lm-360m-hw-smoke", {},
                  id="minimalist-lm-360m-hw-smoke"),
-] + [pytest.param(a, impl, id=f"{a}-{impl}")
+] + [pytest.param(a, dict(attention_impl=impl), id=f"{a}-{impl}")
      for a in ("smollm-360m-smoke", "gemma3-4b-smoke")
-     for impl in ("naive", "flash")])
-def test_lm_loss_and_grads_match_reference(arch, impl):
-    kw = {} if impl is None else dict(attention_impl=impl)
+     for impl in ("naive", "flash")]
+  + [pytest.param("falcon-mamba-7b-smoke", dict(ssm_impl=impl),
+                  id=f"falcon-mamba-7b-smoke-{impl}")
+     for impl in ("xla", "fused")])
+def test_lm_loss_and_grads_match_reference(arch, kw):
     jcfg = dataclasses.replace(jget(arch), **kw)
     cfg = dataclasses.replace(get_config(arch), **kw)
     jm = JLM(jcfg, scan_layers=False)

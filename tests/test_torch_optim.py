@@ -187,6 +187,44 @@ def test_decay_mask_of_attention_lms_follows_the_reference_tree(arch):
                                    atol=1e-7, rtol=1e-6, err_msg=n)
 
 
+def test_decay_mask_of_mamba_lm_follows_the_reference_tree():
+    """falcon-mamba-7b-smoke: the reference scans its two Mamba layers,
+    so every per-layer leaf is stacked and decayed — the 1-D ``d_skip``,
+    ``dt_bias`` and ``conv_b``, ``a_log`` and the ``norm1`` scale
+    included — and only ``final_norm`` is not.  One step with zero grads
+    moves each parameter as the reference's AdamW moves the tree."""
+    arch = "falcon-mamba-7b-smoke"
+    jm = JLM(jget(arch))
+    assert jm.scan_layers
+    jp = jm.init(jax.random.PRNGKey(2))
+    tm = build_model(get_config(arch), device="cpu")
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, jp))
+    ndim = reference_ndim(tm)
+    for j in range(2):
+        for leaf in ("d_skip", "dt_bias", "conv_b"):
+            assert np.ndim(jp["unit0"]["mixer"][leaf]) == 2
+            assert ndim[f"layers.{j}.mixer.{leaf}"] == 2
+        assert ndim[f"layers.{j}.mixer.a_log"] == 3
+        assert ndim[f"layers.{j}.norm1.scale"] == 2
+    groups = param_groups(tm)
+    names = {id(p): n for n, p in tm.named_parameters()}
+    assert sorted(names[id(p)] for p in groups[1]["params"]) == \
+        ["final_norm.scale"]
+    jopt = JAdamW(lr=1e-2, max_grad_norm=None)
+    jg = jax.tree_util.tree_map(jnp.zeros_like, jp)
+    jp1, _, _ = jopt.update(jg, jopt.init(jp), jp)
+    topt = AdamW(groups, lr=1e-2, max_grad_norm=None)
+    for p in tm.parameters():
+        p.grad = torch.zeros_like(p)
+    topt.step()
+    want = build_model(get_config(arch), device="cpu")
+    load_jax_params(want, jax.tree_util.tree_map(np.asarray, jp1))
+    for (n, p), (_, q) in zip(tm.named_parameters(),
+                              want.named_parameters()):
+        np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(),
+                                   atol=1e-7, rtol=1e-6, err_msg=n)
+
+
 def test_compress_grads_bitwise():
     rng = np.random.default_rng(3)
     gs = {"w": (rng.standard_normal((16, 8)) * 3).astype(np.float32),

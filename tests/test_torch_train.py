@@ -107,6 +107,26 @@ def test_attention_lm_trains_through_flash(tmp_path):
     assert np.mean(losses[-5:]) < np.mean(losses[:5])
 
 
+def test_mamba_lm_trains_through_fused_scan(tmp_path):
+    """falcon-mamba-7b-smoke with ssm_impl="fused" through the Trainer:
+    the loss falls, with no restores (the fused op's plain versions on
+    the CPU; the CUDA kernels on the card, chip_smoke phase
+    mamba_train)."""
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b-smoke"),
+                              ssm_impl="fused")
+    model = build_model(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    loader = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=32),
+                           global_batch=4)
+    tr = Trainer(model, AdamW(param_groups(model), lr=1e-3), TrainConfig(
+        steps=20, ckpt_every=100, ckpt_dir=str(tmp_path), log_every=1000),
+        loader=loader)
+    tr.run()
+    losses = [h["loss"] for h in tr.history]
+    assert np.isfinite(losses).all() and tr.restores == 0
+    assert np.mean(losses[-5:]) < np.mean(losses[:5])
+
+
 def test_crash_restores_and_continues(tmp_path):
     tr = _trainer(tmp_path, steps=12, fail_at=(10,))
     _, step = tr.run()
@@ -206,6 +226,31 @@ def test_launch_train_attention_impl_flash(tmp_path, capsys, monkeypatch):
     with pytest.raises(SystemExit):
         train_cli.main(["--smoke", "--device", "cpu", "--attention-impl",
                         "stub"])
+
+
+def test_launch_train_ssm_impl_fused(tmp_path, capsys, monkeypatch):
+    """--ssm-impl sets the config field the Mamba layers read: every
+    layer's forward goes through the fused selective-scan op; --layers
+    cuts the stack."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    calls = []
+    real = ssm_ops.SelectiveScan.apply
+    monkeypatch.setattr(ssm_ops.SelectiveScan, "apply",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    tr = train_cli.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
+                         "cpu", "--ssm-impl", "fused", "--steps", "3",
+                         "--seq", "16", "--batch", "2", "--layers", "3",
+                         "--ckpt-dir", str(tmp_path)])
+    cfg = tr.model.cfg
+    assert cfg.ssm_impl == "fused"
+    assert cfg.n_layers == len(tr.model.layers) == 3
+    assert calls == [(2, 16, cfg.mamba.d_inner(cfg.d_model))] * (
+        3 * cfg.n_layers)
+    assert [h["step"] for h in tr.history] == [0, 1, 2]
+    assert "done at step 3" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        train_cli.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
+                        "cpu", "--ssm-impl", "stub"])
 
 
 # ---------------------------------------------------------------------------
