@@ -54,6 +54,19 @@ Phases, each fatal on failure:
                layer timed alone; then 3 steps at batch 1 x 2048 from the
                same seed with the fused scan and with the materializing
                "xla" path, losses and grad norms compared.
+ 10. mla_paged — serve full-width deepseek-v3-671b (its 3 dense MLA layers
+               of 61: the other 58 are MoE, not ported yet; random weights
+               from a seed) from paged latent pools through build_engine: 8
+               greedy requests with 256-1024-token prompts, 4 slots, page
+               16, every decode step through the paged_mla kernel (bf16
+               pages); the gather read (margin rule), int8 pages through
+               paged_mla_q8, the kernel against the gather read on a copy
+               with the output projections x32, and a shared 512-token
+               prefix with and without the prefix cache (streams equal).
+ 11. imc     — the paper's IMC projection (Eq. 6) through its entry point
+               imc_mvm on the card at the kernel rows' shapes with leading
+               dimensions, against its plain version, and Eq. 6's
+               all-ones and all-zeros properties.
 
 Kernel launch counts are zeroed just before each main-path phase and read
 just after it.  The second-to-last stdout line is the card's name and
@@ -337,6 +350,8 @@ def phase_kernels(torch, dev):
     rows.update(_kernel_rows_paged(torch, dev, g))
     rows.update(_kernel_rows_flash(torch, dev, g))
     rows.update(_kernel_rows_ssm(torch, dev, g))
+    rows.update(_kernel_rows_mla(torch, dev, g))
+    rows.update(_kernel_rows_imc(torch, dev, g))
     return rows
 
 
@@ -652,6 +667,177 @@ def _kernel_rows_ssm(torch, dev, g):
                 library_ms=None)
         del dt, x, Bm, Cm, A, dy, ins, y, ent, yp, entp, grads, wgrads
         torch.cuda.empty_cache()
+    return rows
+
+
+def _mla_case(torch, dev, g, *, B, H, r, dr, ps, length, pos, q8):
+    """Inputs of one paged MLA decode read: random disjoint latent chains
+    in a pool twice the chains' size (the rest holds other tenants'
+    pages), bf16 queries and pages (int8 codes with per-page scales)."""
+    n = -(-length // ps)
+    num_pages = 2 * B * n
+    perm = torch.randperm(num_pages, device=dev, generator=g)
+    bt = perm[:B * n].reshape(B, n).to(torch.int32).contiguous()
+    bf = torch.bfloat16
+    qa = torch.randn(B, H, r, device=dev, generator=g).to(bf)
+    qr = torch.randn(B, H, dr, device=dev, generator=g).to(bf)
+    pc = torch.randn(num_pages, ps, r, device=dev, generator=g)
+    pr = torch.randn(num_pages, ps, dr, device=dev, generator=g)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    if not q8:
+        return qa, qr, pc.to(bf), pr.to(bf), (), bt, pos
+    from repro_torch.kernels.paged_attention import quant as kvq
+    cs, rs = kvq.page_abs_scale(pc), kvq.page_abs_scale(pr)
+    return qa, qr, kvq.quantize(pc, cs), kvq.quantize(pr, rs), (cs, rs), \
+        bt, pos
+
+
+def _kernel_rows_mla(torch, dev, g):
+    """paged_mla and paged_mla_q8 at the mla_paged phase's decode shape
+    (4 slots, deepseek-v3-671b's 128 heads, kv_lora 512, rope 64, page
+    16, cache 1056, pos 1055) and at an odd one (20 heads, off the
+    kernels' 8-head blocks; a partial last page; one request with
+    pos < length - 1), against the plain version: one bf16 ulp of the
+    output plus 2e-6."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    r, dr, ps = 512, 64, 16
+    scale = 1.0 / (128 + 64) ** 0.5      # 1 / sqrt(nope + rope)
+    cases = [(4, 128, 1056, [1055] * 4), (3, 20, 100, [99, 37, 99])]
+    for q8 in (False, True):
+        name = "paged_mla_q8" if q8 else "paged_mla"
+        kern = pa_ops.paged_mla_q8_kernel if q8 else pa_ops.paged_mla_kernel
+        for B, H, length, pos in cases:
+            path = H == 128
+            qa, qr, pc, pr, sc, bt, pos_t = _mla_case(
+                torch, dev, g, B=B, H=H, r=r, dr=dr, ps=ps, length=length,
+                pos=pos, q8=q8)
+            kw = dict(length=length, scale=scale)
+            sk = dict(zip(("ckv_scale", "krope_scale"), sc))
+            got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+            want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos_t, **kw, **sk)
+            torch.cuda.synchronize()
+            n_bad, err = _past_bf16_ulp(torch, got, want)
+            tag = (f"{name} (B {B}, H {H}, r {r}, dr {dr}, page {ps}, "
+                   f"length {length}, pos {pos}) bf16 q")
+            if n_bad:
+                fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
+                     f"at {n_bad} outputs (max {err})")
+
+            def kernel():
+                kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+            ms = device_ms(torch, kernel, 100)
+            call_ms = eager_ms(torch, kernel, 100)
+            plain_ms = device_ms(torch, lambda: pa_ref.paged_mla_ref(
+                qa, qr, pc, pr, bt, pos_t, **kw, **sk), 10)
+            # yardstick the port never calls: one SDPA call over the
+            # gathered dense (dequantized) latent view, q = [q_abs, q_rope],
+            # k = [ckv, krope] as one shared head, v = ckv
+            if q8:
+                cd = pa_ref.gather_dequant(pc, sc[0], bt, length,
+                                           torch.bfloat16)
+                rd = pa_ref.gather_dequant(pr, sc[1], bt, length,
+                                           torch.bfloat16)
+            else:
+                cd = pa_ref.gather_pages(pc, bt, length)
+                rd = pa_ref.gather_pages(pr, bt, length)
+            qd = torch.cat([qa, qr], dim=-1)[:, :, None, :]
+            kd = torch.cat([cd, rd], dim=-1)[:, None]
+            vd = cd[:, None]
+            _kp, valid = pa_ref.paged_positions(pos_t, length)
+            mask = valid[:, None, None, :]
+            library_ms = device_ms(torch, lambda: sdpa(
+                qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True),
+                100)
+            # bytes and flops that this run's positions need: each row's
+            # live latent pages, q and out, the block table
+            flops = bytes_ = 0
+            for p in pos:
+                f, b = pa_ops.cost_model_mla(
+                    1, H, r, dr, live_tokens=p + 1, page_size=ps,
+                    dtype_bytes=1 if q8 else 2, scale_bytes=4 if q8 else 0)
+                flops, bytes_ = flops + f, bytes_ + b
+            b_ms, by = bound(bytes_, flops, PEAK_BF16_TENSOR_FLOPS)
+            print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp "
+                  f"+ 2e-6) kernel {ms:.4f} ms (eager call {call_ms:.4f} "
+                  f"ms), plain {plain_ms:.4f} ms, library (SDPA on the "
+                  f"dense latent view) {library_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({by}, bf16 tensor peak; "
+                  f"{flops / 1e9:.2f} GFLOP, {bytes_ / 1e6:.2f} MB)",
+                  flush=True)
+            if path:
+                rows[name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=by, library_ms=library_ms)
+            del qa, qr, pc, pr, sc, cd, rd, qd, kd, vd
+    return rows
+
+
+#: (M, K, N) of the IMC rows: the largest shape of
+#: benchmarks/imc_throughput.py, and two ragged ones
+IMC_SHAPES = [(4096, 1024, 1024), (17, 70, 50), (5, 300, 129)]
+
+
+def _imc_inputs(torch, dev, g, M, K, N):
+    x = (torch.rand(M, K, device=dev, generator=g) > 0.5).float()
+    codes = torch.randint(0, 4, (K, N), device=dev, generator=g,
+                          dtype=torch.int8)
+    scale = torch.rand(N, device=dev, generator=g) * 0.3 + 0.01
+    return x, codes, scale
+
+
+def _imc_close(torch, got, want):
+    """(within the reference's 1e-5 atol and rtol, max |got - want|)."""
+    err = (got - want).abs()
+    return bool((err <= 1e-5 + 1e-5 * want.abs()).all()), err.max().item()
+
+
+def _kernel_rows_imc(torch, dev, g):
+    """imc_mvm at the imc phase's shapes against the plain version (the
+    reference's 1e-5)."""
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+    from repro_torch.kernels.imc_mvm import ref as imc_ref
+
+    rows = {}
+    for M, K, N in IMC_SHAPES:
+        x, codes, scale = _imc_inputs(torch, dev, g, M, K, N)
+        got = imc_ops.imc_mvm_kernel(x, codes, scale)
+        want = imc_ref.imc_mvm_ref(x, codes, scale)
+        torch.cuda.synchronize()
+        ok, err = _imc_close(torch, got, want)
+        tag = f"imc_mvm (M {M}, K {K}, N {N}) fp32"
+        if not ok:
+            fail(f"{tag}: max |kernel - plain| = {err} past 1e-5 + 1e-5 rel")
+
+        def kernel():
+            imc_ops.imc_mvm_kernel(x, codes, scale)
+        ms = device_ms(torch, kernel, 50)
+        call_ms = eager_ms(torch, kernel, 50)
+        plain_ms = device_ms(torch, lambda: imc_ref.imc_mvm_ref(
+            x, codes, scale), 20)
+        # yardstick the port never calls: one fp32 matmul with the weight
+        # dequantized (scale included) outside the timed region, then 1/K
+        w = imc_ref.dequantize_codes(codes, scale)
+        library_ms = device_ms(torch, lambda: torch.matmul(x, w) * (1.0 / K),
+                               50)
+        # x and y in fp32, the int8 codes and the scales, each once; the
+        # product is exact in bf16, so its operations count at that peak
+        bytes_ = M * K * 4 + K * N + N * 4 + M * N * 4
+        flops = 2 * M * K * N
+        b_ms, by = bound(bytes_, flops, PEAK_BF16_TENSOR_FLOPS)
+        print(f"kernel {tag}: max_abs_err {err:.3g} (tol 1e-5 + 1e-5 rel) "
+              f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library (one fp32 matmul with the "
+              f"dequantized weight) {library_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({by}, bf16 tensor peak; {flops / 1e9:.2f} GFLOP, "
+              f"{bytes_ / 1e6:.2f} MB)", flush=True)
+        if (M, K, N) == IMC_SHAPES[0]:
+            rows["imc_mvm"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=library_ms)
     return rows
 
 
@@ -1526,6 +1712,277 @@ def phase_mamba_train(torch, dev):
     return {"fused_ssm_fwd": n_fwd, "fused_ssm_bwd": n_bwd}
 
 
+#: deepseek-v3-671b's first three layers are dense MLA layers (d_ff 18432);
+#: the other 58 are MoE (256 routed experts plus 1 shared, 11.3 B parameters
+#: a layer), which the port does not have yet.  The mla_paged phase serves
+#: the depth cut to the dense layers at the published widths.
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 3
+
+
+def _serve_mla(torch, model, prompts, gen_tokens, *, max_len, num_pages,
+               prefix_cache=False):
+    """One run of the paged MLA serving path through build_engine."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import Telemetry
+
+    eng = build_engine(model, ServeConfig(
+        slots=4, max_len=max_len, prefill_chunk=256, kv_layout="paged",
+        page_size=16, num_pages=num_pages, prefix_cache=prefix_cache),
+        telemetry=Telemetry())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=gen_tokens) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def phase_mla_paged(torch, dev):
+    """Full-width deepseek-v3-671b (its 3 dense MLA layers) served from
+    paged latent pools."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.profile import profile_window
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    specs = cfg.layer_specs()
+    if any(s.moe for s in specs):
+        fail(f"mla_paged: the depth cut kept MoE layers {specs}")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    kernels = (pa_ops.paged_mla_kernel, pa_ops.paged_mla_q8_kernel)
+
+    def variant(**kw):
+        other = build_model(dataclasses.replace(cfg, **kw), device=dev)
+        other.load_state_dict(model.state_dict())
+        return other
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    m = cfg.mla
+    print(f"mla_paged: {cfg.name} ({cfg.n_layers} dense MLA layers of 61, "
+          f"{n_params / 1e9:.3f} B params, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads, q_lora {m.q_lora_rank}, kv_lora {m.kv_lora_rank}, rope "
+          f"{m.qk_rope_head_dim}, d_ff {specs[0].d_ff}, vocab {cfg.vocab}) "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    plens = [1024, 1024, 700, 700, 512, 300, 900, 256]
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in plens]
+    gen_tokens = 32
+    max_len = max(plens) + gen_tokens           # 1056: 66 pages of 16
+    num_pages = 4 * (max_len // 16) + 36        # 4 full chains + headroom
+    kw = dict(max_len=max_len, num_pages=num_pages)
+    _serve_mla(torch, model, prompts[:2], 2, **kw)   # warm-up (cuBLAS etc.)
+
+    def measured(mdl, tag, kernel):
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels:
+            k.launches = 0
+        eng, reqs, dt = _serve_mla(torch, mdl, prompts, gen_tokens, **kw)
+        launches = kernel.launches if kernel is not None else sum(
+            k.launches for k in kernels)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+        for r in reqs:
+            toks = r.tokens
+            if not r.finished or len(toks) != gen_tokens:
+                fail(f"mla_paged {tag}: request {r.uid} finished="
+                     f"{r.finished} with {len(toks)} tokens")
+            if not ((toks >= 0) & (toks < cfg.vocab)).all():
+                fail(f"mla_paged {tag}: request {r.uid} emitted a token "
+                     "outside the vocab")
+        pool_b = sum(t.numel() * t.element_size() for layer in eng.state
+                     for t in layer.values())
+        ttft = sorted((r.first_token_t - r.created_t) * 1e3 for r in reqs)
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        n_gen = sum(len(r.tokens) for r in reqs)
+        print(f"mla_paged {tag}: {len(reqs)} requests, {n_gen} tokens in "
+              f"{dt:.3f} s ({n_gen / dt:.1f} generated tok/s incl. "
+              f"prefill), TTFT p50 {ttft[len(ttft) // 2]:.1f} ms max "
+              f"{ttft[-1]:.1f} ms, {eng.n_steps} decode steps p50 "
+              f"{stp['p50']:.2f} ms, peak memory {peak_gb:.2f} GiB, pool "
+              f"{eng.pool.num_pages} pages = {pool_b / 2**20:.2f} MiB, "
+              f"kernel launches {launches}; distinct tokens per stream "
+              f"{[len(set(r.tokens.tolist())) for r in reqs]}", flush=True)
+        _check_drained(eng, f"mla_paged {tag}")
+        return eng, reqs, launches, pool_b
+
+    # (a) bf16 latent pages through the paged_mla kernel
+    eng, reqs, launches, pool_bf16 = measured(model, "bf16 kernel",
+                                              pa_ops.paged_mla_kernel)
+    if pa_ops.paged_mla_q8_kernel.launches:
+        fail("mla_paged bf16: the int8 kernel was launched")
+    if launches == 0 or launches != cfg.n_layers * eng.n_steps:
+        fail(f"mla_paged bf16: paged_mla launches {launches} != "
+             f"{cfg.n_layers} layers x {eng.n_steps} decode steps")
+    print(f"mla_paged: paged_mla launches {launches} = {cfg.n_layers} layers "
+          f"x {eng.n_steps} decode steps", flush=True)
+
+    # one 4-slot decode step at position 1055 (the longest chains): called
+    # eagerly vs its kernels replayed from a CUDA graph; the difference is
+    # time the card waits for the host; then the kernels with the most
+    # device time in it
+    state = model.init_paged_cache(num_pages, 16)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), max_len - 1, dtype=torch.int32, device=dev)
+    n_chain = max_len // 16
+    bt = torch.arange(4 * n_chain, dtype=torch.int32,
+                      device=dev).reshape(4, n_chain)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    rows = torch.arange(4, device=dev)
+
+    def step():
+        model.decode_step_paged(tok, state, pos, bt, act, max_len, rows=rows)
+    with torch.inference_mode():
+        step_eager = eager_ms(torch, step, 10)
+        step_dev = device_ms(torch, step, 10)
+        print(f"mla_paged: decode_step_paged (4 slots, pos {max_len - 1}): "
+              f"eager {step_eager:.2f} ms, device {step_dev:.2f} ms -> card "
+              f"idle {1 - step_dev / step_eager:.1%} of an eager step",
+              flush=True)
+        profile_window(step, 5, "mla_paged: decode_step_paged profile")
+    del state
+
+    def against_gather(tag, reqs, gm):
+        """The kernel streams ``reqs`` equal the gather read's up to the
+        first token where the gather model's top-2 margin is <= 0.1."""
+        geng, greqs, glaunch, _ = measured(gm, f"{tag} gather", None)
+        if glaunch:
+            fail(f"mla_paged {tag} gather: {glaunch} paged kernel launches")
+        n_div = 0
+        for r, gr in zip(reqs, greqs):
+            i = _first_divergence(r.tokens, gr.tokens)
+            if i is None:
+                continue
+            n_div += 1
+            ctx = np.concatenate([r.prompt, r.tokens[:i]]).astype(np.int64)
+            last, _ = geng.sm.prefill(ctx[None, :])
+            top2 = torch.topk(last[0, :cfg.vocab].float(), 2).values
+            margin = (top2[0] - top2[1]).item()
+            if margin > 0.1:
+                fail(f"mla_paged {tag}: request {r.uid} diverges from the "
+                     f"gather read at token {i} where the top-2 margin is "
+                     f"{margin:.3f} > 0.1")
+            print(f"mla_paged {tag}: request {r.uid} parts from the gather "
+                  f"stream at token {i} (gather top-2 margin {margin:.4f} "
+                  "<= 0.1)")
+        print(f"mla_paged {tag}: kernel greedy tokens match the gather "
+              f"read's in {len(reqs) - n_div}/{len(reqs)} requests end to "
+              "end", flush=True)
+
+    # (b) the same traffic through the dense-gather read
+    gm = variant(paged_impl="gather")
+    against_gather("bf16", reqs, gm)
+    del gm
+
+    # (c) int8 latent pages through the paged_mla_q8 kernel
+    qmodel = variant(kv_dtype="int8")
+    qeng, qreqs, q8_launches, pool_int8 = measured(
+        qmodel, "int8 kernel", pa_ops.paged_mla_q8_kernel)
+    if pa_ops.paged_mla_kernel.launches:
+        fail("mla_paged int8: the bf16 kernel was launched")
+    if q8_launches == 0 or q8_launches != cfg.n_layers * qeng.n_steps:
+        fail(f"mla_paged int8: paged_mla_q8 launches {q8_launches} != "
+             f"{cfg.n_layers} layers x {qeng.n_steps} decode steps")
+    same = sum(int(np.sum(np.asarray(a.tokens) == np.asarray(b.tokens)))
+               for a, b in zip(reqs, qreqs))
+    firsts = [_first_divergence(a.tokens, b.tokens) for a, b in
+              zip(reqs, qreqs)]
+    print(f"mla_paged: pool bytes bf16 {pool_bf16 / 2**20:.2f} MiB, int8 "
+          f"{pool_int8 / 2**20:.2f} MiB ({pool_int8 / pool_bf16:.3f}x); "
+          f"int8 greedy tokens equal bf16's at {same}/"
+          f"{len(reqs) * gen_tokens} positions; first divergence per "
+          f"request {firsts}; paged_mla_q8 launches {q8_launches}",
+          flush=True)
+    del qmodel, qeng
+
+    # (b') random weights give few-token greedy streams, so the kernel is
+    # also compared with the gather read on a sharpened copy: every
+    # layer's output projections x32 (as in phase paged)
+    sharp = variant()
+    with torch.no_grad():
+        for layer in sharp.layers:
+            layer.mixer.wo.mul_(32.0)
+            layer.mlp.w_down.mul_(32.0)
+    _seng, sreqs, _, _ = measured(sharp, "sharpened bf16 kernel",
+                                  pa_ops.paged_mla_kernel)
+    sgather = variant(paged_impl="gather")
+    sgather.load_state_dict(sharp.state_dict())
+    against_gather("sharpened", sreqs, sgather)
+    del sharp, sgather
+
+    # (d) 4 requests sharing a 512-token prefix, with and without the
+    # prefix cache
+    prefix = rng.integers(0, cfg.vocab, size=512)
+    shared = [np.concatenate([prefix, rng.integers(0, cfg.vocab, size=t)])
+              for t in (9, 100, 257, 300)]
+    streams = []
+    for cache in (False, True):
+        peng, preqs, pdt = _serve_mla(torch, model, shared, gen_tokens,
+                                      prefix_cache=cache, **kw)
+        ttft = sorted((r.first_token_t - r.created_t) * 1e3 for r in preqs)
+        print(f"mla_paged prefix_cache={cache}: 4 requests sharing 512 "
+              f"tokens in {pdt:.3f} s, TTFT p50 {ttft[len(ttft) // 2]:.1f} "
+              f"ms max {ttft[-1]:.1f} ms, prefix hits {peng.n_prefix_hits}, "
+              f"prompt tokens skipped {peng.n_prefix_tokens}", flush=True)
+        streams.append([list(r.tokens) for r in preqs])
+        _check_drained(peng, f"mla_paged prefix_cache={cache}")
+    if streams[0] != streams[1]:
+        fail("mla_paged: streams with the prefix cache differ from the same "
+             "traffic without it")
+    if peng.n_prefix_hits == 0:
+        fail("mla_paged: the prefix cache never hit")
+    del model
+    torch.cuda.empty_cache()
+    return {"paged_mla": launches, "paged_mla_q8": q8_launches}
+
+
+def phase_imc(torch, dev):
+    """The paper's IMC projection through its entry point on the card, at
+    the kernel rows' shapes and with leading dimensions, and Eq. 6's
+    properties."""
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+    from repro_torch.kernels.imc_mvm import ref as imc_ref
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    imc_ops.imc_mvm_kernel.launches = 0
+    worst = 0.0
+    for M, K, N in IMC_SHAPES:
+        x, codes, scale = _imc_inputs(torch, dev, g, M, K, N)
+        # the entry point takes any leading dims: (M, K) as (2, M/2, K)
+        lead = (2, M // 2) if M % 2 == 0 else (M,)
+        got = imc_ops.imc_mvm(x.reshape(*lead, K), codes, scale)
+        want = imc_ref.imc_mvm_ref(x, codes, scale)
+        ok, err = _imc_close(torch, got.reshape(M, N), want)
+        if got.shape != (*lead, N) or not ok:
+            fail(f"imc: imc_mvm {(M, K, N)} as {lead}: shape "
+                 f"{tuple(got.shape)}, max |kernel - plain| {err}")
+        worst = max(worst, err)
+        # Eq. 6: all-ones x settles at the column mean of the selected
+        # levels times Δ; x = 0 at exactly V0 (0 in weight units)
+        ones = imc_ops.imc_mvm(torch.ones_like(x), codes, scale)
+        mean = ((codes.float() - 1.5) * scale).mean(0)
+        mean_err = (ones - mean).abs().max().item()
+        zero = imc_ops.imc_mvm(torch.zeros_like(x), codes, scale)
+        zmax = zero.abs().max().item()
+        if not mean_err <= 1e-6 or zmax != 0.0:
+            fail(f"imc: Eq. 6 at {(M, K, N)}: all-ones vs column mean "
+                 f"{mean_err} (tol 1e-6), |y(0)| max {zmax} (want 0)")
+        print(f"imc: imc_mvm {(M, K, N)} as {lead + (K,)}: max |kernel - "
+              f"plain| {err:.3g} (tol 1e-5 + 1e-5 rel); Eq. 6: all-ones vs "
+              f"the column mean {mean_err:.3g} (tol 1e-6), y(0) = 0 "
+              "exactly", flush=True)
+    launches = imc_ops.imc_mvm_kernel.launches
+    if launches != 3 * len(IMC_SHAPES):
+        fail(f"imc: imc_mvm launches {launches} != {3 * len(IMC_SHAPES)}")
+    print(f"imc: {len(IMC_SHAPES)} shapes, max |kernel - plain| {worst:.3g}; "
+          f"imc_mvm launches {launches}", flush=True)
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1564,6 +2021,8 @@ def main():
     launches.update(phase_paged(torch, dev))
     launches.update(phase_attn_train(torch, dev))
     launches.update(phase_mamba_train(torch, dev))
+    launches.update(phase_mla_paged(torch, dev))
+    launches["imc_mvm"] = phase_imc(torch, dev)
 
     meta = {
         "linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",
@@ -1594,6 +2053,15 @@ def main():
         "fused_ssm_bwd": (
             "src/repro_torch/kernels/csrc/fused_ssm_bwd.cu",
             "src/repro/kernels/fused_ssm/fused_ssm.py:147"),
+        "paged_mla": (
+            "src/repro_torch/kernels/csrc/paged_mla.cu",
+            "src/repro/kernels/paged_attention/paged_attention.py:259"),
+        "paged_mla_q8": (
+            "src/repro_torch/kernels/csrc/paged_mla_q8.cu",
+            "src/repro/kernels/paged_attention/paged_attention.py:332"),
+        "imc_mvm": (
+            "src/repro_torch/kernels/csrc/imc_mvm.cu",
+            "src/repro/kernels/imc_mvm/imc_mvm.py:58"),
     }
     kernels = []
     for name in build.KERNELS:

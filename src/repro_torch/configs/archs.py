@@ -1,5 +1,7 @@
 """The architectures of the port so far (port of ``repro.configs.archs``):
 SmolLM-360M (global GQA), Gemma-3-4B (5:1 sliding-window:global GQA),
+DeepSeek-V3-671B (MLA; its MoE layers are not ported yet, so only a
+depth cut to its three dense head layers builds),
 Falcon-Mamba-7B (attention-free Mamba-1), the paper's technique at LM
 scale, its hardware-mode twin, the paper's sMNIST network dims,
 ``reduced()`` and ``get_config``.  Values are the reference's own."""
@@ -7,9 +9,23 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU,
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU, MLA,
                                       LayerSpec, MambaConfig, MLAConfig,
                                       ModelConfig, MoEConfig)
+
+DEEPSEEK_V3_671B = ModelConfig(
+    # [arXiv:2412.19437; hf] — MLA, 1 shared + 256 routed top-8, MTP,
+    # first 3 layers dense (d_ff 18432), the rest MoE (expert d_ff 2048)
+    name="deepseek-v3-671b",
+    n_layers=61, d_model=7168, n_heads=128, n_kv_heads=128, head_dim=128,
+    d_ff=18432, vocab=129280,
+    head_layers=(LayerSpec(MLA, d_ff=18432),) * 3,
+    pattern=(LayerSpec(MLA, moe=True),),
+    moe=MoEConfig(n_experts=256, top_k=8, d_ff_expert=2048, n_shared=1),
+    mla=MLAConfig(q_lora_rank=1536, kv_lora_rank=512,
+                  qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128),
+    rope_theta=1e4, tie_embeddings=False, mtp_depth=1,
+)
 
 SMOLLM_360M = ModelConfig(
     # [hf:HuggingFaceTB/SmolLM-360M; hf] — llama-arch small
@@ -53,8 +69,9 @@ MINIMALIST_LM_360M = dataclasses.replace(
 MINIMALIST_LM_HW = dataclasses.replace(
     MINIMALIST_LM_360M, name="minimalist-lm-360m-hw", mingru_quant="hardware")
 
-ARCHS = {c.name: c for c in [SMOLLM_360M, GEMMA3_4B, FALCON_MAMBA_7B,
-                             MINIMALIST_LM_360M, MINIMALIST_LM_HW]}
+ARCHS = {c.name: c for c in [DEEPSEEK_V3_671B, SMOLLM_360M, GEMMA3_4B,
+                             FALCON_MAMBA_7B, MINIMALIST_LM_360M,
+                             MINIMALIST_LM_HW]}
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -8,8 +8,8 @@ Two fields name port backends instead of the TPU ones:
 ``ModelConfig.scan_backend`` takes a value of
 :data:`SCAN_BACKENDS` (the hand-written CUDA kernel replaces
 ``pallas``/``pallas_tpu``), and ``paged_impl`` takes a value of
-:data:`PAGED_IMPLS` (``kernel``, the hand-written paged GQA decode
-kernels, is the default, as the reference defaults to its kernel).
+:data:`PAGED_IMPLS` (``kernel``, the hand-written paged GQA and MLA
+decode kernels, is the default, as the reference defaults to its kernel).
 """
 from __future__ import annotations
 
@@ -27,9 +27,9 @@ MINGRU = "mingru"        # paper's minGRU time-mixing block
 MOE_DISPATCH_MODES = ("pooled", "per_request", "auto")
 
 #: Legal values of :attr:`ModelConfig.paged_impl`:
-#:   kernel — the hand-written CUDA paged GQA decode kernels on CUDA
-#:            tensors, their plain version (``paged_gqa_ref``, fp32 online
-#:            -softmax numerics) on CPU tensors
+#:   kernel — the hand-written CUDA paged GQA and MLA decode kernels on
+#:            CUDA tensors, their plain versions (``paged_gqa_ref``,
+#:            ``paged_mla_ref``, fp32 softmax numerics) on CPU tensors
 #:   gather — the dense-view oracle: gathers each slot's page chain and
 #:            runs the dense decode math (bitwise equal to kv_layout="dense")
 PAGED_IMPLS = ("gather", "kernel")

@@ -73,6 +73,17 @@ SIGNATURES = {
     "fused_ssm_bwd": {
         "fused_ssm_bwd_f32": [_P] * 12 + [_I] * 6 + [_P],
     },
+    "paged_mla": {
+        "paged_mla_f32": [_P] * 9 + [_I] * 10 + [_F, _P],
+        "paged_mla_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
+    },
+    "paged_mla_q8": {
+        "paged_mla_q8_f32": [_P] * 11 + [_I] * 10 + [_F, _P],
+        "paged_mla_q8_bf16": [_P] * 11 + [_I] * 10 + [_F, _P],
+    },
+    "imc_mvm": {
+        "imc_mvm_f32": [_P] * 4 + [_I] * 3 + [_P],
+    },
 }
 
 #: Every kernel of the port, by source stem.

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_devices, on_cpu
 from repro_torch.kernels.flash_attention import ref
 
 #: Head dims the CUDA kernels are compiled for.
@@ -47,8 +47,7 @@ def _check(what, q, k, v, window, extra=()):
     """Device, dtype, shape and layout checks of both CUDA wrappers;
     raises on anything the kernels do not take."""
     tensors = (q, k, v) + tuple(extra)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{what}: inputs on different devices")
+    check_devices(what, *tensors)
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != q.dtype for t in tensors):
         raise ValueError(f"{what}: inputs must share one dtype of fp32/bf16,"
@@ -80,10 +79,8 @@ def _window(window):
 def flash_fwd_kernel(q, k, v, causal=True, window=None):
     """q: (B, H, S, D); k, v: (B, KV, S, D), one dtype (fp32 or bf16) ->
     (out (B, H, S, D) in q's dtype and layout, lse (B, H, S) fp32)."""
-    if q.device.type == "cpu":
+    if on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd_kernel: unsupported device {q.device}")
     _check("flash_fwd_kernel", q, k, v, window)
     B, H, S, D = q.shape
     out = torch.empty_like(q)
@@ -110,17 +107,16 @@ def flash_bwd_kernel(q, k, v, out, lse, do, causal=True, window=None):
     ``lse`` and the output cotangent ``do`` (q's shape and dtype); dk and
     dv summed over each kv head's query group, each in its input's dtype
     and layout."""
-    if q.device.type == "cpu":
+    if on_cpu(q, k, v, out, lse, do):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
                                            window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_bwd_kernel: unsupported device {q.device}")
+    check_devices("flash_bwd_kernel", q, k, v, out, lse, do)
     _check("flash_bwd_kernel", q, k, v, window, (out, do))
     B, H, S, D = q.shape
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 or \
-            not lse.is_contiguous() or lse.device != q.device:
+            not lse.is_contiguous():
         raise ValueError("flash_bwd_kernel: lse must be a contiguous "
-                         f"({B}, {H}, {S}) float32 tensor on {q.device}")
+                         f"({B}, {H}, {S}) float32 tensor")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if dq.numel() == 0:

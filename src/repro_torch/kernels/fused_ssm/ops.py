@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common import pow2ceil
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_devices, on_cpu
 from repro_torch.kernels.fused_ssm import ref
 
 #: Time steps per chunk-entry state (``kChunk`` of ``csrc/fused_ssm.cuh``,
@@ -47,20 +47,11 @@ def d_blocks(di, n):
     return -(-di // per)
 
 
-def _on_cpu(*tensors):
-    """Whether the wrappers take the plain version: every input on the
-    CPU."""
-    return all(t.device.type == "cpu" for t in tensors)
-
-
 def _check(what, dt, x, Bm, Cm, A, extra=()):
     """Device, dtype, shape and layout checks of both CUDA wrappers;
     raises on anything the kernels do not take."""
     tensors = (dt, x, Bm, Cm, A) + tuple(extra)
-    if any(t.device != dt.device for t in tensors):
-        raise ValueError(f"{what}: inputs on different devices")
-    if dt.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dt.device}")
+    check_devices(what, *tensors)
     if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError(f"{what}: the kernels take float32 inputs, got "
                          + ", ".join(str(t.dtype) for t in tensors))
@@ -85,7 +76,7 @@ def fused_ssm_fwd_kernel(dt, x, Bm, Cm, A):
     """dt, x: (B, T, di); Bm, Cm: (B, T, n); A: (di, n), all fp32 ->
     (y (B, T, di), h_entries (B, ceil(T / CHUNK), di, n)): the output and
     the state before every CHUNK-th step."""
-    if _on_cpu(dt, x, Bm, Cm, A):
+    if on_cpu(dt, x, Bm, Cm, A):
         return ref.fused_ssm_fwd_ref(dt, x, Bm, Cm, A, CHUNK)
     _check("fused_ssm_fwd_kernel", dt, x, Bm, Cm, A)
     B, T, di = x.shape
@@ -113,7 +104,7 @@ def fused_ssm_bwd_kernel(dt, x, Bm, Cm, A, h_entries, dy):
     the forward's inputs, its ``h_entries`` and the output cotangent dy
     (B, T, di).  The kernel writes dB and dC partials per (batch,
     d-block) and dA partials per batch; they are summed here."""
-    if _on_cpu(dt, x, Bm, Cm, A, h_entries, dy):
+    if on_cpu(dt, x, Bm, Cm, A, h_entries, dy):
         return ref.fused_ssm_bwd_ref(dt, x, Bm, Cm, A, h_entries, dy, CHUNK)
     _check("fused_ssm_bwd_kernel", dt, x, Bm, Cm, A, (h_entries, dy))
     B, T, di = x.shape

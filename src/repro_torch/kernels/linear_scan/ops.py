@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import SCAN_BACKENDS as BACKENDS
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_devices, on_cpu
 from repro_torch.kernels.linear_scan import ref
 
 
@@ -27,6 +27,7 @@ def _check(what, tensors, names):
     """Device, dtype and contiguity checks shared by both CUDA wrappers:
     every tensor on one CUDA device, of one dtype (fp32 or bf16),
     contiguous."""
+    check_devices(what, *tensors)
     first = tensors[0]
     if first.dtype not in (torch.float32, torch.bfloat16) or any(
             t.dtype != first.dtype for t in tensors):
@@ -35,8 +36,6 @@ def _check(what, tensors, names):
                          + ", ".join(str(t.dtype) for t in tensors))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what}: inputs must be contiguous")
-    if any(t.device != first.device for t in tensors):
-        raise ValueError(f"{what}: inputs on different devices")
     B, T, D = first.shape
     if max(B, T, D) >= 2**31 or B > 65535:
         raise ValueError(f"{what}: shape {tuple(first.shape)} too large for "
@@ -46,10 +45,8 @@ def _check(what, tensors, names):
 def linear_scan_kernel(a, b, h0):
     """h_t = a_t ⊙ h_{t-1} + b_t over axis 1. a, b: (B, T, D); h0: (B, D),
     all of one dtype (fp32 or bf16); returns h (B, T, D) in that dtype."""
-    if a.device.type == "cpu":
+    if on_cpu(a, b, h0):
         return ref.linear_scan_associative(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"linear_scan_kernel: unsupported device {a.device}")
     if a.dim() != 3 or b.shape != a.shape or h0.shape != (a.shape[0],
                                                           a.shape[2]):
         raise ValueError(f"linear_scan_kernel: shapes a {tuple(a.shape)}, "
@@ -79,11 +76,8 @@ def linear_scan_bwd_kernel(a, h, h0, g):
     all of one dtype (fp32 or bf16).  λ carries in fp32 and is rounded to
     that dtype before da and dh0 are formed from it (the reference's
     order: its scan stores λ in the dtype, then multiplies)."""
-    if a.device.type == "cpu":
+    if on_cpu(a, h, h0, g):
         return ref.linear_scan_bwd(a, h, h0, g)
-    if a.device.type != "cuda":
-        raise ValueError(f"linear_scan_bwd_kernel: unsupported device "
-                         f"{a.device}")
     if a.dim() != 3 or h.shape != a.shape or g.shape != a.shape or \
             h0.shape != (a.shape[0], a.shape[2]):
         raise ValueError(f"linear_scan_bwd_kernel: shapes a "

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_devices, on_cpu
 from repro_torch.kernels.minimalist_block import ref
 
 #: Legal ``backend`` values of :func:`minimalist_step` and
@@ -43,6 +43,7 @@ def from_block_params(block):
 
 def _check_args(what, x, codes_h, codes_z, bh, bz, h, x_shape):
     """Shape, dtype, device and contiguity checks of both CUDA wrappers."""
+    check_devices(what, x, codes_h, codes_z, bh, bz, h)
     B, K = x_shape[0], x_shape[-1]
     N = codes_h.shape[1]
     expect = {"x": (x, x_shape, torch.float32),
@@ -56,9 +57,8 @@ def _check_args(what, x, codes_h, codes_z, bh, bz, h, x_shape):
             raise ValueError(f"{what}: {name} must be {dtype} "
                              f"{tuple(shape)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous tensor "
-                             f"on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
     if B > 65535 or max(x_shape + (N,)) >= 2**31:
         raise ValueError(f"{what}: shape {tuple(x_shape)} -> {N} too large "
                          "for one launch")
@@ -69,12 +69,9 @@ def minimalist_step_kernel(x, codes_h, codes_z, scale, bh, bz, h_prev, *,
     """ONE decode step of the fused core: x (B, K) fp32, codes (K, N) int8,
     scale float, bh/bz (N,) fp32, h_prev (B, N) fp32 -> (y, h) each (B, N)
     fp32, plus the int8 gate codes when ``return_z_codes``."""
-    if x.device.type == "cpu":
+    if on_cpu(x, codes_h, codes_z, bh, bz, h_prev):
         return ref.minimalist_step_ref(x, codes_h, codes_z, scale, bh, bz,
                                        h_prev, return_z_codes=return_z_codes)
-    if x.device.type != "cuda":
-        raise ValueError(f"minimalist_step_kernel: unsupported device "
-                         f"{x.device}")
     _check_args("minimalist_step_kernel", x, codes_h, codes_z, bh, bz,
                 h_prev, tuple(x.shape))
     B, K = x.shape
@@ -102,12 +99,9 @@ def minimalist_block_kernel(x, codes_h, codes_z, scale, bh, bz, h0):
     """The fused core over a sequence: x (B, T, K) fp32 binary, codes
     (K, N) int8, scale float, bh/bz (N,) fp32, h0 (B, N) fp32 ->
     (y = Θ(h), h) each (B, T, N) fp32."""
-    if x.device.type == "cpu":
+    if on_cpu(x, codes_h, codes_z, bh, bz, h0):
         return ref.minimalist_block_ref(x, codes_h, codes_z, scale, bh, bz,
                                         h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"minimalist_block_kernel: unsupported device "
-                         f"{x.device}")
     if x.dim() != 3:
         raise ValueError(f"minimalist_block_kernel: x must be (B, T, K), "
                          f"got {tuple(x.shape)}")

@@ -1,16 +1,21 @@
-"""Paged GQA decode: the two CUDA kernels' wrappers, the backend dispatch
-and the analytic cost model (port of
-``repro.kernels.paged_attention.ops``, GQA only).
+"""Paged GQA and MLA decode: the four CUDA kernels' wrappers, the backend
+dispatch and the analytic cost models (port of
+``repro.kernels.paged_attention.ops``).
 
 ``paged_gqa_kernel`` runs ``csrc/paged_gqa.cu`` (which replaces the TPU
 kernel ``paged_gqa_fwd``) on CUDA tensors, and ``paged_gqa_q8_kernel``
 runs ``csrc/paged_gqa_q8.cu`` (replacing ``paged_gqa_fwd_q8``) for int8
-pools with per-(page, kv-head) float32 scales.  On CPU tensors both take
-their plain version, :func:`ref.paged_gqa_ref`; on a CUDA tensor they
-launch the kernel or raise.  Each counts its launches in
-``<wrapper>.launches``.
+pools with per-(page, kv-head) float32 scales.  ``paged_mla_kernel`` and
+``paged_mla_q8_kernel`` do the same for weight-absorbed MLA over latent
+pages (``csrc/paged_mla.cu`` and ``csrc/paged_mla_q8.cu``, replacing
+``paged_mla_fwd`` and ``paged_mla_fwd_q8``; int8 latent pools carry one
+float32 scale per page).  When every input lies on the CPU a wrapper
+takes its plain version (:func:`ref.paged_gqa_ref`,
+:func:`ref.paged_mla_ref`); otherwise it launches the kernel or raises.
+Each counts its launches in ``<wrapper>.launches``.
 
-:func:`paged_gqa_attention` dispatches one single-token decode read:
+:func:`paged_gqa_attention` and :func:`paged_mla_attention` dispatch one
+single-token decode read:
 
   * backend "gather" — the plain version (dense gather of each chain,
     masked fp32 softmax): the definitional oracle;
@@ -24,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import PAGED_IMPLS as BACKENDS
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_devices, on_cpu
 from repro_torch.kernels.paged_attention import ref
 
 #: Shared memory one block may use (H100: 227 KB).
@@ -43,8 +48,7 @@ def _check(what, q, pool_k, pool_v, bt, pos, length, window, pool_dtypes,
     """Device, dtype, shape and contiguity checks shared by both CUDA
     wrappers; raises on anything the kernels do not take."""
     tensors = (q, pool_k, pool_v, bt, pos) + tuple(scales)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{what}: inputs on different devices")
+    check_devices(what, *tensors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what}: inputs must be contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -101,11 +105,9 @@ def paged_gqa_kernel(q, pool_k, pool_v, block_tables, pos, *, length,
     """q: (B, H, hd) fp32/bf16; pool_k/v: (P, page, KV, hd) of q's dtype;
     block_tables: (B, >= ceil(length/page)) int32; pos: (B,) int32 ->
     (B, H, hd) in q's dtype."""
-    if q.device.type == "cpu":
+    if on_cpu(q, pool_k, pool_v, block_tables, pos):
         return ref.paged_gqa_ref(q, pool_k, pool_v, block_tables, pos,
                                  length=length, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_gqa_kernel: unsupported device {q.device}")
     _check("paged_gqa_kernel", q, pool_k, pool_v, block_tables, pos, length,
            window, (q.dtype,))
     lib = build.load("paged_gqa")
@@ -124,13 +126,10 @@ def paged_gqa_q8_kernel(q, pool_k, pool_v, k_scale, v_scale, block_tables,
                         pos, *, length, window=None):
     """Int8 pools (P, page, KV, hd) with float32 scales (P, KV), codes
     dequantized in registers; otherwise as :func:`paged_gqa_kernel`."""
-    if q.device.type == "cpu":
+    if on_cpu(q, pool_k, pool_v, k_scale, v_scale, block_tables, pos):
         return ref.paged_gqa_ref(q, pool_k, pool_v, block_tables, pos,
                                  length=length, window=window,
                                  k_scale=k_scale, v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_gqa_q8_kernel: unsupported device "
-                         f"{q.device}")
     _check("paged_gqa_q8_kernel", q, pool_k, pool_v, block_tables, pos,
            length, window, (torch.int8,), (k_scale, v_scale))
     lib = build.load("paged_gqa_q8")
@@ -180,6 +179,199 @@ def paged_gqa_attention(q, pool_k, pool_v, block_tables, pos, *, length,
                             window=window)
 
 
+# --- MLA over latent pages -----------------------------------------------
+
+#: Query heads one block of the MLA kernels holds (``paged_mla.cuh``).
+MLA_HEADS_PER_BLOCK = 8
+#: Latent ranks the MLA kernels take: multiples of 4 (float4 rows), ``r``
+#: at most 1024 (each thread keeps two float4 accumulator columns).
+_MLA_MAX_RANK = 1024
+#: Resident blocks of the split kernel an SM is counted for when the
+#: wrapper cuts each request's pages into ranges.
+_MLA_BLOCKS_PER_SM = 4
+
+
+def _smem_bytes_mla(r, dr, ps):
+    """Dynamic shared memory of one MLA block: the block's q_abs and
+    q_rope rows and one ckv and one krope page (rows padded by four
+    floats against bank conflicts), the page's scores and (m, l, alpha)
+    per head, all fp32 (``paged_mla.cuh``)."""
+    hb = MLA_HEADS_PER_BLOCK
+    return 4 * (hb * (r + 4) + hb * (dr + 4) + ps * (r + 4) + ps * (dr + 4)
+                + hb * ps + 3 * hb)
+
+
+def _mla_splits(B, H, n_pages, sm_count):
+    """Ranges the MLA kernel cuts each request's pages into: enough
+    (head group, request, range) blocks for ``_MLA_BLOCKS_PER_SM`` on
+    every SM, at most one range a page."""
+    groups = B * -(-H // MLA_HEADS_PER_BLOCK)
+    want = -(-_MLA_BLOCKS_PER_SM * sm_count // max(groups, 1))
+    return max(1, min(n_pages, want))
+
+
+def _check_mla(what, q_abs, q_rope, pool_ckv, pool_krope, bt, pos, length,
+               pool_dtypes, scales=()):
+    """Device, dtype, shape and contiguity checks of both MLA wrappers:
+    latent pools (P, ps, r) and (P, ps, dr), int8 scales (P,)."""
+    tensors = (q_abs, q_rope, pool_ckv, pool_krope, bt, pos) + tuple(scales)
+    check_devices(what, *tensors)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if q_abs.dtype not in (torch.float32, torch.bfloat16) or \
+            q_rope.dtype != q_abs.dtype:
+        raise ValueError(f"{what}: q_abs and q_rope must share fp32 or "
+                         f"bf16, got {q_abs.dtype}/{q_rope.dtype}")
+    if pool_ckv.dtype != pool_krope.dtype or \
+            pool_ckv.dtype not in pool_dtypes:
+        raise ValueError(f"{what}: latent pools must share one dtype of "
+                         f"{pool_dtypes}, got {pool_ckv.dtype}/"
+                         f"{pool_krope.dtype}")
+    if bt.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError(f"{what}: block tables and positions must be "
+                         f"int32, got {bt.dtype}/{pos.dtype}")
+    if any(s.dtype != torch.float32 for s in scales):
+        raise ValueError(f"{what}: scales must be float32")
+    if q_abs.dim() != 3 or q_rope.dim() != 3 or pool_ckv.dim() != 3 or \
+            pool_krope.dim() != 3:
+        raise ValueError(f"{what}: shapes q_abs {tuple(q_abs.shape)}, "
+                         f"q_rope {tuple(q_rope.shape)}, pools "
+                         f"{tuple(pool_ckv.shape)}/{tuple(pool_krope.shape)}")
+    B, H, r = q_abs.shape
+    P, ps, _ = pool_ckv.shape
+    dr = q_rope.shape[2]
+    if q_rope.shape[:2] != (B, H) or pool_ckv.shape[2] != r or \
+            pool_krope.shape != (P, ps, dr):
+        raise ValueError(f"{what}: q_abs {tuple(q_abs.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)} do not fit pools "
+                         f"{tuple(pool_ckv.shape)}/{tuple(pool_krope.shape)}")
+    if r % 4 or dr % 4 or not 0 < r <= _MLA_MAX_RANK or dr < 1:
+        raise ValueError(f"{what}: latent ranks r {r}, dr {dr} must be "
+                         f"multiples of 4 with r <= {_MLA_MAX_RANK}")
+    n_pages = -(-length // ps)
+    if bt.dim() != 2 or bt.shape[0] != B or bt.shape[1] < n_pages:
+        raise ValueError(f"{what}: block tables {tuple(bt.shape)} need "
+                         f"({B}, >= {n_pages})")
+    if pos.shape != (B,):
+        raise ValueError(f"{what}: pos {tuple(pos.shape)} != ({B},)")
+    if any(s.shape != (P,) for s in scales):
+        raise ValueError(f"{what}: scales must be ({P},)")
+    if length < 1:
+        raise ValueError(f"{what}: length {length}")
+    if B > 65535 or _smem_bytes_mla(r, dr, ps) > _SMEM_LIMIT:
+        raise ValueError(f"{what}: shape too large for one launch")
+
+
+def _launch_mla(fn, what, q_abs, q_rope, pool_ckv, pool_krope, scales, bt,
+                pos, length, scale):
+    B, H, r = q_abs.shape
+    _P, ps, _ = pool_ckv.shape
+    dr = q_rope.shape[2]
+    out = torch.empty_like(q_abs)
+    if B == 0 or H == 0:
+        return out
+    dev = q_abs.device
+    n_pages = -(-length // ps)
+    n_split = _mla_splits(B, H, n_pages, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    # scratch of the page ranges: unnormalized accumulators and (m, l)
+    part_acc = torch.empty(B * H * n_split * r, dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty(B * H * n_split * 2, dtype=torch.float32,
+                          device=dev)
+    # 16-byte page loads need aligned pools and rows of whole vectors
+    per_vec = 16 // pool_ckv.element_size()
+    vec = int(r % per_vec == 0 and dr % per_vec == 0
+              and pool_ckv.data_ptr() % 16 == 0
+              and pool_krope.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [q_abs.data_ptr(), q_rope.data_ptr(), pool_ckv.data_ptr(),
+            pool_krope.data_ptr()]
+    ptrs += [s.data_ptr() for s in scales]
+    err = fn(*ptrs, bt.data_ptr(), pos.data_ptr(), part_acc.data_ptr(),
+             part_ml.data_ptr(), out.data_ptr(), B, H, r, dr, ps,
+             bt.shape[1], length, n_split, vec, _smem_bytes_mla(r, dr, ps),
+             float(scale), stream)
+    build.check(err, what)
+    return out
+
+
+def paged_mla_kernel(q_abs, q_rope, pool_ckv, pool_krope, block_tables,
+                     pos, *, length, scale):
+    """q_abs: (B, H, r), q_rope: (B, H, dr) fp32/bf16; pool_ckv:
+    (P, page, r), pool_krope: (P, page, dr) of q's dtype; block_tables:
+    (B, >= ceil(length/page)) int32; pos: (B,) int32 -> latent output
+    (B, H, r) in q's dtype."""
+    if on_cpu(q_abs, q_rope, pool_ckv, pool_krope, block_tables, pos):
+        return ref.paged_mla_ref(q_abs, q_rope, pool_ckv, pool_krope,
+                                 block_tables, pos, length=length,
+                                 scale=scale)
+    _check_mla("paged_mla_kernel", q_abs, q_rope, pool_ckv, pool_krope,
+               block_tables, pos, length, (q_abs.dtype,))
+    lib = build.load("paged_mla")
+    fn = lib.paged_mla_bf16 if q_abs.dtype == torch.bfloat16 \
+        else lib.paged_mla_f32
+    out = _launch_mla(fn, "paged_mla", q_abs, q_rope, pool_ckv, pool_krope,
+                      (), block_tables, pos, length, scale)
+    paged_mla_kernel.launches += 1
+    return out
+
+
+paged_mla_kernel.launches = 0
+
+
+def paged_mla_q8_kernel(q_abs, q_rope, pool_ckv, pool_krope, ckv_scale,
+                        krope_scale, block_tables, pos, *, length, scale):
+    """Int8 latent pools (P, page, r) and (P, page, dr) with one float32
+    scale per page each (P,), codes dequantized as they are staged;
+    otherwise as :func:`paged_mla_kernel`."""
+    if on_cpu(q_abs, q_rope, pool_ckv, pool_krope, ckv_scale, krope_scale,
+              block_tables, pos):
+        return ref.paged_mla_ref(q_abs, q_rope, pool_ckv, pool_krope,
+                                 block_tables, pos, length=length,
+                                 scale=scale, ckv_scale=ckv_scale,
+                                 krope_scale=krope_scale)
+    _check_mla("paged_mla_q8_kernel", q_abs, q_rope, pool_ckv, pool_krope,
+               block_tables, pos, length, (torch.int8,),
+               (ckv_scale, krope_scale))
+    lib = build.load("paged_mla_q8")
+    fn = lib.paged_mla_q8_bf16 if q_abs.dtype == torch.bfloat16 \
+        else lib.paged_mla_q8_f32
+    out = _launch_mla(fn, "paged_mla_q8", q_abs, q_rope, pool_ckv,
+                      pool_krope, (ckv_scale, krope_scale), block_tables,
+                      pos, length, scale)
+    paged_mla_q8_kernel.launches += 1
+    return out
+
+
+paged_mla_q8_kernel.launches = 0
+
+
+def paged_mla_attention(q_abs, q_rope, pool_ckv, pool_krope, block_tables,
+                        pos, *, length, scale, backend="gather",
+                        ckv_scale=None, krope_scale=None):
+    """Weight-absorbed MLA decode over latent pages -> (B, H, r) latent
+    output (the caller up-projects through W^{UV}).  ``ckv_scale`` /
+    ``krope_scale`` (P,) float32 select the int8 read path."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    _check_scales(ckv_scale, krope_scale, "ckv_scale/krope_scale")
+    if backend == "gather":
+        return ref.paged_mla_ref(q_abs, q_rope, pool_ckv, pool_krope,
+                                 block_tables, pos, length=length,
+                                 scale=scale, ckv_scale=ckv_scale,
+                                 krope_scale=krope_scale)
+    bt = block_tables.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    if ckv_scale is not None:
+        return paged_mla_q8_kernel(q_abs, q_rope, pool_ckv, pool_krope,
+                                   ckv_scale, krope_scale, bt, pos,
+                                   length=length, scale=scale)
+    return paged_mla_kernel(q_abs, q_rope, pool_ckv, pool_krope, bt, pos,
+                            length=length, scale=scale)
+
+
 def cost_model(B, H, KV, hd, *, live_tokens, page_size, dtype_bytes=2,
                window=None, scale_bytes=0):
     """Analytic (flops, hbm_bytes) for one paged GQA decode call (the
@@ -194,5 +386,22 @@ def cost_model(B, H, KV, hd, *, live_tokens, page_size, dtype_bytes=2,
     kv = 2 * B * pages * page_size * KV * hd * dtype_bytes
     sc = 2 * B * pages * KV * scale_bytes
     qo = 2 * B * H * hd * 2
+    bt = B * pages * 4
+    return flops, kv + sc + qo + bt
+
+
+def cost_model_mla(B, H, r, dr, *, live_tokens, page_size, dtype_bytes=2,
+                   scale_bytes=0):
+    """Analytic (flops, hbm_bytes) for one paged MLA decode call (the
+    reference's own model): the live latent ROWS (ckv plus k_rope, whole
+    pages) streamed once, q_abs, q_rope and out in bf16, the block-table
+    entries; flops 2·B·H·T·(r + dr) for the scores and 2·B·H·T·r for the
+    latent output.  ``scale_bytes=4`` adds the two per-page float32
+    scales (ckv, krope) of int8 latent pools."""
+    pages = -(-live_tokens // page_size)
+    flops = 2 * B * H * live_tokens * (r + dr) + 2 * B * H * live_tokens * r
+    kv = B * pages * page_size * (r + dr) * dtype_bytes
+    sc = 2 * B * pages * scale_bytes
+    qo = B * H * (r + dr) * 2 + B * H * r * 2
     bt = B * pages * 4
     return flops, kv + sc + qo + bt

@@ -1,19 +1,20 @@
 """Plain PyTorch paged (block-table) single-token decode attention (port
-of ``repro.kernels.paged_attention.ref``, GQA only).
+of ``repro.kernels.paged_attention.ref``: GQA and MLA latent pages).
 
 The KV cache lives in a shared page pool ``(num_pages, page_size, ...)``;
 each request owns a chain of page ids (one block-table row).  Entry j of
 request b's dense view is ``pool[block_tables[b, j // ps], j % ps]``:
-for global GQA j IS the absolute position; for a sliding window j is a
-ring index over ``length`` entries holding the latest position <= pos
-congruent to j (mod length).
+for global GQA and MLA latent pages j IS the absolute position; for a
+sliding window j is a ring index over ``length`` entries holding the
+latest position <= pos congruent to j (mod length).
 
 Entries whose reconstructed position is masked contribute exactly zero
 attention weight whatever the page holds, so stale pages of freed
 requests and unallocated block-table entries never reach an output.
 
-:func:`paged_gqa_ref` is the plain version of both CUDA kernels
-(``csrc/paged_gqa.cu``, ``csrc/paged_gqa_q8.cu``).
+:func:`paged_gqa_ref` is the plain version of the GQA CUDA kernels
+(``csrc/paged_gqa.cu``, ``csrc/paged_gqa_q8.cu``), :func:`paged_mla_ref`
+that of the MLA ones (``csrc/paged_mla.cu``, ``csrc/paged_mla_q8.cu``).
 """
 from __future__ import annotations
 
@@ -90,3 +91,26 @@ def paged_gqa_ref(q, pool_k, pool_v, block_tables, pos, *, length,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgl,blkd->bkgd", w, vd)
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_mla_ref(q_abs, q_rope, pool_ckv, pool_krope, block_tables, pos, *,
+                  length, scale, ckv_scale=None, krope_scale=None):
+    """Weight-absorbed MLA decode over latent pages.  q_abs: (B, H, r)
+    absorbed queries; q_rope: (B, H, dr); pool_ckv: (P, page, r);
+    pool_krope: (P, page, dr) -> latent output (B, H, r) in q_abs's dtype
+    (the caller up-projects through W^{UV}).  fp32 scores and softmax;
+    with int8 latent pools pass ``ckv_scale``/``krope_scale`` (P,) and
+    the pools are dequantized up front."""
+    if ckv_scale is not None:
+        pool_ckv = quant.dequantize(pool_ckv, ckv_scale)
+        pool_krope = quant.dequantize(pool_krope, krope_scale)
+    ccd = gather_pages(pool_ckv, block_tables, length).float()   # (B,L,r)
+    crd = gather_pages(pool_krope, block_tables, length).float()  # (B,L,dr)
+    _k_pos, valid = paged_positions(pos, length, None)
+    scores = (torch.einsum("bhr,blr->bhl", q_abs.float(), ccd)
+              + torch.einsum("bhk,blk->bhl", q_rope.float(), crd)) * scale
+    scores = torch.where(valid[:, None, :], scores,
+                         torch.full((), NEG_INF, device=scores.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhl,blr->bhr", w, ccd)
+    return out.to(q_abs.dtype)

@@ -13,14 +13,17 @@ per chunk and minGRU layer — the CUDA kernel on the card; one masked
 softmax per chunk and attention layer), decode is one slot-batch step per
 token, and finished sequences retire the step they complete.
 ``--kv-layout paged`` keeps attention caches in a shared page pool read
-through the paged GQA decode kernels (``--paged-impl kernel``, default)
+through the paged GQA or MLA decode kernels (``--paged-impl kernel``,
+default)
 or the dense-gather oracle (``--paged-impl gather``); ``--kv-dtype int8``
 stores the pages as int8 codes with per-page scales; ``--prefix-cache``
 lets requests sharing a prompt prefix attach to its pages.
 ``--temperature/--top-k/--top-p`` turn on per-request sampling.  The
 flags of features the port does not have yet (mesh, preemptive policies,
 speculative decoding, forking, MoE dispatch, the static-batch baseline)
-are accepted by the parser and refused with an error naming them.
+are accepted by the parser and refused with an error naming them; an arch
+with MoE layers (``deepseek-v3-671b`` and its smoke variant) reaches the
+model, which refuses them with its own message.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs import SamplingParams, ServeConfig, get_config
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, PAGED_IMPLS,
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, PAGED_IMPLS,
                                       SCAN_BACKENDS)
 from repro_torch.models import build_model
 from repro_torch.serve import (DecoderStepModel, PagedConfig, ServeEngine,
@@ -138,7 +141,7 @@ def main(argv=None):
     if args.scan_backend:
         cfg = dataclasses.replace(cfg, scan_backend=args.scan_backend)
     if args.kv_layout == "paged" and not any(
-            s.kind in (ATTN, ATTN_LOCAL) for s in cfg.layer_specs()):
+            s.kind in (ATTN, ATTN_LOCAL, MLA) for s in cfg.layer_specs()):
         ap.error(f"--kv-layout paged needs an attention-bearing arch; "
                  f"{cfg.name} keeps O(1) state per slot (serve it dense)")
     if args.prefix_cache and args.kv_layout != "paged":

@@ -1,5 +1,5 @@
-"""Grouped-query attention, global and sliding-window (port of the GQA
-parts of ``repro.models.attention``).
+"""Grouped-query attention, global and sliding-window, and DeepSeek
+multi-head latent attention (port of ``repro.models.attention``).
 
 Execution regimes, as in the reference:
 
@@ -15,13 +15,14 @@ Execution regimes, as in the reference:
                        through the block table: ``paged_impl="gather"``
                        rebuilds each slot's dense view and runs the dense
                        math (bitwise the dense layout), ``"kernel"`` reads
-                       through the paged GQA decode kernels
+                       through the paged GQA (MLA: latent) decode kernels
 
 ``forward`` runs the naive softmax (``attention_impl="naive"``) or the
 flash-attention op (``"flash"``: the CUDA forward and backward kernels on
 the card, their plain versions on the CPU).  Parameter shapes are the
 reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd,
-d), so the bridge maps them by path.  MLA and speculative verify/commit
+d), so the bridge maps them by path; :class:`MLAAttention` keeps the
+reference's MLA leaves and layouts as well.  Speculative verify/commit
 are not ported yet.
 
 JAX drops out-of-bounds scatter writes and clamps out-of-bounds gathers,
@@ -96,6 +97,14 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, S, H, hd)
 
 
+def _decode_mask(pos, L, window=None):
+    """(B, 1, 1, L) additive mask of the dense (ring) view for queries at
+    per-slot positions ``pos`` (B,)."""
+    _k_pos, valid = paged_positions(pos, L, window)
+    return torch.where(valid, torch.zeros((), device=pos.device),
+                       _neg_inf(pos))[:, None, None, :]
+
+
 def _paged_write_q8(pool, scale, wpage, in_page, fresh, tok):
     """Quantized page-granular decode write, IN PLACE: read each writing
     slot's live page, grow its scale monotonically to admit the new token,
@@ -105,13 +114,15 @@ def _paged_write_q8(pool, scale, wpage, in_page, fresh, tok):
     move; ``fresh`` marks writes that START a page, where the previous
     tenant's scale resets to 0 (which zeroes its codes in the rescale).
 
-    pool: (P, ps, KV, hd) int8; scale: (P, KV) f32; wpage, in_page,
-    fresh: (n,) for the n WRITING slots only (no out-of-bounds rows —
-    the caller selects the active slots); tok: (n, KV, hd)."""
+    pool: (P, ps, *feat, d) int8 — GQA (P, ps, KV, hd), MLA latents
+    (P, ps, r); scale: (P, *feat) f32; wpage, in_page, fresh: (n,) for the
+    n WRITING slots only (no out-of-bounds rows — the caller selects the
+    active slots); tok: (n, *feat, d)."""
     n = tok.shape[0]
-    rows = pool[wpage]                                   # (n, ps, KV, hd)
-    old_s = torch.where(fresh[:, None], torch.zeros((), device=pool.device),
-                        scale[wpage])
+    rows = pool[wpage]                                   # (n, ps, *feat, d)
+    old_s = scale[wpage]                                 # (n, *feat)
+    f = fresh.reshape((n,) + (1,) * (old_s.dim() - 1))
+    old_s = torch.where(f, torch.zeros((), device=pool.device), old_s)
     tok_s = torch.amax(tok.float().abs(), dim=-1) / kvq._scalar(kvq.QMAX,
                                                                 tok)
     new_s = torch.maximum(torch.maximum(old_s, tok_s),
@@ -248,11 +259,7 @@ class GQAAttention(nn.Module):
         return self._out(out, x), {"k": ck, "v": cv}
 
     def _decode_mask(self, pos, L):
-        """(B, 1, 1, L) additive mask of the dense (ring) view for queries
-        at per-slot positions ``pos`` (B,)."""
-        _k_pos, valid = paged_positions(pos, L, self.window)
-        return torch.where(valid, torch.zeros((), device=pos.device),
-                           _neg_inf(pos))[:, None, None, :]
+        return _decode_mask(pos, L, self.window)
 
     def decode(self, x, cache, pos):
         """One-token decode against the dense cache. x: (B, 1, D); pos:
@@ -335,3 +342,248 @@ class GQAAttention(nn.Module):
                 vd = gather_pages(cv, bt, L).to(q.dtype)
             out = _sdpa(q, kd, vd, self._decode_mask(pos, L))
         return self._out(out, x), cache
+
+
+class MLAAttention(nn.Module):
+    """DeepSeek multi-head latent attention (``attention.MLAAttention``):
+    queries through a q_lora bottleneck, keys and values through one
+    shared kv_lora latent plus one shared rotary key head.  Decode caches
+    only the compressed latents (``ckv`` (…, r) and ``krope`` (…, dr)) and
+    absorbs W^{UK} into the query, so attention runs in the latent space
+    and W^{UV} up-projects its output.
+
+    Parameter names and layouts are the reference's: ``w_dq`` (d, q_lora),
+    ``w_uq`` (q_lora, H, nope + rope), ``w_dkv`` (d, r), ``w_kr`` (d, dr),
+    ``w_ukv`` (r, H, nope + v), ``wo`` (H, v, d), ``q_norm`` (q_lora,),
+    ``kv_norm`` (r,)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, device=None):
+        super().__init__()
+        if cfg.mla is None:
+            raise ValueError(f"{cfg.name}: MLAAttention needs cfg.mla")
+        self.cfg = cfg
+        self.m = m = cfg.mla
+        d, H = cfg.d_model, cfg.n_heads
+        kw = dict(dtype=dtype, device=device)
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        self.w_dq = nn.Parameter(torch.empty(d, m.q_lora_rank, **kw))
+        self.w_uq = nn.Parameter(torch.empty(m.q_lora_rank, H, qk, **kw))
+        self.w_dkv = nn.Parameter(torch.empty(d, m.kv_lora_rank, **kw))
+        self.w_kr = nn.Parameter(torch.empty(d, m.qk_rope_head_dim, **kw))
+        self.w_ukv = nn.Parameter(torch.empty(
+            m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim, **kw))
+        self.wo = nn.Parameter(torch.empty(H, m.v_head_dim, d, **kw))
+        self.q_norm = nn.Parameter(torch.empty(m.q_lora_rank, **kw))
+        self.kv_norm = nn.Parameter(torch.empty(m.kv_lora_rank, **kw))
+        #: the reference's 1 / sqrt(nope + rope) softmax scale
+        self.scale = 1.0 / math.sqrt(qk)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """Fan-in init of the projections, unit norm scales (the
+        reference's ``init``)."""
+        c, m = self.cfg, self.m
+        fan_in_init(self.w_dq, c.d_model, generator)
+        fan_in_init(self.w_uq, m.q_lora_rank, generator)
+        fan_in_init(self.w_dkv, c.d_model, generator)
+        fan_in_init(self.w_kr, c.d_model, generator)
+        fan_in_init(self.w_ukv, m.kv_lora_rank, generator)
+        fan_in_init(self.wo, c.n_heads * m.v_head_dim, generator)
+        with torch.no_grad():
+            self.q_norm.fill_(1.0)
+            self.kv_norm.fill_(1.0)
+
+    @staticmethod
+    def _rms(x, scale, eps=1e-6):
+        """The reference's fixed-eps RMS norm of the latents: fp32
+        internals, back in x's dtype (not ``cfg.norm_eps``)."""
+        xf = x.float()
+        v = torch.mean(torch.square(xf), -1, keepdim=True)
+        return (xf * torch.rsqrt(v + eps) * scale.float()).to(x.dtype)
+
+    def _latents(self, x, positions):
+        """(q_nope (B,S,H,nope), q_rope (B,S,H,dr), ckv (B,S,r),
+        k_rope (B,S,dr)) of x (B, S, D) at ``positions``."""
+        c, m = self.cfg, self.m
+        dt = x.dtype
+        cq = self._rms(x @ self.w_dq.to(dt), self.q_norm)
+        q = torch.einsum("bsr,rhk->bshk", cq, self.w_uq.to(dt))
+        q_nope = q[..., :m.qk_nope_head_dim]
+        q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                            c.rope_theta)
+        ckv = self._rms(x @ self.w_dkv.to(dt), self.kv_norm)
+        k_rope = (x @ self.w_kr.to(dt))[:, :, None, :]   # 1 shared head
+        k_rope = apply_rope(k_rope, positions, c.rope_theta)[:, :, 0, :]
+        return q_nope, q_rope, ckv, k_rope
+
+    def _absorb(self, q_nope, dt):
+        """q_abs = q_nope @ W^{UK}ᵀ per head: (B, S, H, nope) -> (B, S,
+        H, r)."""
+        w_uk = self.w_ukv[:, :, :self.m.qk_nope_head_dim].to(dt)
+        return torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
+
+    def _latent_attend(self, q_abs, q_rope, cc, cr, mask):
+        """Weight-absorbed attention over latents cc (B, L, r) and cr
+        (B, L, dr) in the compute dtype; mask: additive (B|1, 1, S, L) ->
+        latent output (B, S, H, r)."""
+        scores = (torch.einsum("bshr,blr->bhsl", q_abs, cc)
+                  + torch.einsum("bshk,blk->bhsl", q_rope, cr))
+        w = torch.softmax(scores.float() * self.scale + mask,
+                          -1).to(q_abs.dtype)
+        return torch.einsum("bhsl,blr->bshr", w, cc)
+
+    def _up(self, o_latent, x):
+        """Latent output (B, S, H, r) through W^{UV} and ``wo``."""
+        w_uv = self.w_ukv[:, :, self.m.qk_nope_head_dim:].to(x.dtype)
+        out = torch.einsum("bshr,rhk->bshk", o_latent, w_uv)
+        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
+
+    def forward(self, x, positions=None):
+        """Full-sequence causal attention (the reference's naive
+        ``__call__``: keys and values up-projected, no absorption).
+        x: (B, S, D)."""
+        m = self.m
+        B, S, _ = x.shape
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        q_nope, q_rope, ckv, k_rope = self._latents(x, positions)
+        kv = torch.einsum("bsr,rhk->bshk", ckv, self.w_ukv.to(x.dtype))
+        k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+        pos = positions.expand(B, S) if positions.dim() == 1 else positions
+        mask = causal_mask(pos, pos)[:, None]
+        scores = (torch.einsum("bshk,blhk->bhsl", q_nope, k_nope)
+                  + torch.einsum("bshk,blk->bhsl", q_rope, k_rope))
+        w = torch.softmax(scores.float() * self.scale + mask,
+                          -1).to(x.dtype)
+        out = torch.einsum("bhsl,blhk->bshk", w, v)
+        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
+
+    # --- dense latent cache ----------------------------------------------
+    def cache_spec(self, batch, length, dtype=torch.bfloat16):
+        """{leaf: (shape, dtype)} of the dense latent cache."""
+        m = self.m
+        return {"ckv": ((batch, length, m.kv_lora_rank), dtype),
+                "krope": ((batch, length, m.qk_rope_head_dim), dtype)}
+
+    def init_cache(self, batch, length, dtype=torch.bfloat16):
+        dev = self.w_dq.device
+        return {k: torch.zeros(shape, dtype=dt, device=dev)
+                for k, (shape, dt) in self.cache_spec(batch, length,
+                                                      dtype).items()}
+
+    def can_prefill(self):
+        return True
+
+    def ring_length(self, length):
+        """Latent caches index globally: the whole engine max_len."""
+        return length
+
+    def prefill(self, x, cache, pos0, length=None):
+        """Chunk prefill with the compressed latent cache
+        (``MLAAttention.prefill``): write the chunk's latents at absolute
+        positions [pos0, pos0+length), then run the weight-absorbed
+        attention of ``decode`` for all S queries at once.  Tokens at
+        in-chunk index >= ``length`` (a host int; None = all) are grid
+        padding — never written, and causally masked for every valid
+        query.  Returns (y, new cache); the input cache is not modified."""
+        B, S, _ = x.shape
+        length = S if length is None else int(length)
+        dev = x.device
+        positions = pos0 + torch.arange(S, device=dev)
+        q_nope, q_rope, ckv, k_rope = self._latents(x, positions.expand(B, S))
+        L = cache["ckv"].shape[1]
+        keep = slice(0, max(0, min(length, L - pos0)))
+        idx = positions[keep]
+        cc, cr = cache["ckv"].clone(), cache["krope"].clone()
+        cc[:, idx] = ckv[:, keep].to(cc.dtype)
+        cr[:, idx] = k_rope[:, keep].to(cr.dtype)
+        mask = torch.where(torch.arange(L, device=dev)[None, :]
+                           <= positions[:, None],
+                           torch.zeros((), device=dev), _neg_inf(x))
+        o_latent = self._latent_attend(self._absorb(q_nope, x.dtype), q_rope,
+                                       cc.to(x.dtype), cr.to(x.dtype),
+                                       mask[None, None])
+        return self._up(o_latent, x), {"ckv": cc, "krope": cr}
+
+    def decode(self, x, cache, pos):
+        """One-token decode against the dense latent cache with per-slot
+        positions ``pos`` (B,) (the reference vmaps a scalar-position
+        step).  The write of a slot whose pos is past the cache clamps to
+        its last entry (the reference's dynamic_update_slice).  Returns
+        (y, new cache)."""
+        B = x.shape[0]
+        pos = pos.long()
+        q_nope, q_rope, ckv, k_rope = self._latents(x, pos[:, None])
+        L = cache["ckv"].shape[1]
+        slot = pos.clamp(0, L - 1)
+        rows = torch.arange(B, device=x.device)
+        cc, cr = cache["ckv"].clone(), cache["krope"].clone()
+        cc[rows, slot] = ckv[:, 0].to(cc.dtype)
+        cr[rows, slot] = k_rope[:, 0].to(cr.dtype)
+        o_latent = self._latent_attend(self._absorb(q_nope, x.dtype), q_rope,
+                                       cc.to(x.dtype), cr.to(x.dtype),
+                                       _decode_mask(pos, L))
+        return self._up(o_latent, x), {"ckv": cc, "krope": cr}
+
+    # --- paged latent pools ----------------------------------------------
+    def paged_cache_spec(self, num_pages, page_size, dtype=torch.bfloat16):
+        """{leaf: (shape, dtype)} of this layer's latent page pools; int8
+        pools add one float32 scale per page for each (``ckv_scale``,
+        ``krope_scale`` (P,))."""
+        m = self.m
+        q8 = self.cfg.kv_dtype == "int8"
+        dt = torch.int8 if q8 else dtype
+        spec = {"ckv": ((num_pages, page_size, m.kv_lora_rank), dt),
+                "krope": ((num_pages, page_size, m.qk_rope_head_dim), dt)}
+        if q8:
+            sc = ((num_pages,), torch.float32)
+            spec.update(ckv_scale=sc, krope_scale=sc)
+        return spec
+
+    def decode_paged(self, x, cache, pos, bt, active, length, rows=None):
+        """Slot-batched weight-absorbed decode against the latent page
+        pools (the contract of :meth:`GQAAttention.decode_paged`): each
+        ACTIVE slot's latents are written into its live page in place
+        (int8: quantized into it), then the chains are read back through
+        ``paged_impl`` — the paged MLA kernels, or the gather of each
+        chain into the dense decode math.  Returns (y, cache)."""
+        q_nope, q_rope, ckv, k_rope = self._latents(x, pos.long()[:, None])
+        ps = cache["ckv"].shape[1]
+        if rows is None:
+            rows = torch.nonzero(active).flatten()
+        wpos = pos.long()[rows]
+        wpage = bt[rows, wpos // ps].long()
+        in_page = wpos % ps
+        q8 = self.cfg.kv_dtype == "int8"
+        if q8:
+            fresh = in_page == 0            # latent pages index globally
+            _paged_write_q8(cache["ckv"], cache["ckv_scale"], wpage,
+                            in_page, fresh, ckv[rows, 0])
+            _paged_write_q8(cache["krope"], cache["krope_scale"], wpage,
+                            in_page, fresh, k_rope[rows, 0])
+            ccs, crs = cache["ckv_scale"], cache["krope_scale"]
+        else:
+            cache["ckv"][wpage, in_page] = ckv[rows, 0].to(cache["ckv"].dtype)
+            cache["krope"][wpage, in_page] = k_rope[rows, 0].to(
+                cache["krope"].dtype)
+            ccs = crs = None
+        cc, cr = cache["ckv"], cache["krope"]
+        q_abs = self._absorb(q_nope, x.dtype)
+        if self.cfg.paged_impl != "gather":
+            from repro_torch.kernels.paged_attention.ops import (
+                paged_mla_attention)
+            o_latent = paged_mla_attention(
+                q_abs[:, 0].contiguous(), q_rope[:, 0].contiguous(), cc, cr,
+                bt, pos, length=length, scale=self.scale,
+                backend=self.cfg.paged_impl, ckv_scale=ccs,
+                krope_scale=crs)[:, None].to(x.dtype)
+        else:
+            if q8:
+                ccd = gather_dequant(cc, ccs, bt, length, x.dtype)
+                crd = gather_dequant(cr, crs, bt, length, x.dtype)
+            else:
+                ccd = gather_pages(cc, bt, length).to(x.dtype)
+                crd = gather_pages(cr, bt, length).to(x.dtype)
+            o_latent = self._latent_attend(q_abs, q_rope, ccd, crd,
+                                           _decode_mask(pos, length))
+        return self._up(o_latent, x), cache

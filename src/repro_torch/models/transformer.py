@@ -1,11 +1,12 @@
-"""Decoder LM over minGRU, GQA and Mamba layers (port of the MINGRU,
-ATTN, ATTN_LOCAL and MAMBA layer kinds of ``repro.models.transformer``).
+"""Decoder LM over minGRU, GQA, MLA and Mamba layers (port of the MINGRU,
+ATTN, ATTN_LOCAL, MLA and MAMBA layer kinds of
+``repro.models.transformer``).
 
 The reference scans a stacked pattern unit with ``lax.scan``; here the
 layers are written out as an ``nn.ModuleList`` (``layers[j]`` is stack
 position j; :func:`repro_torch.bridge.load_jax_params` unstacks the
-reference's layer axis onto it).  MLA and MoE layers are not ported yet
-and raise.
+reference's layer axis onto it).  MoE layers are not ported yet and
+raise (before anything is allocated).
 
 Dtypes mirror the reference: fp32 parameters, bf16 compute
 (``DecoderLM.compute_dtype``), fp32 RMSNorm internals, fp32 logits, and
@@ -19,6 +20,10 @@ a bf16 decode cache.  Cache layouts:
     length; under the paged KV layout each entry is a shared page pool
     (P, page, KV, hd) (int8 pools add ``k_scale`` and ``v_scale`` (P, KV))
     with no slot axis, whose pages the serving engine hands out;
+  * an MLA stack keeps one ``{"ckv": (B, L, kv_lora), "krope": (B, L,
+    rope)}`` latent entry per layer; paged, the latents are page pools
+    (P, page, kv_lora) and (P, page, rope) (int8 pools add ``ckv_scale``
+    and ``krope_scale`` (P,), one scale per page);
   * a Mamba stack keeps a list with one ``{"ssm": (B, d_inner, d_state),
     "conv": (B, d_conv - 1, d_inner)}`` carry per layer.
 
@@ -29,11 +34,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU,
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU, MLA,
                                       LayerSpec, ModelConfig)
 from repro_torch.core.mingru import MinGRUBlock
 from repro_torch.core.quant import QuantConfig
-from repro_torch.models.attention import GQAAttention
+from repro_torch.models.attention import GQAAttention, MLAAttention
 from repro_torch.models.mamba import MambaBlock
 from repro_torch.models.module import Embedding, RMSNorm
 from repro_torch.models.moe import DenseMLP
@@ -83,6 +88,15 @@ class MinGRUMixer(nn.Module):
         return out, carry.to(h.dtype)
 
 
+def check_ported(spec: LayerSpec):
+    """Raise for a layer the port cannot build yet (MoE MLPs)."""
+    if spec.kind not in (MINGRU, ATTN, ATTN_LOCAL, MLA, MAMBA) or spec.moe:
+        raise NotImplementedError(
+            f"layer kind {spec.kind!r} (moe={spec.moe}) is not ported yet: "
+            "the port runs minGRU, GQA, MLA and Mamba layers with dense "
+            "MLPs")
+
+
 class DecoderLayer(nn.Module):
     """pre-norm mixer + residual, then pre-norm dense MLP + residual
     (``transformer.DecoderLayer``); Mamba layers of a pure-SSM stack
@@ -91,16 +105,14 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if spec.kind not in (MINGRU, ATTN, ATTN_LOCAL, MAMBA) or spec.moe:
-            raise NotImplementedError(
-                f"layer kind {spec.kind!r} (moe={spec.moe}) is not ported "
-                "yet: the port runs minGRU, GQA and Mamba layers with dense "
-                "MLPs")
+        check_ported(spec)
         kw = dict(dtype=dtype, device=device)
         if spec.kind == MINGRU:
             self.mixer = MinGRUMixer(cfg, **kw)
         elif spec.kind == MAMBA:
             self.mixer = MambaBlock(cfg, **kw)
+        elif spec.kind == MLA:
+            self.mixer = MLAAttention(cfg, **kw)
         else:
             self.mixer = GQAAttention(cfg, local=spec.kind == ATTN_LOCAL,
                                       **kw)
@@ -137,9 +149,9 @@ class DecoderLayer(nn.Module):
 
     def paged(self) -> bool:
         """True when this layer's cache lives in a shared page pool under
-        the paged KV layout (attention mixers); O(1)-state mixers keep
-        their per-slot state either way."""
-        return isinstance(self.mixer, GQAAttention)
+        the paged KV layout (attention mixers, GQA and MLA); O(1)-state
+        mixers keep their per-slot state either way."""
+        return isinstance(self.mixer, (GQAAttention, MLAAttention))
 
     def decode_paged(self, x, cache, pos, bt, active, length, rows=None):
         """Slot-batched decode against this attention layer's page pool."""
@@ -156,7 +168,10 @@ class DecoderLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, device=None,
                  generator=None):
         super().__init__()
-        kinds = {s.kind for s in cfg.layer_specs()}
+        specs = cfg.layer_specs()
+        for spec in specs:             # refuse before allocating anything
+            check_ported(spec)
+        kinds = {s.kind for s in specs}
         if MINGRU in kinds and len(kinds) > 1:
             raise NotImplementedError(
                 f"{cfg.name}: stacks that mix minGRU and attention layers "
@@ -165,7 +180,7 @@ class DecoderLM(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
         self.layers = nn.ModuleList(DecoderLayer(cfg, s, **kw)
-                                    for s in cfg.layer_specs())
+                                    for s in specs)
         self.final_norm = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
         self.lm_head = None if cfg.tie_embeddings \
             else Embedding(cfg.vocab_padded, cfg.d_model, **kw)

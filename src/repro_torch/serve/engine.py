@@ -44,7 +44,9 @@ from repro_torch.configs.base import SamplingParams
 from repro_torch.kernels.linear_scan.ops import linear_scan_kernel
 from repro_torch.kernels.minimalist_block.ops import minimalist_step_kernel
 from repro_torch.kernels.paged_attention.ops import (paged_gqa_kernel,
-                                                     paged_gqa_q8_kernel)
+                                                     paged_gqa_q8_kernel,
+                                                     paged_mla_kernel,
+                                                     paged_mla_q8_kernel)
 from repro_torch.serve.paged import PagePool, PrefixCache
 from repro_torch.serve.sampling import KNOB_DTYPES
 from repro_torch.serve.scheduler import make_policy
@@ -56,7 +58,9 @@ from repro_torch.serve.telemetry import (NULL_TELEMETRY, PercentileWindow,
 KERNEL_WRAPPERS = {"linear_scan": linear_scan_kernel,
                    "minimalist_step": minimalist_step_kernel,
                    "paged_gqa": paged_gqa_kernel,
-                   "paged_gqa_q8": paged_gqa_q8_kernel}
+                   "paged_gqa_q8": paged_gqa_q8_kernel,
+                   "paged_mla": paged_mla_kernel,
+                   "paged_mla_q8": paged_mla_q8_kernel}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,8 +20,9 @@ The port's modules own their parameters, so no ``params`` argument
 travels through these calls.  The mesh, verify, fork and preemption
 parts of the reference are not ported yet.
 
-  * :class:`DecoderStepModel` — a ``DecoderLM`` of minGRU or GQA layers,
-    with a dense or (attention stacks) a paged KV layout (see the class).
+  * :class:`DecoderStepModel` — a ``DecoderLM`` of minGRU, GQA or MLA
+    layers, with a dense or (attention stacks) a paged KV layout (see the
+    class).
   * :class:`MinimalistStepModel` — the paper's ``MinimalistNetwork``
     streaming frames, optionally through the fused CUDA step kernel on
     exported 2 b codes.
@@ -41,6 +42,12 @@ from repro_torch.serve.paged import PagedConfig
 from repro_torch.serve.prefill import chunked_prefill
 from repro_torch.serve.sampling import (greedy_arrays, knobs_to_device,
                                         sample_tokens)
+
+
+def _data_keys(pool):
+    """A layer pool's data leaves (GQA ``k``/``v``, MLA ``ckv``/``krope``),
+    without their int8 ``*_scale`` siblings."""
+    return [k for k in pool if not k.endswith("_scale")]
 
 
 class StepModel:
@@ -109,11 +116,14 @@ class DecoderStepModel(StepModel):
         computes the dense wave cache and ``write_slots`` scatters it
         PAGE-granularly, and the engine allocates pages as positions cross
         page boundaries.  ``ModelConfig.paged_impl="kernel"`` (default)
-        reads through the paged GQA decode kernels; ``"gather"`` keeps the
-        decode math bitwise identical to the dense layout.  With
+        reads through the paged GQA or MLA decode kernels; ``"gather"``
+        keeps the decode math bitwise identical to the dense layout.  With
         ``kv_dtype="int8"`` pools hold symmetric per-page codes plus
         float32 ``*_scale`` leaves: ``write_slots`` quantizes page rows on
-        install and the decode write requantizes incrementally.
+        install and the decode write requantizes incrementally.  The
+        install and attach code is generic over each layer's leaves (GQA
+        ``k``/``v``, MLA ``ckv``/``krope``) and their ``*_scale``
+        siblings.
 
     Pool leaves are updated IN PLACE (the engine's own buffers).
     """
@@ -235,13 +245,12 @@ class DecoderStepModel(StepModel):
         with torch.inference_mode():
             for layer, sub in zip(self.model.layers, state):
                 Lv = layer.mixer.ring_length(self.max_len)
-                if "k_scale" in sub:
-                    out.append({k: gather_dequant(sub[k], sub[k + "_scale"],
-                                                  bt, Lv, torch.bfloat16)
-                                for k in ("k", "v")})
-                else:
-                    out.append({k: gather_pages(sub[k], bt, Lv).to(
-                        torch.bfloat16) for k in ("k", "v")})
+                out.append({
+                    k: gather_dequant(sub[k], sub[k + "_scale"], bt, Lv,
+                                      torch.bfloat16)
+                    if k + "_scale" in sub
+                    else gather_pages(sub[k], bt, Lv).to(torch.bfloat16)
+                    for k in _data_keys(sub)})
         return out
 
     # -- state ------------------------------------------------------------
@@ -331,11 +340,12 @@ class DecoderStepModel(StepModel):
     def _write_pages(self, pool, batch_state, rows, pages, plen):
         """Install one attention layer's dense wave cache page-granularly,
         in place: each real wave row's first ceil(min(plen, L)/ps) pages
-        of (length L) K/V land at its chain's page ids; int8 pools
-        quantize each page row on install (absmax scale per page and kv
-        head) and store codes and scales."""
+        of every (length L) cache leaf — K/V (B, L, KV, hd) or MLA latents
+        (B, L, r) — land at its chain's page ids; int8 pools quantize each
+        page row on install (absmax scale per page and feature row: per
+        kv head, or one per latent page) and store codes and scales."""
         ps = self.paged.page_size
-        for key in ("k", "v"):
+        for key in _data_keys(pool):
             v = batch_state[key]
             Lv = v.shape[1]
             n = -(-min(plen, Lv) // ps)
@@ -343,7 +353,7 @@ class DecoderStepModel(StepModel):
             v2 = v[rows, :take]
             if take < n * ps:               # ring shorter than whole pages
                 v2 = torch.nn.functional.pad(
-                    v2, (0, 0, 0, 0, 0, n * ps - take))
+                    v2, (0, 0) * (v2.dim() - 2) + (0, n * ps - take))
             v2 = v2.reshape(v2.shape[0], n, ps, *v2.shape[2:])
             pg = pages[:, :n]
             if key + "_scale" in pool:
@@ -370,7 +380,8 @@ class DecoderStepModel(StepModel):
                                  "rows and its prompt length")
             # padding rows of the wave hold out-of-bounds page ids
             pages = np.asarray(pages)
-            real = np.flatnonzero(pages[:, 0] < state[0]["k"].shape[0])
+            n_pool = next(iter(state[0].values())).shape[0]
+            real = np.flatnonzero(pages[:, 0] < n_pool)
             dev = self.device
             rows = torch.as_tensor(real, dtype=torch.int64, device=dev)
             pg = torch.as_tensor(pages[real], dtype=torch.int64, device=dev)

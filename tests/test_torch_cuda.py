@@ -8,9 +8,9 @@ Every test needs a CUDA device and skips without one (the kernels have no
 CPU mode).  Tolerances: the scan and its adjoint 1e-5 in fp32 and 2e-2 in
 bf16; the fused step's h 2e-5 and its gate codes equal away from a code
 step; the fused sequence kernel bit for bit; the paged decode kernels
-2e-6 of their plain version in fp32 and, for bf16 outputs, one bf16 ulp
-plus that fp32 bound (both round fp32 results within 2e-6 of each
-other); the flash-attention forward 2e-5 in fp32 and one bf16 ulp plus
+(GQA and MLA) 2e-6 of their plain version in fp32 and, for bf16 outputs,
+one bf16 ulp plus that fp32 bound (both round fp32 results within 2e-6
+of each other); the IMC projection the reference's 1e-5; the flash-attention forward 2e-5 in fp32 and one bf16 ulp plus
 2e-6 in bf16, its gradients the reference's atol 5e-5 / rtol 5e-4 in
 fp32 and one bf16 ulp on top of that in bf16; the fused selective scan
 the reference's 2e-5 (forward) and atol 5e-5 / rtol 5e-4 (gradients),
@@ -709,3 +709,235 @@ def test_fused_ssm_wrappers_raise_instead_of_falling_back(cuda):
     _, entries = ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A)
     with pytest.raises(ValueError, match="h_entries"):
         ssm_ops.fused_ssm_bwd_kernel(dt, x, Bm, Cm, A, entries[:, :0], dy)
+
+
+# ---------------------------------------------------------------------------
+# paged MLA decode over latent pages (bf16/fp32 and int8 pools)
+
+# (B, H, r, dr, ps, L): the serving path's width (H 128, r 512, dr 64,
+# page 16), H off the 8-head block, partial last pages, tiny ranks
+MLA_CASES = [
+    (3, 4, 16, 8, 4, 20),
+    (2, 13, 32, 8, 5, 23),
+    (4, 128, 512, 64, 16, 1056),
+    (3, 20, 512, 64, 16, 100),
+    (1, 1, 8, 4, 2, 3),
+]
+
+
+def _mla_setup(dev, B, H, r, dr, ps, L, seed=0, garbage=50.0):
+    """Disjoint random latent chains over a pool whose other pages hold
+    large garbage; one request's pos < L - 1."""
+    rng = np.random.default_rng(seed)
+    n_chain = -(-L // ps)
+    P = 2 * B * n_chain
+    bt = rng.permutation(P)[:B * n_chain].reshape(B, n_chain)
+    pc = rng.standard_normal((P, ps, r)).astype(np.float32) * garbage
+    pr = rng.standard_normal((P, ps, dr)).astype(np.float32) * garbage
+    for b in range(B):
+        for j in range(L):
+            pc[bt[b, j // ps], j % ps] = rng.standard_normal(r)
+            pr[bt[b, j // ps], j % ps] = rng.standard_normal(dr)
+    qa = rng.standard_normal((B, H, r)).astype(np.float32)
+    qr = rng.standard_normal((B, H, dr)).astype(np.float32)
+    pos = np.full(B, L - 1)
+    pos[0] = L // 3
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    return (t(qa), t(qr), t(pc), t(pr), t(bt, torch.int32),
+            t(pos, torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_paged_mla_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    B, H, r, dr, ps, L = case
+    qa, qr, pc, pr, bt, pos = _mla_setup(cuda, *case, seed=ps)
+    qa, qr, pc, pr = (t.to(dtype) for t in (qa, qr, pc, pr))
+    scale = 1.0 / (r + dr) ** 0.5
+    n0 = pa_ops.paged_mla_kernel.launches
+    got = pa_ops.paged_mla_kernel(qa, qr, pc, pr, bt, pos, length=L,
+                                  scale=scale)
+    assert pa_ops.paged_mla_kernel.launches == n0 + 1
+    want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos, length=L,
+                                scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == qa.shape
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-6
+    else:
+        assert _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_paged_mla_q8_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    B, H, r, dr, ps, L = case
+    qa, qr, pc, pr, bt, pos = _mla_setup(cuda, *case, seed=ps + 1)
+    cs, rs = kvq.page_abs_scale(pc), kvq.page_abs_scale(pr)
+    cc, rc = kvq.quantize(pc, cs), kvq.quantize(pr, rs)
+    qa, qr = qa.to(dtype), qr.to(dtype)
+    scale = 1.0 / (r + dr) ** 0.5
+    n0 = pa_ops.paged_mla_q8_kernel.launches
+    got = pa_ops.paged_mla_q8_kernel(qa, qr, cc, rc, cs, rs, bt, pos,
+                                     length=L, scale=scale)
+    assert pa_ops.paged_mla_q8_kernel.launches == n0 + 1
+    want = pa_ref.paged_mla_ref(qa, qr, cc, rc, bt, pos, length=L,
+                                scale=scale, ckv_scale=cs, krope_scale=rs)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-6
+    else:
+        assert _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+def test_paged_mla_kernel_stale_pages_and_repeatable(cuda):
+    """Foreign pages behind block-table entries past the live position do
+    not matter, and two calls are bitwise equal."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    qa, qr, pc, pr, bt, pos = _mla_setup(cuda, 3, 16, 64, 16, 4, 24, seed=5)
+    short = pos.clamp(max=3)           # only chain entry 0 is live
+    poison = bt.clone()
+    poison[:, 1:] = (bt[:, 1:] + 1) % pc.shape[0]
+    a = pa_ops.paged_mla_kernel(qa, qr, pc, pr, bt, short, length=24,
+                                scale=0.1)
+    b = pa_ops.paged_mla_kernel(qa, qr, pc, pr, poison, short, length=24,
+                                scale=0.1)
+    c = pa_ops.paged_mla_kernel(qa, qr, pc, pr, bt, short, length=24,
+                                scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_paged_mla_wrappers_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+
+    qa, qr, pc, pr, bt, pos = _mla_setup(cuda, 2, 8, 16, 8, 4, 12)
+    kw = dict(length=12, scale=0.1)
+    with pytest.raises(ValueError, match="different devices"):
+        pa_ops.paged_mla_kernel(qa, qr, pc.cpu(), pr, bt, pos, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        pa_ops.paged_mla_kernel(qa, qr, pc, pr, bt.long(), pos, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        pa_ops.paged_mla_kernel(qa, qr, pc.bfloat16(), pr.bfloat16(), bt,
+                                pos, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_ops.paged_mla_kernel(qa.transpose(0, 1).contiguous()
+                                .transpose(0, 1), qr, pc, pr, bt, pos, **kw)
+    cs = kvq.page_abs_scale(pc)
+    cc = kvq.quantize(pc, cs)
+    with pytest.raises(ValueError, match="int8"):
+        pa_ops.paged_mla_q8_kernel(qa, qr, pc, pr, cs, cs, bt, pos, **kw)
+    with pytest.raises(ValueError, match=r"scales must be \("):
+        pa_ops.paged_mla_q8_kernel(qa, qr, cc, kvq.quantize(pr, cs), cs,
+                                   cs[:-1], bt, pos, **kw)
+
+
+@pytest.mark.cuda
+def test_mla_lm_paged_decode_on_cuda_launches_mla_kernels(cuda):
+    """A dense smoke MLA stack served from bf16 and int8 latent pages on
+    the card: every decode step of every layer launches the paged MLA
+    kernel of its pool dtype, and the kernel read's greedy tokens equal
+    the gather read's."""
+    import dataclasses
+
+    from repro_torch.configs.archs import DEEPSEEK_V3_671B, reduced
+    from repro_torch.configs.base import MLA, LayerSpec
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import DecoderStepModel, PagedConfig, ServeEngine
+
+    cfg = dataclasses.replace(reduced(DEEPSEEK_V3_671B), n_layers=2,
+                              head_layers=(LayerSpec(MLA),) * 2)
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in (5, 13, 9)]
+
+    def serve(kv_dtype, impl):
+        m = build_model(dataclasses.replace(cfg, kv_dtype=kv_dtype,
+                                            paged_impl=impl), device=cuda)
+        m.load_state_dict(model.state_dict())
+        eng = ServeEngine(DecoderStepModel(
+            m, max_len=64, prefill_chunk=8, kv_layout="paged",
+            paged=PagedConfig(page_size=4)), slots=2)
+        reqs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        eng.run()
+        return [list(r.tokens) for r in reqs], eng.n_steps
+
+    for kv_dtype, kern in (("bf16", pa_ops.paged_mla_kernel),
+                           ("int8", pa_ops.paged_mla_q8_kernel)):
+        n0 = kern.launches
+        got, steps = serve(kv_dtype, "kernel")
+        assert kern.launches - n0 == cfg.n_layers * steps > 0
+        want, _ = serve(kv_dtype, "gather")
+        assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the paper's IMC projection (Eq. 6)
+
+IMC_CASES = [(1, 1, 1), (3, 5, 7), (17, 70, 50), (5, 300, 129),
+             (128, 256, 384), (4096, 1024, 1024), (64, 1000, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", IMC_CASES, ids=str)
+def test_imc_mvm_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+    from repro_torch.kernels.imc_mvm import ref as imc_ref
+
+    M, K, N = case
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = (torch.rand(M, K, device=cuda, generator=g) > 0.5).float()
+    codes = torch.randint(0, 4, (K, N), device=cuda, generator=g,
+                          dtype=torch.int8)
+    scale = torch.rand(N, device=cuda, generator=g) * 0.3 + 0.01
+    n0 = imc_ops.imc_mvm_kernel.launches
+    got = imc_ops.imc_mvm_kernel(x, codes, scale)
+    assert imc_ops.imc_mvm_kernel.launches == n0 + 1
+    want = imc_ref.imc_mvm_ref(x, codes, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+    # Eq. 6: all-ones x gives the column mean of the levels times Δ, x = 0
+    # gives exactly 0
+    ones = imc_ops.imc_mvm_kernel(torch.ones_like(x), codes, scale)
+    mean = ((codes.float() - 1.5) * scale).mean(0)
+    assert bool(((ones - mean).abs() <= 1e-6).all())
+    zero = imc_ops.imc_mvm_kernel(torch.zeros_like(x), codes, scale)
+    torch.cuda.synchronize()
+    assert float(zero.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_imc_mvm_entry_point_on_cuda(cuda):
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.rand(3, 4, 30, device=cuda, generator=g) > 0.5).float()
+    codes = torch.randint(0, 4, (30, 20), device=cuda, generator=g,
+                          dtype=torch.int8)
+    n0 = imc_ops.imc_mvm_kernel.launches
+    got = imc_ops.imc_mvm(x, codes, 0.2)
+    want = imc_ops.imc_mvm(x, codes, 0.2, backend="plain")
+    torch.cuda.synchronize()
+    assert imc_ops.imc_mvm_kernel.launches == n0 + 1
+    assert got.shape == (3, 4, 20)
+    assert bool(((got - want).abs() <= 1e-5).all())
+    with pytest.raises(ValueError, match="different devices"):
+        imc_ops.imc_mvm_kernel(x[0], codes.cpu(), torch.ones(20, device=cuda))
+    with pytest.raises(ValueError, match="int8"):
+        imc_ops.imc_mvm_kernel(x[0], codes.long(), torch.ones(20, device=cuda))

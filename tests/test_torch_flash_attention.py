@@ -185,3 +185,20 @@ def test_wrappers_raise_on_other_devices():
 ])
 def test_cost_model_matches_reference(kw):
     assert ops.cost_model(**kw) == jops.cost_model(**kw)
+
+
+def test_wrappers_refuse_mixed_devices():
+    """The plain version runs only when every input lies on the CPU: one
+    input elsewhere is refused by the wrapper, not handed to torch."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 4, 2, 8, 16))
+    out, lse = ops.flash_fwd_kernel(q, k, v)
+    fwd, bwd = [q, k, v], [q, k, v, out, lse, q.clone()]
+    for fn, args in ((ops.flash_fwd_kernel, fwd),
+                     (ops.flash_bwd_kernel, bwd)):
+        for i in range(len(args)):
+            mixed = [a.to("meta") if j == i else a
+                     for j, a in enumerate(args)]
+            with pytest.raises(ValueError, match="different devices"):
+                fn(*mixed)
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*[a.to("meta") for a in args])

@@ -172,3 +172,23 @@ def test_bwd_kernel_wrapper_on_cpu_is_the_plain_backward(dt):
         np.testing.assert_allclose(x.float().numpy(), y.float().numpy(),
                                    atol=TOL[dt], rtol=TOL[dt])
 
+
+
+def _refuse_mixed(fn, args):
+    """Each input on the meta device in turn: refused by the wrapper as
+    mixed devices; all of them there: refused as an unsupported device."""
+    for i in range(len(args)):
+        mixed = [a.to("meta") if j == i else a for j, a in enumerate(args)]
+        with pytest.raises(ValueError, match="different devices"):
+            fn(*mixed)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(*[a.to("meta") for a in args])
+
+
+def test_wrappers_refuse_mixed_devices():
+    """The plain version runs only when every input lies on the CPU: one
+    input elsewhere is refused by the wrapper, not handed to torch."""
+    a, b, h0 = (torch.from_numpy(x) for x in _inputs(1, 4, 8))
+    _refuse_mixed(tops.linear_scan_kernel, [a, b, h0])
+    h = tops.linear_scan_kernel(a, b, h0)
+    _refuse_mixed(tops.linear_scan_bwd_kernel, [a, h, h0, b])

@@ -155,3 +155,28 @@ def test_block_kernel_plain_version_matches_port_network():
     with pytest.raises(ValueError, match="unknown backend"):
         tops.minimalist_block(x, *tops.from_block_params(tb),
                               backend="pallas")
+
+
+def test_wrappers_refuse_mixed_devices():
+    """The plain version runs only when every input lies on the CPU: one
+    input elsewhere is refused by the wrapper, not handed to torch."""
+    rng = np.random.default_rng(11)
+    K, N = 6, 5
+    ch = torch.from_numpy(rng.integers(0, 4, (K, N)).astype(np.int8))
+    cz = torch.from_numpy(rng.integers(0, 4, (K, N)).astype(np.int8))
+    bh = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    bz = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    h = torch.zeros(2, N)
+    x1 = torch.from_numpy((rng.random((2, K)) > 0.5).astype(np.float32))
+    xs = torch.from_numpy((rng.random((2, 3, K)) > 0.5).astype(np.float32))
+    for fn, x in ((tops.minimalist_step_kernel, x1),
+                  (tops.minimalist_block_kernel, xs)):
+        args = [x, ch, cz, bh, bz, h]
+        for i in range(len(args)):
+            mixed = [a.to("meta") if j == i else a
+                     for j, a in enumerate(args)]
+            with pytest.raises(ValueError, match="different devices"):
+                fn(mixed[0], mixed[1], mixed[2], 0.1, *mixed[3:])
+        meta = [a.to("meta") for a in args]
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(meta[0], meta[1], meta[2], 0.1, *meta[3:])

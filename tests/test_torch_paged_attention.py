@@ -197,3 +197,23 @@ def test_cost_model_matches_reference(kw):
     for live in (1, 100, 256, 4096):
         assert ops.cost_model(*args, live_tokens=live, page_size=16, **kw) \
             == jops.cost_model(*args, live_tokens=live, page_size=16, **kw)
+
+
+def test_wrappers_refuse_mixed_devices():
+    """The plain version runs only when every input lies on the CPU: one
+    input elsewhere is refused by the wrapper, not handed to torch."""
+    rng = np.random.default_rng(13)
+    q, pk, pv, bt, pos = _setup(rng, L=16, ps=4)
+    (tq, tk, tv, tbt, tpos), _ = _both(q, pk, pv, bt, np.minimum(pos, 15))
+    s = quant.page_abs_scale(tk)
+    ck = quant.quantize(tk, s)
+    for fn, args in ((ops.paged_gqa_kernel, [tq, tk, tv, tbt, tpos]),
+                     (ops.paged_gqa_q8_kernel,
+                      [tq, ck, ck.clone(), s, s.clone(), tbt, tpos])):
+        for i in range(len(args)):
+            mixed = [a.to("meta") if j == i else a
+                     for j, a in enumerate(args)]
+            with pytest.raises(ValueError, match="different devices"):
+                fn(*mixed, length=16)
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*[a.to("meta") for a in args], length=16)

@@ -1,11 +1,18 @@
 """The port's paged serving engine on the CPU: paged == dense bitwise for
-global and sliding-window GQA (``paged_impl="gather"``, greedy and
+global and sliding-window GQA and for MLA latent pages
+(``paged_impl="gather"``, greedy and
 sampled, mixed traffic, chunked prefill, a churning pool), int8 pages
 against bf16 (greedy), prefix attach bitwise to a cold run, greedy
 streams equal to the reference model's, and the pool drained after every
 run.  ``paged_impl="kernel"`` on CPU tensors runs the kernels' plain
 version (fp32 online-softmax numerics), as the reference runs its Pallas
-kernel in interpret mode off the TPU."""
+kernel in interpret mode off the TPU.
+
+The MLA stack is the dense smoke one of tests/test_torch_mla.py
+(``reduced(DEEPSEEK_V3_671B)`` with two dense MLA layers, built the same
+way in both packages), named ``deepseek-v3-671b-dense-smoke`` here: the
+reference's ``deepseek-v3-671b-smoke`` carries MoE layers, which the port
+does not have yet."""
 import dataclasses
 
 import jax
@@ -20,19 +27,29 @@ from repro_torch.bridge import load_jax_params
 from repro_torch.configs import SamplingParams, get_config
 from repro_torch.models import build_model
 from repro_torch.serve import DecoderStepModel, PagedConfig, ServeEngine
+from test_torch_mla import dense_mla_configs
 
 torch.set_num_threads(1)
 
+MLA_DENSE = "deepseek-v3-671b-dense-smoke"
 ARCHS = ["smollm-360m-smoke",      # global GQA
          "gemma3-4b-smoke"]        # sliding window (ring 8) + global
+ALL_ARCHS = ARCHS + [MLA_DENSE]    # + MLA latent pages
 LENS = [(5, 4), (13, 7), (3, 2), (9, 5), (21, 3), (6, 6)]
 SPS = [None, dict(temperature=0.9, top_k=12, seed=3), None,
        dict(temperature=1.2, top_p=0.8, seed=5),
        dict(temperature=0.7, seed=8), None]
 
 
+def _configs(arch):
+    """(reference config, port config) of ``arch``."""
+    if arch == MLA_DENSE:
+        return dense_mla_configs()
+    return jget(arch), get_config(arch)
+
+
 def _model(arch, seed=0, **cfg_kw):
-    cfg = dataclasses.replace(get_config(arch), **cfg_kw)
+    cfg = dataclasses.replace(_configs(arch)[1], **cfg_kw)
     return cfg, build_model(cfg, device="cpu",
                             generator=torch.Generator().manual_seed(seed))
 
@@ -82,7 +99,7 @@ def _serve(model, layout, *, slots=3, max_len=64, chunk=8, page_size=4,
     return [list(r.tokens) for r in reqs], eng
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_paged_engine_bitwise_matches_dense(arch):
     """Greedy AND sampled streams under mixed traffic and chunked prefill
     are bit-identical between the paged (gather) and dense engines; page
@@ -120,7 +137,7 @@ def test_int8_pages_greedy_match_bf16(arch):
     assert tight == got
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_prefix_attach_bitwise(arch):
     """Requests sharing a page- and chunk-aligned 24-token prefix: the
     first admission inserts it, the next two attach and prefill only
@@ -139,6 +156,39 @@ def test_prefix_attach_bitwise(arch):
     assert got == ref
     assert eng.n_prefix_hits == 2
     assert eng.n_prefix_tokens >= 2 * 24 - 8
+
+
+def test_int8_latent_pages_greedy_match_bf16():
+    """MLA latent pages stored as int8 with one scale per page, through the
+    kernel impl (its plain version on the CPU).  At init scale (the
+    reference's own deepseek case, tests/test_serve_paged.py:169) greedy
+    streams equal the bf16 paged engine's, also from a tight pool; with
+    the output projections x4 they equal it up to the first token where
+    the bf16 engine's top-2 margin is <= 0.1 (int8 pages are a lossy
+    storage quantization: a near-tie may flip)."""
+    _cfg, model = _model(MLA_DENSE)
+    lens = [(5, 4), (13, 6), (3, 3), (9, 5)]
+    ref, _ = _serve(model, "paged", lens=lens, sps=[None])
+    qmodel = _variant(model, kv_dtype="int8")
+    got, _ = _serve(qmodel, "paged", lens=lens, sps=[None])
+    assert got == ref
+    tight, _ = _serve(qmodel, "paged", lens=lens, sps=[None], max_len=32,
+                      num_pages=8)
+    assert tight == got
+    sharp = _sharpen(_variant(model))
+    ref, eng = _serve(sharp, "paged", lens=lens, sps=[None])
+    got, _ = _serve(_variant(sharp, kv_dtype="int8"), "paged", lens=lens,
+                    sps=[None])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, model.cfg.vocab, size=p) for p, _g in lens]
+    for prompt, a, b in zip(prompts, ref, got):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        ctx = np.concatenate([prompt, a[:i]]).astype(np.int64)
+        last, _ = eng.sm.prefill(ctx[None, :])
+        top2 = torch.topk(last[0, :model.cfg.vocab].float(), 2).values
+        assert (top2[0] - top2[1]).item() <= 0.1
 
 
 def _reference_greedy(jm, jp, prompt, n_new, *, max_len, chunk):
@@ -160,7 +210,7 @@ def _reference_greedy(jm, jp, prompt, n_new, *, max_len, chunk):
     return toks
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_greedy_streams_match_reference(arch):
     """On the reference's weights (through the bridge), the port's paged
     engine — gather and kernel reads — emits the reference model's greedy
@@ -169,7 +219,7 @@ def test_greedy_streams_match_reference(arch):
     residual stream carries each input token's own embedding to the tied
     head, and a random model's greedy stream mostly repeats its last
     token."""
-    jm = JLM(jget(arch), scan_layers=False)
+    jm = JLM(_configs(arch)[0], scan_layers=False)
     jp = jm.init(jax.random.PRNGKey(0))
     for sub in jp.values():
         if "mixer" in sub:
