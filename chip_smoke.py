@@ -42,7 +42,8 @@ Phases, each fatal on failure:
   8. attn_train — train full-width smollm-360m with attention_impl="flash"
                for 20 steps through Trainer (batch 4, seq 2048): loss
                falls, no restores, every layer runs the flash_fwd kernel
-               and both flash_bwd kernels once per step; then 3 steps at
+               and both flash_bwd kernels once per step, all three on
+               their tensor-core (tc) route; then 3 steps at
                batch 1 x 2048 from the same seed with flash and with the
                naive softmax, losses and grad norms compared.
   9. mamba_train — train full-width falcon-mamba-7b (8 of its 64 layers:
@@ -465,12 +466,12 @@ def _kernel_rows_paged(torch, dev, g):
 
 def _kernel_rows_flash(torch, dev, g):
     """flash_fwd and flash_bwd at the attn_train phase's shape (smollm-360m:
-    batch 4, 15/5 heads of 64, seq 2048, causal, bf16) and at gemma3-4b's
-    local layers (8/4 heads of 256, window 1024), against their plain
-    versions.  Every bf16 output (out, dq, dk, dv) within one bf16 ulp of
-    the larger magnitude plus 2e-6 (both round to bf16 the fp32 results of
-    the same sums taken in another order); lse (fp32) within 2e-5 + 2e-5
-    |plain|."""
+    batch 4, 15/5 heads of 64, seq 2048, causal, bf16: the tc route) and
+    at gemma3-4b's local layers (8/4 heads of 256, window 1024: the simt
+    route), against their plain versions.  Every bf16 output (out, dq,
+    dk, dv) within one bf16 ulp of the larger magnitude plus 2e-6 (both
+    round to bf16 the fp32 results of the same sums taken in another
+    order); lse (fp32) within 2e-5 + 2e-5 |plain|."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -485,7 +486,7 @@ def _kernel_rows_flash(torch, dev, g):
         v = torch.randn(B, KV, S, D, device=dev, generator=g).to(bf)
         do = torch.randn(B, H, S, D, device=dev, generator=g).to(bf)
         tag = (f"(B {B}, H {H}, KV {KV}, S {S}, D {D}, causal, window "
-               f"{window}) bf16")
+               f"{window}) bf16, {fa_ops.route(bf, D)} route")
         out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, window)
         want, want_lse = fa_ref.flash_attention_ref(q, k, v, True, window)
         torch.cuda.synchronize()
@@ -1462,7 +1463,9 @@ def phase_attn_train(torch, dev):
         return model, opt
 
     def launches():
-        return (fwd_k.launches, bwd_k.launches_dq, bwd_k.launches_dkv)
+        return (fwd_k.launches, bwd_k.launches_dq, bwd_k.launches_dkv,
+                fwd_k.launches_tc, bwd_k.launches_dq_tc,
+                bwd_k.launches_dkv_tc)
 
     loader = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq),
                            global_batch=batch)
@@ -1474,10 +1477,11 @@ def phase_attn_train(torch, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         fwd_k.launches = bwd_k.launches_dq = bwd_k.launches_dkv = 0
+        fwd_k.launches_tc = bwd_k.launches_dq_tc = bwd_k.launches_dkv_tc = 0
         t0 = time.perf_counter()
         _, step = trainer.run()
         wall = time.perf_counter() - t0
-        n_fwd, n_dq, n_dkv = launches()
+        n_fwd, n_dq, n_dkv, *n_tc = launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     hist = trainer.history
     losses = [h["loss"] for h in hist]
@@ -1495,6 +1499,9 @@ def phase_attn_train(torch, dev):
     if (n_fwd, n_dq, n_dkv) != (want,) * 3:
         fail(f"attn_train: flash launches fwd {n_fwd}, bwd dq {n_dq}, bwd "
              f"dkv {n_dkv} != {cfg.n_layers} layers x {steps} steps")
+    if tuple(n_tc) != (want,) * 3:
+        fail(f"attn_train: tc-route launches fwd, dq, dkv {tuple(n_tc)} != "
+             f"{cfg.n_layers} layers x {steps} steps")
     dts = sorted(h["dt"] for h in hist[3:])
     step_ms = dts[len(dts) // 2] * 1e3
     print(f"attn_train: {cfg.name} attention_impl=flash {steps} steps "
@@ -1505,7 +1512,8 @@ def phase_attn_train(torch, dev):
           f"{peak_gb:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(first-5 mean {first:.4f}, last-5 mean {last:.4f}); restores 0; "
           f"flash_fwd launches {n_fwd}, flash_bwd launches dq {n_dq} dkv "
-          f"{n_dkv} = {cfg.n_layers} x {steps}", flush=True)
+          f"{n_dkv} = {cfg.n_layers} x {steps}, all on the tc route "
+          f"(fwd, dq, dkv {tuple(n_tc)})", flush=True)
     del trainer, model, opt
     torch.cuda.empty_cache()
 
@@ -1532,8 +1540,9 @@ def phase_attn_train(torch, dev):
         del model, opt, step_fn
         torch.cuda.empty_cache()
     (fm, f_gb, f_ran), (nm, n_gb, n_ran) = runs["flash"], runs["naive"]
-    if f_ran != (3 * cfg.n_layers,) * 3:
-        fail(f"attn_train: the batch-1 flash run launched {f_ran}")
+    if f_ran != (3 * cfg.n_layers,) * 6:
+        fail(f"attn_train: the batch-1 flash run launched (fwd, dq, dkv, "
+             f"and the same on the tc route) {f_ran}")
     if any(n_ran):
         fail(f"attn_train: the naive run launched flash kernels {n_ran}")
     for i, ((fl, fg), (nl, ng)) in enumerate(zip(fm, nm)):
@@ -2010,7 +2019,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     rows = phase_kernels(torch, dev)
@@ -2063,12 +2072,17 @@ def main():
             "src/repro_torch/kernels/csrc/imc_mvm.cu",
             "src/repro/kernels/imc_mvm/imc_mvm.py:58"),
     }
+    # how a kernel was redesigned after its first port
+    design = {name: "wgmma+TMA, split-bf16 P/dS"
+              for name in ("flash_fwd", "flash_bwd")}
     kernels = []
     for name in build.KERNELS:
         source, replaces = meta[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **rows[name]})
+        if name in design:
+            kernels[-1]["design"] = design[name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

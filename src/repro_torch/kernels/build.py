@@ -60,12 +60,15 @@ SIGNATURES = {
     "flash_fwd": {
         "flash_fwd_f32": [_P] * 5 + [_L] + [_I] * 7 + [_P],
         "flash_fwd_bf16": [_P] * 5 + [_L] + [_I] * 7 + [_P],
+        "flash_fwd_bf16_tc": [_P] * 5 + [_L] + [_I] * 7 + [_P],
     },
     "flash_bwd": {
         "flash_bwd_dq_f32": [_P] * 10 + [_L] + [_I] * 7 + [_P],
         "flash_bwd_dq_bf16": [_P] * 10 + [_L] + [_I] * 7 + [_P],
         "flash_bwd_dkv_f32": [_P] * 10 + [_L] + [_I] * 7 + [_P],
         "flash_bwd_dkv_bf16": [_P] * 10 + [_L] + [_I] * 7 + [_P],
+        "flash_bwd_dq_bf16_tc": [_P] * 10 + [_L] + [_I] * 7 + [_P],
+        "flash_bwd_dkv_bf16_tc": [_P] * 10 + [_L] + [_I] * 7 + [_P],
     },
     "fused_ssm_fwd": {
         "fused_ssm_fwd_f32": [_P] * 7 + [_I] * 5 + [_P],

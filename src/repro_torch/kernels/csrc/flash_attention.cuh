@@ -1,5 +1,6 @@
-// Flash attention on the CUDA cores: what flash_fwd.cu and flash_bwd.cu
-// share.
+// Flash attention: what flash_fwd.cu and flash_bwd.cu share (layouts,
+// the mask, tile skipping), and the tiles of their CUDA-core (simt)
+// route; the tensor-core (tc) route's are in flash_tc.cuh.
 //
 // Layouts: q (B, H, S, D); k, v (B, KV, S, D), H % KV == 0, query head h
 // reads kv head h / (H / KV).  Every (B, H, S, D) tensor is passed as a
@@ -17,9 +18,10 @@
 // tile with a real entry wipes them out through alpha = exp(-1e30 - m) =
 // 0, exactly as in the TPU kernel.  -inf would give (-inf) - (-inf) =
 // NaN there, and a fast exp would not reach 0: these sources use expf
-// and are built without --use_fast_math.
+// (the tc route exp2f, flash_tc.cuh) and are built without
+// --use_fast_math.
 //
-// Tiles: 256 threads as 16 x 16.  A thread owns rows ty*R .. ty*R+R-1 of
+// simt tiles: 256 threads as 16 x 16.  A thread owns rows ty*R .. ty*R+R-1 of
 // a tile and columns tx, tx+16, tx+32, ... of it, so the 16 threads of a
 // row are the 16 lanes of one half-warp and a row's max and sum are four
 // xor-shuffles.  Tiles live in shared memory as fp32 with a row stride
@@ -31,6 +33,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -134,21 +138,28 @@ cudaError_t allow_smem(K kernel, int smem, bool* done) {
 
 }  // namespace flash
 
-// Instantiate `FN<T, D, BQ, BK>(args...)` for the head dims the kernels
-// take; tiles are 64 x 64, and 32 x 32 at D = 256 where the backward's
-// six fp32 tiles would not fit in shared memory at 64.
+// Instantiate `FN<T, D, BQ, BK>(args...)` for the head dims the simt
+// route takes: every one in fp32, only 256 in bf16 (bf16 at 16-128 takes
+// the tc route, flash_tc.cuh).  Tiles are 64 x 64, and 32 x 32 at D =
+// 256 where the backward's six fp32 tiles would not fit in shared memory
+// at 64.
 #define FLASH_DISPATCH_D(D, FN, T, ...)                          \
-  switch (D) {                                                   \
-    case 16:                                                     \
-      return FN<T, 16, 64, 64>(__VA_ARGS__);                     \
-    case 32:                                                     \
-      return FN<T, 32, 64, 64>(__VA_ARGS__);                     \
-    case 64:                                                     \
-      return FN<T, 64, 64, 64>(__VA_ARGS__);                     \
-    case 128:                                                    \
-      return FN<T, 128, 64, 64>(__VA_ARGS__);                    \
-    case 256:                                                    \
-      return FN<T, 256, 32, 32>(__VA_ARGS__);                    \
-    default:                                                     \
-      return static_cast<int>(cudaErrorInvalidValue);            \
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {         \
+    if (D == 256) return FN<T, 256, 32, 32>(__VA_ARGS__);        \
+    return static_cast<int>(cudaErrorInvalidValue);              \
+  } else {                                                       \
+    switch (D) {                                                 \
+      case 16:                                                   \
+        return FN<T, 16, 64, 64>(__VA_ARGS__);                   \
+      case 32:                                                   \
+        return FN<T, 32, 64, 64>(__VA_ARGS__);                   \
+      case 64:                                                   \
+        return FN<T, 64, 64, 64>(__VA_ARGS__);                   \
+      case 128:                                                  \
+        return FN<T, 128, 64, 64>(__VA_ARGS__);                  \
+      case 256:                                                  \
+        return FN<T, 256, 32, 32>(__VA_ARGS__);                  \
+      default:                                                   \
+        return static_cast<int>(cudaErrorInvalidValue);          \
+    }                                                            \
   }

@@ -1,27 +1,25 @@
-// FlashAttention-2 backward on the CUDA cores: a dQ kernel and a dK/dV
-// kernel, both recomputing p = exp(s - lse) from the forward's row
-// logsumexp.
+// FlashAttention-2 backward: a dQ kernel and a dK/dV kernel, both
+// recomputing p = exp(s - lse) from the forward's row logsumexp, on the
+// tensor cores (tc route) or the CUDA cores (simt route).
 //
 // Replaces the TPU kernel flash_bwd
 // (src/repro/kernels/flash_attention/flash_attention.py:232): its
 // _dkv_kernel (pallas_call at :241) and _dq_kernel (:270), the delta =
 // rowsum(o * do) it computes in XLA (:237), and the sum over each kv
 // head's group of query heads that its custom VJP does afterwards
-// (ops.py:95-96).
+// (ops.py:70-71).
 //
 //   * dq kernel: one block per (batch, head, query tile).  Its prologue
 //     computes delta for the tile's rows from out and do and writes it to
 //     global memory for the dK/dV kernel; then it loops over the KV tiles
 //     the rows can see (kv_tiles), recomputes s and p, forms dp = do.v
-//     and ds = p * (dp - delta) * scale in registers, stages ds in shared
-//     memory and accumulates dq += ds @ K in registers.
+//     and ds = p * (dp - delta) * scale and accumulates dq += ds @ K.
 //   * dkv kernel: one block per (batch, kv head, KV tile).  It loops over
 //     the G query heads of the kv head and, for each, over the query
-//     tiles that can see the KV tile (q_tiles), stages p and ds in shared
-//     memory and accumulates dv += p^T @ do and dk += ds^T @ q in
-//     registers.  The group sum of dk and dv is so taken inside the block:
-//     no atomics and no (B, H, S, D) per-query-head intermediates, and two
-//     calls give bitwise the same gradients.
+//     tiles that can see the KV tile (q_tiles), and accumulates dv +=
+//     p^T @ do and dk += ds^T @ q.  The group sum of dk and dv is so taken
+//     inside the block: no atomics and no (B, H, S, D) per-query-head
+//     intermediates, and two calls give bitwise the same gradients.
 //
 // The dq kernel runs first (the dkv kernel reads its delta).  Masks,
 // tile skipping and the -1e30 convention are the forward's
@@ -29,10 +27,21 @@
 // adds exactly zero, and query rows past S are given p = 0.
 //
 // Bound: operations.  About 2.5x the forward's flops (s and dp, then dq,
-// dk and dv: five products of the forward's size, against its two).  Like
-// the forward this first version runs on the CUDA cores and is bound by
-// shared-memory loads; wgmma tiles are the next step.
+// dk and dv: five products of the forward's size, against its two).
+//
+// Two routes, chosen by the wrapper (ops.route):
+//   * tc (bf16 at D 16/32/64/128, flash_bwd_{dq,dkv}_bf16_tc): one
+//     warpgroup a tile of 64 query rows (dq) or 64 keys (dkv), the block's
+//     own tiles loaded once by TMA and the others streaming through a
+//     two-stage TMA/mbarrier ring; s, dp (dkv: s^T, dp^T) on wgmma from
+//     shared memory, ds and p split into three bf16 parts as the A
+//     operand of dq += ds.K, dv += p^T.do and dk += ds^T.q, each tile's
+//     product added to the fp32 sums in registers (flash_tc.cuh).
+//   * simt (fp32, and bf16 at D 256: flash_bwd_{dq,dkv}_{f32,bf16}): the
+//     first version, on the CUDA cores with p and ds staged in shared
+//     memory as fp32, bound by shared-memory loads.
 #include "flash_attention.cuh"
+#include "flash_tc.cuh"
 
 namespace flash {
 
@@ -392,3 +401,418 @@ FLASH_BWD_ENTRY(flash_bwd_dq_f32, float, bwd_dq)
 FLASH_BWD_ENTRY(flash_bwd_dq_bf16, __nv_bfloat16, bwd_dq)
 FLASH_BWD_ENTRY(flash_bwd_dkv_f32, float, bwd_dkv)
 FLASH_BWD_ENTRY(flash_bwd_dkv_bf16, __nv_bfloat16, bwd_dkv)
+
+// -- tc route ----------------------------------------------------------
+
+namespace flash {
+namespace tc {
+
+struct BwdArgs {
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  float* delta;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  Strides so, sdo, sdq, sdk, sdv;
+  int H, KV, S, causal, window;
+  float scale;
+};
+
+constexpr int kDqBQ = 64, kDqBK = 64, kDkvBK = 64;
+
+// Query rows a dkv block takes at a time: 16 at D 128, where the dK and
+// dV sums and one tile's product (64 x 128 fp32 each) already hold 192
+// registers a thread.
+template <int D>
+constexpr __host__ __device__ int dkv_bq() {
+  return D >= 128 ? 16 : 64;
+}
+
+template <int D>
+constexpr int dq_smem() {
+  return 1024 + 2 * Tile<D>::template bytes<kDqBQ>() +
+         2 * kStages * Tile<D>::template bytes<kDqBK>();
+}
+
+template <int D>
+constexpr int dkv_smem() {
+  return 1024 + 2 * Tile<D>::template bytes<kDkvBK>() +
+         2 * kStages * Tile<D>::template bytes<dkv_bq<D>()>();
+}
+
+// dq (and delta): one warpgroup a (batch, head, 64-row query tile).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo, BwdArgs p) {
+  using T = Tile<D>;
+  constexpr int BQ = kDqBQ, BK = kDqBK;
+  constexpr int QB = T::template bytes<BQ>(), KB = T::template bytes<BK>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, bar_k[kStages], bar_v[kStages];
+  const uint32_t sq = smem_base(smem_raw), sdo = sq + QB;
+  const uint32_t sk = sdo + QB, sv = sk + kStages * KB;
+
+  const int n_q = (p.S + BQ - 1) / BQ;
+  const int qi = n_q - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int q0 = qi * BQ;
+  int lo, hi;
+  kv_tiles(q0, min(q0 + BQ, p.S) - 1, BK, p.S, p.causal, p.window, &lo, &hi);
+  const int n = hi - lo + 1;
+
+  const int tid = threadIdx.x;
+  auto load_stage = [&](int j) {  // K and V tile lo + j into stage j % 2
+    const int s = j % kStages, k0 = (lo + j) * BK;
+    mbar_expect(&bar_k[s], KB);
+    T::template load<BK>(sk + s * KB, &tk, &bar_k[s], k0, kvh, b);
+    mbar_expect(&bar_v[s], KB);
+    T::template load<BK>(sv + s * KB, &tv, &bar_v[s], k0, kvh, b);
+  };
+  if (tid == 0) {
+    mbar_init(&bar_q);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_k[s]);
+      mbar_init(&bar_v[s]);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bar_q, 2 * QB);
+    T::template load<BQ>(sq, &tq, &bar_q, q0, h, b);
+    T::template load<BQ>(sdo, &tdo, &bar_q, q0, h, b);
+    for (int j = 0; j < kStages && j < n; ++j) load_stage(j);
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, t4 = lane % 4;
+
+  // delta = rowsum(out * do) in fp32 for rows r0 and r0 + 8, each of the
+  // row's four threads over a quarter of D; written for the dkv kernel
+  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.S;
+  const __nv_bfloat16* ob = p.o + b * p.so.b + h * p.so.h;
+  const __nv_bfloat16* dob = p.dout + b * p.sdo.b + h * p.sdo.h;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    float part = 0.0f;
+    if (row < p.S) {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        const int d = t4 * (D / 4) + 2 * c;
+        const __nv_bfloat162 ov =
+            *reinterpret_cast<const __nv_bfloat162*>(ob + row * p.so.s + d);
+        const __nv_bfloat162 gv =
+            *reinterpret_cast<const __nv_bfloat162*>(dob + row * p.sdo.s + d);
+        part = fmaf(__bfloat162float(ov.x), __bfloat162float(gv.x), part);
+        part = fmaf(__bfloat162float(ov.y), __bfloat162float(gv.y), part);
+      }
+    }
+    delta[i] = quad_sum(part);
+    lse[i] = row < p.S ? p.lse[row_base + row] : 0.0f;
+    if (t4 == 0 && row < p.S) p.delta[row_base + row] = delta[i];
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+
+  mbar_wait(&bar_q, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const int k0 = (lo + j) * BK;
+    float sc[BK / 2], dp[BK / 2];
+    mbar_wait(&bar_k[s], parity);
+    wg_fence();
+    mma_dot<D, BK>(sc, sq, sk + s * KB);
+    mbar_wait(&bar_v[s], parity);
+    mma_dot<D, BK>(dp, sdo, sv + s * KB);
+    wg_commit();
+    wg_wait();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // p = exp(s - lse), ds = p (dp - delta) scale, as the simt route
+    scale_scores<BK, false>(
+        sc, tile_open(q0, BQ, k0, BK, p.S, p.causal, p.window), p.scale,
+        q0 + r0, k0, t4, p.S, p.causal, p.window);
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = 4 * c + 2 * i + e;
+          const float pe = exp_e(sc[f] - lse[i]);
+          dp[f] = __fmul_rn(__fmul_rn(pe, __fsub_rn(dp[f], delta[i])),
+                            p.scale);
+        }
+
+    // dq += ds.K, ds split into its bf16 parts (K read MN-major: keys
+    // along the depth)
+    uint32_t df[kSplit][BK / 16][4];
+    split_frag<BK>(dp, df);
+    float part[D / 2];
+    wg_fence();
+    mma_split<D, BK>(part, df, sk + s * KB);
+    wg_commit();
+    wg_wait();
+    fence_regs(part);
+    keep(df);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] += part[i];
+    __syncthreads();  // every warp's reads of stage s are done
+    if (tid == 0 && j + kStages < n) load_stage(j + kStages);
+  }
+
+  __nv_bfloat16* dqb = p.dq + b * p.sdq.b + h * p.sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      store_bf16x2(dqb + row * p.sdq.s + 8 * c + 2 * t4, dq[4 * c + 2 * i],
+                   dq[4 * c + 2 * i + 1]);
+  }
+}
+
+// dk and dv: one warpgroup a (batch, kv head, 64-key tile), looping over
+// the group's G query heads and, for each, the query tiles that see the
+// keys (q_tiles); s^T = K.q^T and dp^T = V.do^T put p^T and ds^T in the
+// accumulator layout, which is the A fragment of dv += p^T.do and
+// dk += ds^T.q.  lse and delta of each step's query rows are staged in
+// shared memory one step ahead (two buffers).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo, BwdArgs p) {
+  using T = Tile<D>;
+  constexpr int BK = kDkvBK, BQ = dkv_bq<D>();
+  constexpr int KB = T::template bytes<BK>(), QB = T::template bytes<BQ>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_kv, bar_q[kStages], bar_do[kStages];
+  __shared__ float lse_s[kStages][BQ], delta_s[kStages][BQ];
+  const uint32_t sk = smem_base(smem_raw), sv = sk + KB;
+  const uint32_t sq = sv + KB, sdo = sq + kStages * QB;
+
+  const int ki = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = p.H / p.KV;
+  const int k0 = ki * BK;
+  int lo, hi;
+  q_tiles(k0, BK, BQ, p.S, p.causal, p.window, &lo, &hi);
+  const int nq = hi - lo + 1, n = G * nq;  // steps: (head g, query tile)
+
+  const int tid = threadIdx.x;
+  auto load_stage = [&](int j) {  // step j's q and do tiles into stage j % 2
+    const int s = j % kStages;
+    const int h = kvh * G + j / nq, q0 = (lo + j % nq) * BQ;
+    mbar_expect(&bar_q[s], QB);
+    T::template load<BQ>(sq + s * QB, &tq, &bar_q[s], q0, h, b);
+    mbar_expect(&bar_do[s], QB);
+    T::template load<BQ>(sdo + s * QB, &tdo, &bar_do[s], q0, h, b);
+  };
+  auto stage_rows = [&](int j) {  // lse and delta of step j's query rows
+    const int s = j % kStages;
+    const int h = kvh * G + j / nq, q0 = (lo + j % nq) * BQ;
+    const long long row_base = (static_cast<long long>(b) * p.H + h) * p.S;
+    for (int r = tid; r < 2 * BQ; r += kThreads) {
+      const int row = q0 + r % BQ;
+      const float* src = r < BQ ? p.lse : p.delta;
+      const float v = row < p.S ? src[row_base + row] : 0.0f;
+      if (r < BQ)
+        lse_s[s][r] = v;
+      else
+        delta_s[s][r - BQ] = v;
+    }
+  };
+  if (tid == 0) {
+    mbar_init(&bar_kv);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_q[s]);
+      mbar_init(&bar_do[s]);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bar_kv, 2 * KB);
+    T::template load<BK>(sk, &tk, &bar_kv, k0, kvh, b);
+    T::template load<BK>(sv, &tv, &bar_kv, k0, kvh, b);
+    for (int j = 0; j < kStages && j < n; ++j) load_stage(j);
+  }
+  stage_rows(0);
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, t4 = lane % 4;  // key rows r0, r0+8
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+  mbar_wait(&bar_kv, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const int q0 = (lo + j % nq) * BQ;
+    float st[BQ / 2], dpt[BQ / 2];
+    mbar_wait(&bar_q[s], parity);
+    wg_fence();
+    mma_dot<D, BQ>(st, sk, sq + s * QB);
+    mbar_wait(&bar_do[s], parity);
+    mma_dot<D, BQ>(dpt, sv, sdo + s * QB);
+    wg_commit();
+    wg_wait();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p^T and ds^T: entry (key r0 + 8 i, query column 8 c + 2 t4 + e)
+    scale_scores<BQ, true>(
+        st, tile_open(q0, BQ, k0, BK, p.S, p.causal, p.window), p.scale,
+        k0 + r0, q0, t4, p.S, p.causal, p.window);
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * c + 2 * t4 + e;
+        const float lse = lse_s[s][col], delta = delta_s[s][col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int f = 4 * c + 2 * i + e;
+          const float pe = exp_e(st[f] - lse);
+          st[f] = pe;
+          dpt[f] = __fmul_rn(__fmul_rn(pe, __fsub_rn(dpt[f], delta)),
+                             p.scale);
+        }
+      }
+
+    // dv += p^T.do, then dk += ds^T.q, each split into its bf16 parts;
+    // ds^T is split while the dv products run
+    float part[D / 2];
+    uint32_t pf[kSplit][BQ / 16][4];
+    split_frag<BQ>(st, pf);
+    wg_fence();
+    mma_split<D, BQ>(part, pf, sdo + s * QB);
+    wg_commit();
+    uint32_t df[kSplit][BQ / 16][4];
+    split_frag<BQ>(dpt, df);
+    wg_wait();
+    fence_regs(part);
+    keep(pf);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dv[i] += part[i];
+    wg_fence();
+    mma_split<D, BQ>(part, df, sq + s * QB);
+    wg_commit();
+    if (j + 1 < n) stage_rows(j + 1);  // the buffer step j - 1 read
+    wg_wait();
+    fence_regs(part);
+    keep(df);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] += part[i];
+    __syncthreads();  // stage s is read; step j + 1's rows are staged
+    if (tid == 0 && j + kStages < n) load_stage(j + kStages);
+  }
+
+  __nv_bfloat16* dkb = p.dk + b * p.sdk.b + kvh * p.sdk.h;
+  __nv_bfloat16* dvb = p.dv + b * p.sdv.b + kvh * p.sdv.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + r0 + 8 * i;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      store_bf16x2(dkb + row * p.sdk.s + 8 * c + 2 * t4, dk[4 * c + 2 * i],
+                   dk[4 * c + 2 * i + 1]);
+      store_bf16x2(dvb + row * p.sdv.s + 8 * c + 2 * t4, dv[4 * c + 2 * i],
+                   dv[4 * c + 2 * i + 1]);
+    }
+  }
+}
+
+// The tensor maps of q, k, v and do with boxes of `bq` query rows and
+// `bk` keys.
+template <int D>
+int bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
+             const void* v, const void* dout, const long long* st, int B,
+             int H, int KV, int S, int bq, int bk) {
+  int err = make_map<D>(&maps[0], q, strides_at(st, 0), B, H, S, bq);
+  if (!err) err = make_map<D>(&maps[1], k, strides_at(st, 1), B, KV, S, bk);
+  if (!err) err = make_map<D>(&maps[2], v, strides_at(st, 2), B, KV, S, bk);
+  if (!err) err = make_map<D>(&maps[3], dout, strides_at(st, 4), B, H, S, bq);
+  return err;
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const BwdArgs& a, const long long* st, int B,
+              cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a.H, a.KV, a.S, kDqBQ,
+                              kDqBK);
+  if (err) return err;
+  static bool smem_set = false;
+  auto kernel = dq_tc_kernel<D>;
+  constexpr int smem = dq_smem<D>();
+  const cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.S + kDqBQ - 1) / kDqBQ, a.H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const BwdArgs& a, const long long* st, int B,
+               cudaStream_t stream) {
+  CUtensorMap m[4];
+  const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a.H, a.KV, a.S,
+                              dkv_bq<D>(), kDkvBK);
+  if (err) return err;
+  static bool smem_set = false;
+  auto kernel = dkv_tc_kernel<D>;
+  constexpr int smem = dkv_smem<D>();
+  const cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.S + kDkvBK - 1) / kDkvBK, a.KV, B);
+  kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+}  // namespace flash
+
+// The tc route's entry points take the simt route's argument list (q, v
+// and do through tensor maps; out only for delta).
+#define FLASH_BWD_TC_ENTRY(NAME, FN)                                        \
+  extern "C" int NAME(const void* q, const void* k, const void* v,          \
+                      const void* o, const void* dout, const void* lse,     \
+                      void* delta, void* dq, void* dk, void* dv,            \
+                      const long long* strides, int B, int H, int KV, int S, \
+                      int D, int causal, int window, void* stream) {        \
+    using flash::strides_at;                                                \
+    const flash::tc::BwdArgs a{                                             \
+        static_cast<const __nv_bfloat16*>(o),                               \
+        static_cast<const __nv_bfloat16*>(dout),                            \
+        static_cast<const float*>(lse), static_cast<float*>(delta),         \
+        static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),   \
+        static_cast<__nv_bfloat16*>(dv), strides_at(strides, 3),            \
+        strides_at(strides, 4), strides_at(strides, 5),                     \
+        strides_at(strides, 6), strides_at(strides, 7), H, KV, S, causal,   \
+        window, flash::softmax_scale(D)};                                   \
+    const auto st = static_cast<cudaStream_t>(stream);                      \
+    FLASH_TC_DISPATCH_D(D, flash::tc::FN, q, k, v, dout, a, strides, B, st) \
+  }
+
+FLASH_BWD_TC_ENTRY(flash_bwd_dq_bf16_tc, launch_dq)
+FLASH_BWD_TC_ENTRY(flash_bwd_dkv_bf16_tc, launch_dkv)

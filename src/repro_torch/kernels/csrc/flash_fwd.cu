@@ -1,30 +1,38 @@
-// FlashAttention-2 forward on the CUDA cores: causal and sliding-window
-// masks, GQA by index, out and the row logsumexp.
+// FlashAttention-2 forward: causal and sliding-window masks, GQA by
+// index, out and the row logsumexp, on the tensor cores (tc route) or the
+// CUDA cores (simt route).
 //
 // Replaces the TPU kernel flash_fwd
 // (src/repro/kernels/flash_attention/flash_attention.py:102), whose grid
 // (B, H, S/bq, S/bk) runs the KV axis in sequence with (m, l, acc) in
-// VMEM scratch.  Here one block of 256 threads owns one (batch, head,
-// query tile of 64 rows; 32 at D = 256) and loops over the KV tiles
-// itself, keeping m and l per row and the (64 x D) accumulator in
-// registers (each thread 4 rows x D/16 columns).  Per KV tile: K and V go
-// to shared memory as fp32, the 64 x 64 scores are a register-tiled dot
-// over D (4 x 4 a thread), each row's max and sum are half-warp
-// shuffles, p goes to shared memory, and the accumulator is rescaled by
-// alpha and gains p @ V.  KV tiles that hold no attendable entry are
-// skipped (kv_tiles in flash_attention.cuh), so causal attention visits
-// half the tiles and a window of W about W/64 per query tile.  Blocks are
-// numbered so that the longest query tiles (the last rows under a causal
-// mask) start first.
+// VMEM scratch.  Here one block owns one (batch, head, query tile) and
+// loops over the KV tiles itself, keeping m and l per row and the
+// (rows x D) accumulator in registers.  KV tiles that hold no attendable
+// entry are skipped (kv_tiles in flash_attention.cuh), so causal
+// attention visits half the tiles and a window of W about W/64 per query
+// tile.  Blocks are numbered so that the longest query tiles (the last
+// rows under a causal mask) start first.
 //
 // Bound: operations.  4 B H S_eff S D flops (S_eff = S/2 causal) against
 // O(S D) bytes; on the tensor cores (989 TFLOP/s bf16) the path's shape
-// (B 4, H 15, S 2048, D 64) would take 0.033 ms.  This first version runs
-// on the CUDA cores (67 TFLOP/s fp32), and its inner loops run one
-// shared-memory load per two FMAs, so shared-memory bandwidth, not the
-// FMA rate, sets its time.  wgmma tensor-core tiles fed by TMA are the
-// next step.
+// (B 4, H 15, S 2048, D 64) would take 0.033 ms.
+//
+// Two routes, chosen by the wrapper (ops.route):
+//   * tc (bf16 at D 16/32/64/128, flash_fwd_bf16_tc): one warpgroup a
+//     64-row query tile, q loaded once by TMA, K and V tiles of 64 keys
+//     streaming through a two-stage TMA/mbarrier ring, s = q.k^T and
+//     p.V on wgmma with p split into three bf16 parts, each tile's p.V
+//     added to the rescaled fp32 accumulator in registers (flash_tc.cuh);
+//     the mask is applied only on tiles that cross the diagonal, the
+//     window edge or S.
+//   * simt (fp32, and bf16 at D 256: flash_fwd_f32, flash_fwd_bf16): the
+//     first version: 256 threads a 64-row tile (32 at D 256), K and V in
+//     shared memory as fp32, register-tiled dots (4 x 4 a thread), p
+//     through shared memory.  Its inner loops run one shared-memory load
+//     per two FMAs, so shared-memory bandwidth, not the FMA rate (67
+//     TFLOP/s fp32), sets its time.
 #include "flash_attention.cuh"
+#include "flash_tc.cuh"
 
 namespace flash {
 
@@ -202,4 +210,196 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               int window, void* stream) {
   return flash::fwd<__nv_bfloat16>(q, k, v, o, lse, strides, B, H, KV, S, D,
                                    causal, window, stream);
+}
+
+// -- tc route ----------------------------------------------------------
+
+namespace flash {
+namespace tc {
+
+struct FwdArgs {
+  __nv_bfloat16* o;
+  float* lse;
+  Strides so;
+  int H, KV, S, causal, window;
+  float scale;
+};
+
+constexpr int kFwdBQ = 64, kFwdBK = 64;
+
+template <int D>
+constexpr int fwd_smem() {
+  return 1024 + Tile<D>::template bytes<kFwdBQ>() +
+         2 * kStages * Tile<D>::template bytes<kFwdBK>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, FwdArgs p) {
+  using T = Tile<D>;
+  constexpr int BQ = kFwdBQ, BK = kFwdBK;
+  constexpr int QB = T::template bytes<BQ>(), KB = T::template bytes<BK>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, bar_k[kStages], bar_v[kStages];
+  const uint32_t sq = smem_base(smem_raw);
+  const uint32_t sk = sq + QB, sv = sk + kStages * KB;
+
+  const int n_q = (p.S + BQ - 1) / BQ;
+  const int qi = n_q - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int q0 = qi * BQ;
+  int lo, hi;
+  kv_tiles(q0, min(q0 + BQ, p.S) - 1, BK, p.S, p.causal, p.window, &lo, &hi);
+  const int n = hi - lo + 1;
+
+  const int tid = threadIdx.x;
+  auto load_stage = [&](int j) {  // K and V tile lo + j into stage j % 2
+    const int s = j % kStages, k0 = (lo + j) * BK;
+    mbar_expect(&bar_k[s], KB);
+    T::template load<BK>(sk + s * KB, &tk, &bar_k[s], k0, kvh, b);
+    mbar_expect(&bar_v[s], KB);
+    T::template load<BK>(sv + s * KB, &tv, &bar_v[s], k0, kvh, b);
+  };
+  if (tid == 0) {
+    mbar_init(&bar_q);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_k[s]);
+      mbar_init(&bar_v[s]);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bar_q, QB);
+    T::template load<BQ>(sq, &tq, &bar_q, q0, h, b);
+    for (int j = 0; j < kStages && j < n; ++j) load_stage(j);
+  }
+
+  // this thread's rows of the tile: r0 and r0 + 8; its columns of each
+  // 8-column chunk c: 8 c + 2 t4 and the next
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, t4 = lane % 4;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  mbar_wait(&bar_q, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const int k0 = (lo + j) * BK;
+    float sc[BK / 2];
+    mbar_wait(&bar_k[s], parity);
+    wg_fence();
+    mma_dot<D, BK>(sc, sq, sk + s * KB);
+    wg_commit();
+    wg_wait();
+    fence_regs(sc);
+
+    // s = q.k * scale (+ mask), the online softmax in fp32
+    scale_scores<BK, false>(
+        sc, tile_open(q0, BQ, k0, BK, p.S, p.causal, p.window), p.scale,
+        q0 + r0, k0, t4, p.S, p.causal, p.window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mx[i] = fmaxf(mx[i], sc[4 * c + 2 * i + e]);
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = exp_e(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = exp_e(sc[4 * c + 2 * i + e] - m[i]);
+          sc[4 * c + 2 * i + e] = x;
+          sum[i] += x;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+
+    // o = o alpha + p.V, p split into its bf16 parts
+    uint32_t pf[kSplit][BK / 16][4];
+    split_frag<BK>(sc, pf);
+    float pv[D / 2];
+    mbar_wait(&bar_v[s], parity);
+    wg_fence();
+    mma_split<D, BK>(pv, pf, sv + s * KB);
+    wg_commit();
+    wg_wait();
+    fence_regs(pv);
+    keep(pf);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o[4 * c + 2 * i + e] =
+              fmaf(o[4 * c + 2 * i + e], alpha[i], pv[4 * c + 2 * i + e]);
+    __syncthreads();  // every warp's reads of stage s are done
+    if (tid == 0 && j + kStages < n) load_stage(j + kStages);
+  }
+
+  __nv_bfloat16* ob = p.o + b * p.so.b + h * p.so.h;
+  float* lb = p.lse + (static_cast<long long>(b) * p.H + h) * p.S;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= p.S) continue;
+    const float li = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      store_bf16x2(ob + row * p.so.s + 8 * c + 2 * t4,
+                   o[4 * c + 2 * i] / li, o[4 * c + 2 * i + 1] / li);
+    if (t4 == 0) lb[row] = m[i] + logf(li);
+  }
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const FwdArgs& a, const long long* st, int B,
+               cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map<D>(&tq, q, strides_at(st, 0), B, a.H, a.S, kFwdBQ);
+  if (!err) err = make_map<D>(&tk, k, strides_at(st, 1), B, a.KV, a.S, kFwdBK);
+  if (!err) err = make_map<D>(&tv, v, strides_at(st, 2), B, a.KV, a.S, kFwdBK);
+  if (err) return err;
+  static bool smem_set = false;
+  auto kernel = fwd_tc_kernel<D>;
+  constexpr int smem = fwd_smem<D>();
+  const cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.S + kFwdBQ - 1) / kFwdBQ, a.H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+}  // namespace flash
+
+extern "C" int flash_fwd_bf16_tc(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, const long long* strides,
+                                 int B, int H, int KV, int S, int D,
+                                 int causal, int window, void* stream) {
+  const flash::tc::FwdArgs a{
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      flash::strides_at(strides, 3), H, KV, S, causal, window,
+      flash::softmax_scale(D)};
+  const auto st = static_cast<cudaStream_t>(stream);
+  FLASH_TC_DISPATCH_D(D, flash::tc::launch_fwd, q, k, v, a, strides, B, st)
 }

@@ -7,14 +7,20 @@ kernel ``flash_fwd``) on CUDA tensors and its plain version,
 runs the two kernels of ``csrc/flash_bwd.cu`` (which replace
 ``flash_bwd``'s dK/dV and dQ kernels and the group sum of its custom VJP)
 or :func:`ref.flash_attention_bwd_ref`.  On a CUDA tensor they launch or
-raise.  ``flash_fwd_kernel.launches`` counts forward launches;
-``flash_bwd_kernel.launches_dq`` and ``.launches_dkv`` count the two
-backward kernels.
+raise.  Each source has two routes, picked by :func:`route`: ``tc``
+(bf16 at head dims 16/32/64/128: wgmma tiles fed by TMA, P and dS split
+into bf16 hi + lo) and ``simt`` (fp32, and bf16 at 256: the CUDA cores).
+A launch that fails on the tc route raises; it is never retried on the
+other.  ``flash_fwd_kernel.launches`` counts forward launches and
+``.launches_tc`` those on the tc route; ``flash_bwd_kernel.launches_dq``
+and ``.launches_dkv`` count the two backward kernels, ``.launches_dq_tc``
+and ``.launches_dkv_tc`` those on the tc route.
 
 :class:`FlashAttention` is the reference's custom VJP as an
 ``autograd.Function``: it saves (q, k, v, out, lse) and its backward is
 ``flash_bwd_kernel``.  Inputs may be strided views (the last axis
-contiguous): the kernels read them through their strides and write their
+contiguous, bases and strides in whole 16 bytes, else the op copies
+them): the kernels read them through their strides and write their
 outputs in the same layout, so the model's (B, S, H, D) projections pass
 as transposed views with no copies.
 """
@@ -29,11 +35,35 @@ from repro_torch.kernels.flash_attention import ref
 
 #: Head dims the CUDA kernels are compiled for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Head dims of the tensor-core route (bf16 only).
+TC_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def route(dtype, head_dim):
+    """The kernels' route for inputs of ``dtype`` and ``head_dim``:
+    ``"tc"`` (wgmma fed by TMA) for bf16 at 16/32/64/128, else ``"simt"``
+    (the CUDA cores: fp32 has no exact bf16 product, and at 256 the dK/dV
+    accumulators of a warpgroup would not fit its registers)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS \
+        else "simt"
+
+
+def _aligned(t):
+    """Whether TMA can read ``t``: a 16-byte-aligned base and, on every
+    axis but the last of more than one entry, a positive stride of whole
+    16 bytes."""
+    el = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st > 0 and st * el % 16 == 0
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
 
 
 def _rows(t):
-    """``t`` with a contiguous last axis (a copy only when it is not)."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+    """``t`` with a contiguous last axis that TMA can read (a copy only
+    when it is not)."""
+    if t.stride(-1) == 1 and _aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(*tensors):
@@ -70,10 +100,21 @@ def _check(what, q, k, v, window, extra=()):
         raise ValueError(f"{what}: the last axis must be contiguous")
     if B > 65535 or H > 65535:
         raise ValueError(f"{what}: batch or heads too large for one launch")
+    if route(q.dtype, D) == "tc" and not all(map(_aligned, tensors)):
+        raise ValueError(f"{what}: the tc route reads its operands with TMA,"
+                         " which needs 16-byte-aligned bases and strides")
 
 
 def _window(window):
     return -1 if window is None else int(window)
+
+
+def _suffix(dtype, head_dim):
+    """The C entry points' suffix for inputs of ``dtype`` at
+    ``head_dim``: ``bf16_tc`` on the tc route, else the dtype's."""
+    if route(dtype, head_dim) == "tc":
+        return "bf16_tc"
+    return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
 def flash_fwd_kernel(q, k, v, causal=True, window=None):
@@ -87,19 +128,21 @@ def flash_fwd_kernel(q, k, v, causal=True, window=None):
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = build.load("flash_fwd")
-    fn = lib.flash_fwd_bf16 if q.dtype == torch.bfloat16 \
-        else lib.flash_fwd_f32
+    suffix = _suffix(q.dtype, D)
+    tc = suffix == "bf16_tc"
+    fn = getattr(build.load("flash_fwd"), f"flash_fwd_{suffix}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), _strides(q, k, v, out), B, H, k.shape[1], S, D,
              int(causal), _window(window), stream)
     build.check(err, "flash_fwd")
     flash_fwd_kernel.launches += 1
+    flash_fwd_kernel.launches_tc += tc
     return out, lse
 
 
 flash_fwd_kernel.launches = 0
+flash_fwd_kernel.launches_tc = 0
 
 
 def flash_bwd_kernel(q, k, v, out, lse, do, causal=True, window=None):
@@ -123,7 +166,8 @@ def flash_bwd_kernel(q, k, v, out, lse, do, causal=True, window=None):
         return dq, dk, dv
     delta = torch.empty_like(lse)
     lib = build.load("flash_bwd")
-    bf16 = q.dtype == torch.bfloat16
+    suffix = _suffix(q.dtype, D)
+    tc = suffix == "bf16_tc"
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
@@ -131,17 +175,21 @@ def flash_bwd_kernel(q, k, v, out, lse, do, causal=True, window=None):
             int(causal), _window(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     # the dq kernel writes delta = rowsum(out * do), which the dkv reads
-    err = (lib.flash_bwd_dq_bf16 if bf16 else lib.flash_bwd_dq_f32)(*args)
+    err = getattr(lib, f"flash_bwd_dq_{suffix}")(*args)
     build.check(err, "flash_bwd_dq")
     flash_bwd_kernel.launches_dq += 1
-    err = (lib.flash_bwd_dkv_bf16 if bf16 else lib.flash_bwd_dkv_f32)(*args)
+    flash_bwd_kernel.launches_dq_tc += tc
+    err = getattr(lib, f"flash_bwd_dkv_{suffix}")(*args)
     build.check(err, "flash_bwd_dkv")
     flash_bwd_kernel.launches_dkv += 1
+    flash_bwd_kernel.launches_dkv_tc += tc
     return dq, dk, dv
 
 
 flash_bwd_kernel.launches_dq = 0
 flash_bwd_kernel.launches_dkv = 0
+flash_bwd_kernel.launches_dq_tc = 0
+flash_bwd_kernel.launches_dkv_tc = 0
 
 
 class FlashAttention(torch.autograd.Function):

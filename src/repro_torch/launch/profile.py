@@ -1,12 +1,15 @@
 """Where a training step's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile [--sass]
+    PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
+        [--sections lm,qat,mamba,attn]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
-(batch 8, seq 256), a QAT step of the paper's network (dims
-1-64-64-64-64-10, T 784, batch 64, hardware phase) and a full-width
-``falcon-mamba-7b`` step (8 of its 64 layers, ``ssm_impl="fused"``,
-batch 4, seq 2048):
+(batch 8, seq 256; section ``lm``), a QAT step of the paper's network
+(dims 1-64-64-64-64-10, T 784, batch 64, hardware phase; ``qat``), a
+full-width ``falcon-mamba-7b`` step (8 of its 64 layers,
+``ssm_impl="fused"``, batch 4, seq 2048; ``mamba``) and a full-width
+``smollm-360m`` step through the flash kernels (batch 4, seq 2048;
+``attn``):
 
   * the host-clock split of the step into forward + backward and
     ``AdamW.step``, each ending in ``torch.cuda.synchronize()``;
@@ -86,33 +89,56 @@ def sass_order(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--sections", default="lm,qat,mamba,attn",
+                    help="comma-separated subset of lm, qat, mamba, attn")
     args = ap.parse_args(argv)
+    sections = set(args.sections.split(","))
+    if not sections <= {"lm", "qat", "mamba", "attn"}:
+        ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
     if args.sass:
         for name in ("linear_scan", "linear_scan_bwd"):
             sass_order(name)
 
-    from repro_torch.configs import MINIMALIST_SMNIST_DIMS, get_config
-    from repro_torch.core.mingru import MinimalistNetwork
-    from repro_torch.core.quant import QuantConfig
+    from repro_torch.configs import get_config
+    if "lm" in sections:
+        _lm(_train_step(dev, get_config("minimalist-lm-360m"), 8, 256))
+    if "qat" in sections:
+        _qat(dev)
+    if "mamba" in sections:
+        _big_step(_train_step(dev, dataclasses.replace(
+            get_config("falcon-mamba-7b"), n_layers=8, ssm_impl="fused"),
+            4, 2048), "falcon-mamba train step, 8 layers", "falcon-mamba")
+    if "attn" in sections:
+        _big_step(_train_step(dev, dataclasses.replace(
+            get_config("smollm-360m"), attention_impl="flash"), 4, 2048),
+            "smollm-360m flash train step (batch 4, seq 2048)",
+            "smollm-360m flash")
+
+
+def _train_step(dev, config, batch_size, seq):
+    """A model of ``config`` from seed 0, its AdamW and one batch; returns
+    (model, opt, the forward+backward closure over them)."""
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, param_groups
-    from repro_torch.train.qat import qat_loss
 
-    cfg = get_config("minimalist-lm-360m")
-    model = build_model(cfg, device=dev, generator=torch.Generator(
+    model = build_model(config, device=dev, generator=torch.Generator(
         device=dev).manual_seed(0))
     opt = AdamW(param_groups(model), lr=3e-4)
     batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in
-             SyntheticLMDataset(vocab=cfg.vocab, seq_len=256).sample(
-                 8, 0).items()}
+             SyntheticLMDataset(vocab=config.vocab, seq_len=seq).sample(
+                 batch_size, 0).items()}
 
     def fwd_bwd():
         opt.zero_grad(set_to_none=True)
         model.loss(batch)[0].backward()
+    return model, opt, fwd_bwd
 
+
+def _lm(parts):
+    model, opt, fwd_bwd = parts
     for _ in range(3):
         fwd_bwd()
         opt.step()
@@ -122,8 +148,16 @@ def main(argv=None):
           f"{[round(b, 1) for _, b in split]}", flush=True)
     profile_window(fwd_bwd, 2, "lm forward+backward")
     profile_window(opt.step, 2, "lm AdamW.step", top=4)
-    del model, opt
+    del model, opt, fwd_bwd, parts
     torch.cuda.empty_cache()
+
+
+def _qat(dev):
+    from repro_torch.configs import MINIMALIST_SMNIST_DIMS
+    from repro_torch.core.mingru import MinimalistNetwork
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.optim import AdamW
+    from repro_torch.train.qat import qat_loss
 
     net = MinimalistNetwork(MINIMALIST_SMNIST_DIMS,
                             qcfg=QuantConfig.hardware(), device=dev)
@@ -147,23 +181,22 @@ def main(argv=None):
     del net, qopt
     torch.cuda.empty_cache()
 
-    mcfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=8,
-                               ssm_impl="fused")
-    model = build_model(mcfg, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(0))
-    opt = AdamW(param_groups(model), lr=3e-4)
-    batch = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in
-             SyntheticLMDataset(vocab=mcfg.vocab, seq_len=2048).sample(
-                 4, 0).items()}
+
+def _big_step(parts, title, tag):
+    """A batch 4 x 2048 step: host-clock split, then one profiler window
+    each for forward+backward and AdamW.step."""
+    model, opt, fwd_bwd = parts
     for _ in range(2):
-        fwd_bwd()      # reads model, opt and batch as now bound
+        fwd_bwd()
         opt.step()
     split = [(_sync_ms(fwd_bwd), _sync_ms(opt.step)) for _ in range(3)]
-    print("falcon-mamba train step, 8 layers (host clock): forward+backward "
+    print(f"{title} (host clock): forward+backward "
           f"ms {[round(a, 1) for a, _ in split]}, AdamW.step ms "
           f"{[round(b, 1) for _, b in split]}", flush=True)
-    profile_window(fwd_bwd, 1, "falcon-mamba forward+backward", top=12)
-    profile_window(opt.step, 1, "falcon-mamba AdamW.step", top=4)
+    profile_window(fwd_bwd, 1, f"{tag} forward+backward", top=12)
+    profile_window(opt.step, 1, f"{tag} AdamW.step", top=4)
+    del model, opt, fwd_bwd, parts
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -385,6 +385,22 @@ FLASH_CASES = [
 ]
 
 
+# bf16 only, the tc route's edges: one row, one row past a tile, one row
+# short of the path's length; GQA group 3
+FLASH_TC_CASES = [
+    (1, 3, 1, 1, 64, True, None),
+    (2, 6, 2, 65, 32, True, 16),
+    (1, 6, 2, 2047, 128, True, None),
+]
+
+
+def _tc_counts():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return (fa_ops.flash_fwd_kernel.launches_tc,
+            fa_ops.flash_bwd_kernel.launches_dq_tc,
+            fa_ops.flash_bwd_kernel.launches_dkv_tc)
+
+
 def _flash_inputs(dev, B, H, KV, S, D, dtype, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(dtype)
@@ -416,9 +432,11 @@ def test_flash_fwd_kernel_matches_plain(cuda, case, dtype):
 
     B, H, KV, S, D, causal, window = case
     q, k, v, _ = _flash_inputs(cuda, B, H, KV, S, D, dtype)
-    n0 = fa_ops.flash_fwd_kernel.launches
+    n0, tc0 = fa_ops.flash_fwd_kernel.launches, _tc_counts()
     out, lse = fa_ops.flash_fwd_kernel(q, k, v, causal, window)
     assert fa_ops.flash_fwd_kernel.launches == n0 + 1
+    tc = int(fa_ops.route(dtype, D) == "tc")
+    assert _tc_counts() == (tc0[0] + tc,) + tc0[1:]
     want, want_lse = fa_ref.flash_attention_ref(q, k, v, causal, window)
     torch.cuda.synchronize()
     assert out.dtype == dtype and lse.dtype == torch.float32
@@ -443,15 +461,68 @@ def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
     out, lse = fa_ref.flash_attention_ref(q, k, v, causal, window)
     n_dq = fa_ops.flash_bwd_kernel.launches_dq
     n_dkv = fa_ops.flash_bwd_kernel.launches_dkv
+    tc0 = _tc_counts()
     got = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, causal, window)
     assert fa_ops.flash_bwd_kernel.launches_dq == n_dq + 1
     assert fa_ops.flash_bwd_kernel.launches_dkv == n_dkv + 1
+    tc = int(fa_ops.route(dtype, D) == "tc")
+    assert _tc_counts() == (tc0[0], tc0[1] + tc, tc0[2] + tc)
     want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
                                           window)
     torch.cuda.synchronize()
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape
         _flash_check(g, w, dtype, 5e-5, 5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_TC_CASES, ids=str)
+def test_flash_tc_edge_cases_match_plain(cuda, case):
+    """bf16 on the tc route at S 1, 65 and 2047 (GQA group 3): out within
+    one bf16 ulp + 2e-6 of the plain version, lse 2e-5 + 2e-5 |lse|, the
+    gradients the bwd test's bound; each kernel launched once on the tc
+    route."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, H, KV, S, D, causal, window = case
+    bf = torch.bfloat16
+    q, k, v, do = _flash_inputs(cuda, B, H, KV, S, D, bf, seed=S)
+    tc0 = _tc_counts()
+    out, lse = fa_ops.flash_fwd_kernel(q, k, v, causal, window)
+    got = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, causal, window)
+    assert _tc_counts() == tuple(x + 1 for x in tc0)
+    want, want_lse = fa_ref.flash_attention_ref(q, k, v, causal, window)
+    wgrads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                            window)
+    torch.cuda.synchronize()
+    _flash_check(out, want, bf, 2e-6, 0.0)
+    _flash_check(lse, want_lse, torch.float32, 2e-5, 2e-5)
+    for g, w in zip(got, wgrads):
+        _flash_check(g, w, bf, 5e-5, 5e-4)
+
+
+@pytest.mark.cuda
+def test_flash_tc_wrappers_raise_on_misaligned_operands(cuda):
+    """TMA reads 16-byte-aligned bases and strides: the low-level
+    wrappers refuse a base one element off on the tc route (the op
+    copies such an operand first, ``ops._rows``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v, do = _flash_inputs(cuda, 1, 4, 2, 64, 64, torch.bfloat16)
+    odd = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:]
+    odd = odd.view(q.shape).copy_(q)
+    n = fa_ops.flash_fwd_kernel.launches, _tc_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_fwd_kernel(odd, k, v)
+    out, lse = fa_ops.flash_fwd_kernel(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_bwd_kernel(odd, k, v, out, lse, do)
+    assert (fa_ops.flash_fwd_kernel.launches, _tc_counts()) == (
+        n[0] + 1, (n[1][0] + 1,) + n[1][1:])
+    got = fa_ops.flash_attention(odd, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, out)
 
 
 @pytest.mark.cuda

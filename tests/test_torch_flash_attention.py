@@ -202,3 +202,127 @@ def test_wrappers_refuse_mixed_devices():
                 fn(*mixed)
         with pytest.raises(ValueError, match="unsupported device"):
             fn(*[a.to("meta") for a in args])
+
+
+# -- the tensor-core route (bf16 at head dims 16-128) ----------------------
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_route_picks_tc_for_bf16_up_to_head_dim_128(dtype, D):
+    want = "tc" if dtype == torch.bfloat16 and D <= 128 else "simt"
+    assert ops.route(dtype, D) == want
+
+
+def _split(x):
+    """fp32 x as the tc kernels multiply it: bf16 hi and lo, hi + lo ~ x."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _mm(a, b, split):
+    """a @ b with an fp32 ``a`` rounded to bf16 as the tc kernels take it
+    (``split``: hi and lo, two products; else once), ``b`` bf16; every
+    bf16 x bf16 product is exact in fp32 and summed in fp32."""
+    parts = _split(a) if split else (a.to(torch.bfloat16),)
+    return sum(x.float() @ b.float() for x in parts)
+
+
+def _tc_fwd(q, k, v, causal, window, split=True):
+    """Plain PyTorch emulation of the tc forward's numerics (bf16 q, k,
+    v): q.k^T exact products summed in fp32, P rounded to a bf16 operand
+    of p.V (split into hi + lo as the kernel does, or once)."""
+    G = q.shape[1] // k.shape[1]
+    s = ref._scores(q, k, causal, window)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    out = _mm(p, ref._expand(v, G), split) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _tc_bwd(q, k, v, out, lse, do, causal, window, split=True):
+    """The same for the tc backward given the forward's out and lse: dS
+    and P rounded to bf16 operands of ds.K, ds^T.q and p^T.do."""
+    KV = k.shape[1]
+    G = q.shape[1] // KV
+    p = torch.exp(ref._scores(q, k, causal, window) - lse[..., None])
+    delta = (out.float() * do.float()).sum(-1, keepdim=True)
+    dp = do.float() @ ref._expand(v, G).float().transpose(-1, -2)
+    ds = p * (dp - delta) * ref._scale(q.shape[-1], q.device)
+    dq = _mm(ds, ref._expand(k, G), split)
+    dk = _mm(ds.transpose(-1, -2), q, split)
+    dv = _mm(p.transpose(-1, -2), do, split)
+    return (dq.to(q.dtype), ref._group_sum(dk, KV).to(k.dtype),
+            ref._group_sum(dv, KV).to(v.dtype))
+
+
+def _past_bf16_ulp(got, want):
+    """Entries where |got - want| exceeds one bf16 ulp of the larger
+    magnitude plus 2e-6 (the card's bound on the kernels' bf16 outputs)."""
+    a, w = _np(got), _np(want)
+    mag = np.maximum(np.maximum(np.abs(a), np.abs(w)), 2.0 ** -126)
+    return int((np.abs(a - w) > np.exp2(np.floor(np.log2(mag)) - 7)
+                + 2e-6).sum())
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40)])
+def test_tc_split_numerics_match_reference_flash_kernels(causal, window):
+    """The tc route's numerics (emulated: bf16 x bf16 products in fp32, P
+    and dS split into bf16 hi + lo) against the reference's Pallas
+    flash_fwd and flash_bwd in interpret mode, whose products are fp32:
+    out, dq, dk and dv within one bf16 ulp + 2e-6, lse within 2e-5 +
+    2e-5 |lse|.  Rounding P and dS once to bf16 instead (FA2/FA3's
+    operands) moves entries of every output past that bound."""
+    from repro.kernels.flash_attention.flash_attention import flash_bwd
+    B, H, KV, S, D = 1, 4, 2, 256, 64
+    q, k, v = _inputs(B, H, KV, S, D, seed=17)
+    do = np.random.default_rng(18).standard_normal(q.shape).astype(
+        np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in (q, k, v, do))
+    jout, jlse = jfwd(jq, jk, jv, bq=128, bk=128, causal=causal,
+                      window=window, group=H // KV, interpret=True)
+    jdq, jdk, jdv = flash_bwd(jq, jk, jv, jout, jlse, jdo, bq=128, bk=128,
+                              causal=causal, window=window, group=H // KV,
+                              interpret=True)
+    sum_group = lambda x: np.asarray(x).reshape(B, KV, H // KV, S, D).sum(2)
+    want = [jout, jlse, jnp.asarray(jdq).astype(jnp.bfloat16),
+            jnp.asarray(sum_group(jdk)).astype(jnp.bfloat16),
+            jnp.asarray(sum_group(jdv)).astype(jnp.bfloat16)]
+    tout = torch.from_numpy(np.array(jout.astype(jnp.float32))).to(
+        torch.bfloat16)
+    tlse = torch.from_numpy(np.array(jlse))
+    # the backward from the reference's out and lse, as the card holds
+    # the kernels against the plain version given the same out and lse
+    for split in (True, False):
+        got = _tc_fwd(tq, tk, tv, causal, window, split) + _tc_bwd(
+            tq, tk, tv, tout, tlse, tdo, causal, window, split)
+        for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+            if name == "lse":
+                np.testing.assert_allclose(_np(g), _np(w), atol=2e-5,
+                                           rtol=2e-5)
+            elif split:
+                assert _past_bf16_ulp(g, w) == 0, name
+            else:
+                assert _past_bf16_ulp(g, w) > 0, name
+
+
+def test_rows_copies_misaligned_views_and_keeps_aligned_ones():
+    """TMA needs 16-byte bases and strides: a view one bf16 off a 16-byte
+    boundary is copied; the model's transposed (B, S, H, D) projections
+    pass as they are (same storage, same strides)."""
+    x = torch.zeros(2 * 6 * 40 * 64 + 1, dtype=torch.bfloat16)
+    odd = x[1:].view(2, 6, 40, 64)
+    got = ops._rows(odd)
+    assert got.data_ptr() != odd.data_ptr() and ops._aligned(got)
+    torch.testing.assert_close(got, odd, rtol=0, atol=0)
+    view = torch.zeros(2, 40, 6, 64, dtype=torch.bfloat16).transpose(1, 2)
+    kept = ops._rows(view)
+    assert kept.data_ptr() == view.data_ptr()
+    assert kept.stride() == view.stride()
+    narrow = torch.zeros(2, 6, 40, 72, dtype=torch.bfloat16)[..., :64]
+    assert ops._rows(narrow).data_ptr() == narrow.data_ptr()
+    ragged = torch.zeros(2, 6, 40, 68, dtype=torch.bfloat16)[..., :64]
+    assert ops._rows(ragged).data_ptr() != ragged.data_ptr()
