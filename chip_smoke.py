@@ -384,20 +384,33 @@ def _paged_case(torch, dev, g, *, B, H, KV, hd, ps, length, pos, window,
     return q, kvq.quantize(pk, ks), kvq.quantize(pv, vs), (ks, vs), bt, pos
 
 
+# (label, B, H, KV, hd, length, window, pos) of the paged GQA kernel rows:
+# the paged phase's decode shape (4 slots, smollm-360m's 15/5 heads of 64,
+# page 16, cache 256; the JSON row) and its 128-entry window ring, a long
+# context (64 slots x 2048 positions, all full: the pages exceed the 50 MB
+# L2, so bytes decide) and gemma3-4b's local layers (8/4 heads of 256 on
+# 1024-entry rings, three of four wrapped)
+PAGED_ROWS = [
+    ("path", 4, 15, 5, 64, 256, None, [255, 255, 255, 255]),
+    ("ring", 4, 15, 5, 64, 128, 128, [255, 200, 130, 64]),
+    ("long", 64, 15, 5, 64, 2048, None, [2047] * 64),
+    ("gemma", 4, 8, 4, 256, 1024, 1024, [4095, 3000, 1500, 1023]),
+]
+
+
 def _kernel_rows_paged(torch, dev, g):
-    """paged_gqa and paged_gqa_q8 at the paged phase's decode shape
-    (4 slots, smollm-360m's 15/5 heads of 64, page 16, cache 256), global
-    and a 128-entry window ring, against the plain version."""
+    """paged_gqa and paged_gqa_q8 at PAGED_ROWS against the plain version;
+    kernel (graph replay and eager), plain and SDPA times and the byte
+    bound of each."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
 
     rows = {}
-    B, H, KV, hd, ps = 4, 15, 5, 64, 16
-    cases = [(256, None, [255, 255, 255, 255]), (128, 128, [255, 200, 130, 64])]
+    ps = 16
     for q8 in (False, True):
         name = "paged_gqa_q8" if q8 else "paged_gqa"
         kern = pa_ops.paged_gqa_q8_kernel if q8 else pa_ops.paged_gqa_kernel
-        for length, window, pos in cases:
+        for label, B, H, KV, hd, length, window, pos in PAGED_ROWS:
             q, pk, pv, sc, bt, pos_t = _paged_case(
                 torch, dev, g, B=B, H=H, KV=KV, hd=hd, ps=ps, length=length,
                 pos=pos, window=window, num_pages=2 * B * (-(-length // ps)),
@@ -411,8 +424,8 @@ def _kernel_rows_paged(torch, dev, g):
             # the fp32 bound 2e-6 where cancellation leaves it near zero:
             # both round fp32 results within 2e-6 of each other to bf16
             n_bad, err = _past_bf16_ulp(torch, got, want)
-            tag = (f"{name} (B {B}, H {H}, KV {KV}, hd {hd}, page {ps}, "
-                   f"length {length}, window {window}) bf16 q")
+            tag = (f"{name} {label} (B {B}, H {H}, KV {KV}, hd {hd}, page "
+                   f"{ps}, length {length}, window {window}) bf16 q")
             if n_bad:
                 fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
                      f"(max {err})")
@@ -441,6 +454,7 @@ def _kernel_rows_paged(torch, dev, g):
             sdpa = torch.nn.functional.scaled_dot_product_attention
             library_ms = device_ms(
                 torch, lambda: sdpa(qd, kd, vd, attn_mask=mask), 200)
+            del kd, vd
             # bytes and flops that this run's positions need: each row's
             # live pages (the window caps them), q and out, the block table
             flops = bytes_ = 0
@@ -453,14 +467,20 @@ def _kernel_rows_paged(torch, dev, g):
             b_ms, by = bound(bytes_, flops)
             print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp "
                   f"+ 2e-6) "
-                  f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain "
+                  f"kernel {ms:.5f} ms (eager call {call_ms:.5f} ms), plain "
                   f"{plain_ms:.4f} ms, library (SDPA on the dense view) "
-                  f"{library_ms:.4f} ms, bound {b_ms:.5f} ms ({by})",
+                  f"{library_ms:.5f} ms, bound {b_ms:.5f} ms ({by}, "
+                  f"{bytes_ / 1e6:.1f} MB; {b_ms / ms:.1%} of it)",
                   flush=True)
-            if window is None:
+            if label == "path":
                 rows[name] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=by, library_ms=library_ms)
+            elif label != "ring":
+                rows[name].update({f"{label}_ms": ms,
+                                   f"{label}_bound_ms": b_ms,
+                                   f"{label}_library_ms": library_ms})
+            del q, pk, pv, sc, bt, pos_t, got, want
     return rows
 
 
@@ -2075,6 +2095,9 @@ def main():
     # how a kernel was redesigned after its first port
     design = {name: "wgmma+TMA, split-bf16 P/dS"
               for name in ("flash_fwd", "flash_bwd")}
+    design.update({name: "cluster page ranges merged in DSMEM, warps on "
+                   "pages, 16-byte cp.async ring, one launch"
+                   for name in ("paged_gqa", "paged_gqa_q8")})
     kernels = []
     for name in build.KERNELS:
         source, replaces = meta[name]

@@ -1,6 +1,8 @@
 // One-token grouped-query attention decode read through a block table:
 // the body shared by paged_gqa.cu (bf16/fp32 pools) and paged_gqa_q8.cu
-// (int8 pools with one float32 scale per (page, kv head)).
+// (int8 pools with one float32 scale per (page, kv head)).  Replaces the
+// TPU kernels paged_gqa_fwd and paged_gqa_fwd_q8
+// (src/repro/kernels/paged_attention/paged_attention.py:107 and :179).
 //
 // q (B, H, hd); pools (P, ps, KV, hd); bt (B, bt_cols) int32 page ids;
 // pos (B,) int32 -> out (B, H, hd) in q's type.  Query head h reads kv
@@ -8,50 +10,128 @@
 // pool[bt[b, j / ps], j % ps]; with a window the chain is a ring of
 // `length` entries and entry j holds position pos - ((pos - j) mod length).
 //
-// Design: one block per (kv head, request), so the G query rows that
-// share a kv head read each page once.  The block walks the request's
-// pages in order and stops at the first page with no attendable entry
-// (p*ps > pos or p*ps >= length); every page it reads therefore holds at
-// least one unmasked entry, which keeps the online softmax sound (a
-// fully masked first page would set the running max to -1e30).  Per
-// page: K and V rows of this kv head go to shared memory as fp32 (int8
-// codes times the page's scale), every (row, entry) score is one dot
-// over hd plus the mask, one thread per query row updates (m, l) and
-// turns the scores into weights, and the accumulator (G x hd, fp32, in
-// shared memory) is rescaled and gains weights @ V.  The output is
-// acc / max(l, 1e-30).  Scores, softmax and sums are all fp32, as in
-// the TPU kernel; the summation order differs from the plain version's
-// (one global max), so the two agree to ~1e-7, not bit for bit.
+// Bound: bytes.  A call reads each live page of every (request, kv head)
+// once, 2 * ps * hd elements, plus q and out; the flops, 4 * B * H * T *
+// hd, are about 1/300 of what those bytes would allow.  G query rows
+// share a kv head (3 at smollm-360m, 2 at gemma3-4b), which would fill
+// 3/64 of a wgmma tile, so the dots stay on the CUDA cores on purpose.
 //
-// Bound: bytes.  The live pages are read once (2 * pages * ps * hd
-// elements per (b, kv)) and q/out once; the flops are 4 * B * H * T * hd.
-// This first version is far from that bound: B * KV blocks only (20 for
-// smollm-360m at 4 slots), each a serial walk over its pages with four
-// barriers per page and no loads in flight across pages.  Splitting the
-// walk over pages across blocks (flash-decoding) and cp.async/TMA page
-// prefetch are the next steps.
+// Design: one launch, one thread-block cluster per (kv head, query-row
+// tile, request).  What it does about the first version's five faults:
+//  1. Too few blocks (B * KV): the grid is (n_split, KV * n_gt, B) with a
+//     cluster of (n_split, 1, 1).  Each CTA of a cluster takes one
+//     contiguous range of the request's live pages (p * ps <= pos and
+//     p * ps < length), computed here from the request's own pos, so the
+//     wrapper never reads pos and the call can be captured in a CUDA
+//     graph.  n_split (ops.gqa_splits, the one layout argument the wrapper
+//     passes: a page for each of a CTA's 4 warps on a full chain, at most
+//     the portable cluster size 8) depends on length and ps only, never on
+//     B, so a request's output is bitwise the same whatever batch it
+//     shares; the merges run in a fixed order with no atomics.  A range
+//     is empty or begins with a live page, so every page a range visits
+//     holds an unmasked entry and its online softmax is sound; an empty
+//     range contributes (m = -1e30, l = 0) and the merge skips it.
+//  2. A serial page walk with four block barriers a page: warp w of a CTA
+//     takes pages w, w + 4, ... of its range and keeps its own (m, l) per
+//     query row and its share of the accumulator in registers; no
+//     block-wide barrier runs per page.  Warps merge through shared
+//     memory, then the CTAs through distributed shared memory: each writes
+//     its (m, l, acc) into rank 0's shared memory, and after one cluster
+//     barrier rank 0 rescales the ranges to their common max and writes
+//     acc / max(l, 1e-30).  Nothing goes through device memory and there
+//     is no second kernel.
+//  3. 2-byte scalar loads with no loads in flight across pages: a page's
+//     K and V rows arrive in 16-byte cp.async copies into a per-warp ring
+//     of 1-3 page slots (as many as fit 40 KB a CTA, so that several CTAs
+//     share an SM), the next pages' copies issued before the current
+//     page's math, and the chain's first 128 page ids are fetched beside
+//     pos.  A lane reads rows and scales that other lanes copied (the
+//     scales lane 0 copies, rows past the page), so a __syncwarp before
+//     each copy ends every lane's reads of the slot it overwrites, and one
+//     after the wait makes the copies visible to the warp.  The first
+//     costs 2-6 % on the H100; lanes that read only their own copies, or
+//     one barrier with the copy issued after it, were no faster (PERF.md).
+//     Rows that are not a power-of-two count (at most 32) of 16-byte
+//     chunks, or unaligned pools, take one element a lane instead.
+//  4. Few threads on the scores: a row's chunks lie across `lpr` lanes
+//     (8 for bf16 at hd 64), 32 / lpr rows a pass of the warp.  A lane
+//     takes 4 of its rows a step (2 for int8): their loads, dots and
+//     shuffle reductions over the row's lanes are independent and overlap,
+//     and a row past the page reads the page's last row and weighs nothing
+//     (score -inf), so a step has no branch.
+//  5. A serial softmax: each step's max is a shuffle reduction over the
+//     warp, the weights exp2f of scores prescaled by log2(e) / sqrt(hd),
+//     and the mask is computed only on pages that can hold a masked entry
+//     (the last live page; every page when a ring is longer than its
+//     window).
+// Each lane keeps kG query rows (the tile) of its columns in registers;
+// where G rows do not fit (int8: 3, 16-byte rows otherwise: 4, one-element
+// rows: 1) the query rows are tiled across clusters, each reading the
+// pages again.  launch() chooses that layout (tile rows, 16-byte chunks,
+// ring stages) from the shape and the pools' alignment.  int8 codes become
+// fp32 in two full-rate operations each and are multiplied by their page's
+// scale in registers before the dots, so the dots see exactly codes *
+// scale, as the plain version's dequantized pools hold.  Scores, softmax
+// and sums are fp32, as in the TPU kernel; the summation order differs
+// from the plain version's (one global max), so the two agree to ~1e-7,
+// not bit for bit.
+//
+// What bounds it now, on the H100 (PERF.md): at decode shapes the chain
+// of dependent loads (pos and page ids, then a page) and the cluster's
+// merge; on long chains the per-page arithmetic of a warp, not the bytes,
+// for int8 pages (half the bytes of bf16 for the same work a page).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "paged_common.cuh"
 
 namespace paged_gqa {
 
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
+using paged_common::store_f;
+using paged_common::to_f;
+using paged_common::Vec;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int kWarps = 4;              // ops.GQA_WARPS
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxSplit = 8;           // ops.GQA_MAX_SPLIT
+constexpr int kMaxHd = 256;
+// bytes the warps' rings may take: as many slots a warp (at most three) as
+// fit, at least one, so that several CTAs share an SM
+constexpr int kRingBytes = 40960;
+constexpr size_t kSmemLimit = 232448;  // opt-in shared memory of an H100
+constexpr float kNegInf = -1e30f;
+constexpr int kIdRegs = 4;             // page ids a lane fetches (x 32)
+
+#ifdef PAGED_GQA_TRACE
+// A CTA's timeline, for launch/profile.py: globaltimer (ns) at its start,
+// when warp 0's first page has landed, when warp 0 is done with its pages
+// and after the merge's cluster barrier, then its SM.  Built only with
+// -DPAGED_GQA_TRACE; the kernels of the package carry none of it.
+constexpr int kTraceCtas = 1 << 16;
+__device__ unsigned long long g_trace[kTraceCtas * 5];
+__device__ __forceinline__ void mark(int i) {
+  const unsigned cta =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  if (cta < kTraceCtas) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_trace[cta * 5 + i] = t;
+    if (i == 0) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      g_trace[cta * 5 + 4] = sm;
+    }
+  }
 }
-__device__ __forceinline__ float to_f(int8_t v) {
-  return static_cast<float>(v);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+#define GQA_MARK(i) \
+  if (threadIdx.x == 0) paged_gqa::mark(i)
+#else
+#define GQA_MARK(i)
+#endif
 
 // Python's (floor) modulo for a positive divisor, as jnp and torch use.
 __device__ __forceinline__ int floor_mod(int a, int n) {
@@ -68,124 +148,610 @@ __device__ __forceinline__ float entry_mask(int j, int pos, int length,
   return ok ? 0.0f : kNegInf;
 }
 
-// kScaled: multiply each page row by ks/vs[page * KV + kv] (int8 pools).
-template <typename TQ, typename TKV, bool kScaled>
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
-                  const TKV* __restrict__ pool_v,
-                  const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale,
-                  const int* __restrict__ bt, const int* __restrict__ pos_b,
-                  TQ* __restrict__ out, int H, int KV, int hd, int ps,
-                  int bt_cols, int length, int window, float scale) {
-  extern __shared__ float smem[];
-  const int kv = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / KV;
-  const int tid = threadIdx.x;
-  float* qs = smem;             // G * hd
-  float* acc = qs + G * hd;     // G * hd
-  float* ks = acc + G * hd;     // ps * hd
-  float* vs = ks + ps * hd;     // ps * hd
-  float* sc = vs + ps * hd;     // G * ps
-  float* m = sc + G * ps;       // G
-  float* l = m + G;             // G
-  float* alpha = l + G;         // G
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most n (0-2) of this thread's copy groups are pending.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n >= 2) {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else if (n == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// Address of this CTA's shared `p` in the shared memory of CTA `rank`.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
 
-  const int pos = pos_b[b];
-  const int64_t qoff = (static_cast<int64_t>(b) * H + kv * G) * hd;
-  for (int i = tid; i < G * hd; i += kThreads) {
-    qs[i] = to_f(q[qoff + i]);
-    acc[i] = 0.0f;
-  }
-  if (tid < G) {
-    m[tid] = kNegInf;
-    l[tid] = 0.0f;
-  }
-  const int n_pages = (length + ps - 1) / ps;
-  for (int p = 0; p < n_pages; ++p) {
-    // pages past the first unattendable one are unwritten chain tails
-    if (p * ps > pos || p * ps >= length) break;
-    const int64_t page = bt[static_cast<int64_t>(b) * bt_cols + p];
-    float kmul = 1.0f, vmul = 1.0f;
-    if (kScaled) {
-      kmul = k_scale[page * KV + kv];
-      vmul = v_scale[page * KV + kv];
+// The fp32 values of a 16-byte vector of page data.  int8 codes take two
+// full-rate operations each: the code's byte plus 128 becomes the low byte
+// of the float 2^23 + (c + 128), from which 2^23 + 128 is subtracted
+// (exactly), in place of a conversion instruction at a quarter of the rate.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& u, float* o) {
+  Vec<T>::unpack(u, o);
+}
+template <>
+__device__ __forceinline__ void unpack16<int8_t>(const uint4& u, float* o) {
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                         u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      o[4 * i + k] =
+          __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650u + k)) -
+          8388736.0f;
     }
-    __syncthreads();  // the previous page's readers are done
-    for (int i = tid; i < ps * hd; i += kThreads) {
-      const int t = i / hd, d = i - t * hd;
-      const int64_t off = ((page * ps + t) * KV + kv) * hd + d;
-      float kx = to_f(pool_k[off]), vx = to_f(pool_v[off]);
-      if (kScaled) {
-        kx = kx * kmul;
-        vx = vx * vmul;
-      }
-      ks[i] = kx;
-      vs[i] = vx;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * ps; i += kThreads) {
-      const int g = i / ps, t = i - g * ps;
-      const float* qr = qs + g * hd;
-      const float* kr = ks + t * hd;
-      float dot = 0.0f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-      sc[i] = dot * scale + entry_mask(p * ps + t, pos, length, window);
-    }
-    __syncthreads();
-    if (tid < G) {
-      float* s = sc + tid * ps;
-      float mx = s[0];
-      for (int t = 1; t < ps; ++t) mx = fmaxf(mx, s[t]);
-      const float m_new = fmaxf(m[tid], mx);
-      float sum = 0.0f;
-      for (int t = 0; t < ps; ++t) {
-        const float e = expf(s[t] - m_new);
-        s[t] = e;
-        sum += e;
-      }
-      const float a = expf(m[tid] - m_new);
-      l[tid] = l[tid] * a + sum;
-      m[tid] = m_new;
-      alpha[tid] = a;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * hd; i += kThreads) {
-      const int g = i / hd, d = i - g * hd;
-      const float* w = sc + g * ps;
-      float pv = 0.0f;
-      for (int t = 0; t < ps; ++t) pv = fmaf(w[t], vs[t * hd + d], pv);
-      acc[i] = acc[i] * alpha[g] + pv;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * hd; i += kThreads) {
-    store_f(out + qoff + i, acc[i] / fmaxf(l[i / hd], 1e-30f));
   }
 }
 
+// The unit of a row one lane copies and reads: a 16-byte vector of TKV
+// (kVec; a row holds a power-of-two count of them, at most 32, one a lane)
+// or one element (up to kMaxHd / 32 a lane, one row a pass of the warp).
+template <typename TKV, bool kVec> struct Chunk;
+template <typename TKV> struct Chunk<TKV, true> {
+  static constexpr int n = Vec<TKV>::n;
+  static constexpr int per_lane = 1;
+  __device__ static void stage(TKV* dst, const TKV* src) {
+    cp_async16(dst, src);
+  }
+  __device__ static void load(const TKV* s, float* o) {
+    unpack16<TKV>(*reinterpret_cast<const uint4*>(s), o);
+  }
+};
+template <typename TKV> struct Chunk<TKV, false> {
+  static constexpr int n = 1;
+  static constexpr int per_lane = kMaxHd / 32;
+  __device__ static void stage(TKV* dst, const TKV* src) { *dst = *src; }
+  __device__ static void load(const TKV* s, float* o) { o[0] = to_f(*s); }
+};
+
+struct Params {
+  const void* q;
+  const void* pool_k;
+  const void* pool_v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* bt;
+  const int* pos;
+  void* out;
+  int H, KV, G, hd, ps, bt_cols, length, window;
+  int n_split;     // CTAs of a cluster: page ranges of one request
+  int n_gt;        // query-row tiles of a kv head
+  int stages;      // page slots of a warp's ring (1-3)
+  int lpr;         // lanes a row's chunks lie across (a power of two)
+  int slot_bytes;  // K page, V page, their two scales; 16-byte multiple
+  float scale2;    // log2(e) / sqrt(hd)
+};
+
+// Bytes of one ring slot: K and V page rows of this kv head, then the two
+// page scales, each part 16-byte aligned.
+__host__ __device__ inline int slot_bytes(int ps, int hd, int elem) {
+  return (2 * ps * hd * elem + 15) / 16 * 16 + 16;
+}
+
+// Dynamic shared memory of one CTA: the warps' rings, then the warps'
+// partials and the cluster's partials (n_split, read by rank 0), each
+// partial m[kG], l[kG], acc[kG][hd] in fp32.
+inline size_t smem_bytes(int ps, int hd, int elem, int kG, int n_split,
+                         int stages) {
+  return static_cast<size_t>(kWarps) * stages * slot_bytes(ps, hd, elem) +
+         4 * static_cast<size_t>((kWarps + n_split) * kG * (hd + 2));
+}
+
+// Where a lane works in a page: rows rg + rpi * i (i < rpl), chunks
+// lc + lpr * j (j < Chunk::per_lane, those below nc).
+struct Lane {
+  int lane, lc, rg, lpr, rpi, rpl, nc;
+};
+
+// Id of chain page `pg` (warp-uniform): from the ids the warp fetched up
+// front (lane i holds ids i, i + 32, ...) while pg < 32 * kIdRegs, else
+// from the block table.
+__device__ __forceinline__ int64_t page_id(const int (&idr)[kIdRegs],
+                                           int pg, const int* btr) {
+  if (pg >= 32 * kIdRegs) return btr[pg];
+  int v = idr[0];
+#pragma unroll
+  for (int j = 1; j < kIdRegs; ++j) v = (pg >> 5) == j ? idr[j] : v;
+  return __shfl_sync(0xffffffffu, v, pg & 31);
+}
+
+// Start the copies of page `id`'s K and V rows of kv head `kv` into a ring
+// slot, each lane the chunks it reads later; lane 0 also copies the page's
+// two scales (int8 pools).
+template <typename TKV, bool kScaled, bool kVec>
+__device__ __forceinline__ void stage_page(unsigned char* slot,
+                                           const Params& p, const Lane& L,
+                                           int64_t id, int kv, int sc_off) {
+  using C = Chunk<TKV, kVec>;
+  const TKV* PK = static_cast<const TKV*>(p.pool_k);
+  const TKV* PV = static_cast<const TKV*>(p.pool_v);
+  TKV* sk = reinterpret_cast<TKV*>(slot);
+  TKV* sv = sk + p.ps * p.hd;
+  for (int i = 0; i < L.rpl; ++i) {
+    const int rr = L.rg + L.rpi * i;
+    if (rr >= p.ps) break;
+    const int64_t row = ((id * p.ps + rr) * p.KV + kv) * p.hd;
+#pragma unroll
+    for (int j = 0; j < C::per_lane; ++j) {
+      const int c = L.lc + L.lpr * j;
+      if (kVec || c < L.nc) {
+        C::stage(sk + rr * p.hd + c * C::n, PK + row + c * C::n);
+        C::stage(sv + rr * p.hd + c * C::n, PV + row + c * C::n);
+      }
+    }
+  }
+  if (kScaled && L.lane == 0) {
+    float* ss = reinterpret_cast<float*>(slot + sc_off);
+    const int64_t si = id * p.KV + kv;
+    if (kVec) {
+      cp_async4(ss, p.k_scale + si);
+      cp_async4(ss + 1, p.v_scale + si);
+    } else {
+      ss[0] = p.k_scale[si];
+      ss[1] = p.v_scale[si];
+    }
+  }
+}
+
+// kScaled: multiply each page's rows by ks/vs[page * KV + kv] (int8 pools).
+// kG: query rows of a tile (the last tile may hold fewer).
+template <typename TQ, typename TKV, bool kScaled, bool kVec, int kG>
+__global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
+  using C = Chunk<TKV, kVec>;
+  constexpr int kN = C::n;
+  constexpr int kE = C::n * C::per_lane;  // elements of a row a lane holds
+  // rows a lane scores and weighs per step: their loads, dots and
+  // shuffles are independent, so they overlap
+  constexpr int kRB = kN >= 16 ? 2 : 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TQ* __restrict__ Q = static_cast<const TQ*>(p.q);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int rank = blockIdx.x;  // the cluster spans grid x: x is the rank
+  const int kv = blockIdx.y / p.n_gt;
+  const int g0 = (blockIdx.y - kv * p.n_gt) * kG;
+  const int gt = min(kG, p.G - g0);
+  const int b = blockIdx.z;
+  const int hd = p.hd, ps = p.ps;
+  const int pf = kG * (hd + 2);  // floats of one partial
+
+  // phase 1 of the cluster barrier: every CTA has started before any
+  // writes into rank 0's shared memory
+  cluster_arrive_relaxed();
+  GQA_MARK(0);
+
+  // the chain's first kIdRegs * 32 page ids come in beside pos, so the
+  // first page copy waits on one round trip, not two
+  const int* btr = p.bt + static_cast<int64_t>(b) * p.bt_cols;
+  const int n_pages = (p.length + ps - 1) / ps;
+  int idr[kIdRegs];
+#pragma unroll
+  for (int j = 0; j < kIdRegs; ++j) {
+    const int c = lane + 32 * j;
+    idr[j] = c < n_pages ? btr[c] : 0;
+  }
+  const int pos = p.pos[b];
+  const int n_live = pos < 0 ? 0 : min(pos, p.length - 1) / ps + 1;
+  const int begin = rank * n_live / p.n_split;
+  const int end = (rank + 1) * n_live / p.n_split;
+
+  unsigned char* ring = smem + w * p.stages * p.slot_bytes;
+  float* wparts =
+      reinterpret_cast<float*>(smem + kWarps * p.stages * p.slot_bytes);
+  float* cparts = wparts + kWarps * pf;
+
+  Lane L;
+  L.lane = lane;
+  L.nc = hd / kN;
+  L.lpr = p.lpr;
+  L.rpi = 32 / L.lpr;
+  L.lc = lane & (L.lpr - 1);
+  L.rg = lane / L.lpr;
+  L.rpl = (ps + L.rpi - 1) / L.rpi;
+
+  if (begin < end) {
+    float q[kG][kE], acc[kG][kE], m[kG], l[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.0f;
+      const TQ* qr = Q + (static_cast<int64_t>(b) * p.H + kv * p.G + g0 + g)
+                             * hd;
+#pragma unroll
+      for (int j = 0; j < C::per_lane; ++j) {
+        const int c = L.lc + L.lpr * j;
+#pragma unroll
+        for (int e = 0; e < kN; ++e) {
+          q[g][j * kN + e] =
+              (g < gt && c < L.nc) ? to_f(qr[c * kN + e]) : 0.0f;
+          acc[g][j * kN + e] = 0.0f;
+        }
+      }
+    }
+    // pages first, first + kWarps, ... of the range are this warp's
+    const int first = begin + w;
+    const int n_mine = first < end ? (end - first + kWarps - 1) / kWarps : 0;
+    const int sc_off = slot_bytes(ps, hd, sizeof(TKV)) - 16;
+    const bool mask_all = p.window >= 0 && p.length > p.window;
+
+    int wr = 0;  // ring slot the next copy goes to
+    for (int k = 0; k < p.stages - 1; ++k) {
+      if (k < n_mine) {
+        stage_page<TKV, kScaled, kVec>(ring + wr * p.slot_bytes, p, L,
+                                       page_id(idr, first + k * kWarps, btr),
+                                       kv, sc_off);
+      }
+      cp_async_commit();
+      wr = wr + 1 == p.stages ? 0 : wr + 1;
+    }
+    int rd = 0;  // ring slot of page k
+    for (int k = 0; k < n_mine; ++k) {
+      // every lane is done with the slot the next copy overwrites (read
+      // for page k - 1)
+      __syncwarp();
+      const int kn = k + p.stages - 1;
+      if (kn < n_mine) {
+        stage_page<TKV, kScaled, kVec>(ring + wr * p.slot_bytes, p, L,
+                                       page_id(idr, first + kn * kWarps, btr),
+                                       kv, sc_off);
+      }
+      cp_async_commit();
+      wr = wr + 1 == p.stages ? 0 : wr + 1;
+      cp_async_wait(p.stages - 1);
+      __syncwarp();
+      if (k == 0) GQA_MARK(1);
+      const unsigned char* slot = ring + rd * p.slot_bytes;
+      rd = rd + 1 == p.stages ? 0 : rd + 1;
+      const TKV* sk = reinterpret_cast<const TKV*>(slot);
+      const TKV* sv = sk + ps * hd;
+      float kmul = 1.0f, vmul = 1.0f;
+      if (kScaled) {
+        const float* ss = reinterpret_cast<const float*>(slot + sc_off);
+        kmul = ss[0];
+        vmul = ss[1];
+      }
+      const int pg = first + k * kWarps;
+      const bool masked = mask_all || pg == n_live - 1;
+      for (int i0 = 0; i0 < L.rpl; i0 += kRB) {
+        // this step's rows; a row past the page reads the page's last row
+        // and weighs nothing (score -inf)
+        int row[kRB];
+        bool live[kRB];
+#pragma unroll
+        for (int u = 0; u < kRB; ++u) {
+          const int rr = L.rg + L.rpi * (i0 + u);
+          live[u] = rr < ps;
+          row[u] = min(rr, ps - 1);
+        }
+        float s[kRB][kG];
+#pragma unroll
+        for (int u = 0; u < kRB; ++u) {
+#pragma unroll
+          for (int g = 0; g < kG; ++g) s[u][g] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < C::per_lane; ++j) {
+            const int c = L.lc + L.lpr * j;
+            if (kVec || c < L.nc) {
+              float kx[kN];
+              C::load(sk + row[u] * hd + c * kN, kx);
+#pragma unroll
+              for (int e = 0; e < kN; ++e) {
+                if (kScaled) kx[e] *= kmul;
+#pragma unroll
+                for (int g = 0; g < kG; ++g) {
+                  s[u][g] = fmaf(q[g][j * kN + e], kx[e], s[u][g]);
+                }
+              }
+            }
+          }
+        }
+        for (int o = 1; o < L.lpr; o <<= 1) {
+#pragma unroll
+          for (int u = 0; u < kRB; ++u) {
+#pragma unroll
+            for (int g = 0; g < kG; ++g) {
+              s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], o);
+            }
+          }
+        }
+        float mx[kG];
+#pragma unroll
+        for (int g = 0; g < kG; ++g) mx[g] = kNegInf;
+#pragma unroll
+        for (int u = 0; u < kRB; ++u) {
+          const float mk =
+              masked ? entry_mask(pg * ps + row[u], pos, p.length, p.window)
+                     : 0.0f;
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            s[u][g] = live[u] ? fmaf(s[u][g], p.scale2, mk) : -INFINITY;
+            mx[g] = fmaxf(mx[g], s[u][g]);
+          }
+        }
+        // the step's max over the warp; rescale, then weigh the rows
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          for (int o = L.lpr; o < 32; o <<= 1) {
+            mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
+          }
+          const float m_new = fmaxf(m[g], mx[g]);
+          const float alpha = exp2f(m[g] - m_new);
+          m[g] = m_new;
+          l[g] *= alpha;
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[g][e] *= alpha;
+        }
+#pragma unroll
+        for (int u = 0; u < kRB; ++u) {
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            s[u][g] = exp2f(s[u][g] - m[g]);
+            l[g] += s[u][g];
+          }
+#pragma unroll
+          for (int j = 0; j < C::per_lane; ++j) {
+            const int c = L.lc + L.lpr * j;
+            if (kVec || c < L.nc) {
+              float vx[kN];
+              C::load(sv + row[u] * hd + c * kN, vx);
+#pragma unroll
+              for (int e = 0; e < kN; ++e) {
+                if (kScaled) vx[e] *= vmul;
+#pragma unroll
+                for (int g = 0; g < kG; ++g) {
+                  acc[g][j * kN + e] =
+                      fmaf(s[u][g], vx[e], acc[g][j * kN + e]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+    // fold the row groups (l and acc so far sum this lane's rows only),
+    // then this warp's partial to shared memory
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      for (int o = L.lpr; o < 32; o <<= 1) {
+        l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+        }
+      }
+    }
+    float* wp = wparts + w * pf;
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        wp[g] = m[g];
+        wp[kG + g] = l[g];
+      }
+    }
+    if (L.rg == 0) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+#pragma unroll
+        for (int j = 0; j < C::per_lane; ++j) {
+          const int c = L.lc + L.lpr * j;
+          if (c < L.nc) {
+#pragma unroll
+            for (int e = 0; e < kN; ++e) {
+              wp[2 * kG + g * hd + c * kN + e] = acc[g][j * kN + e];
+            }
+          }
+        }
+      }
+    }
+  }
+  GQA_MARK(2);
+  __syncthreads();
+  cluster_wait();  // every CTA of the cluster has started
+  if (begin < end) {
+    // merge the warps (a warp with no page holds m = -1e30, l = 0) into
+    // this range's partial, written into rank 0's slot `rank`
+    const uint32_t dst = map_rank(cparts + rank * pf, 0);
+    for (int t = threadIdx.x; t < kG * (hd + 1); t += kThreads) {
+      const int g = t < kG ? t : (t - kG) / hd;
+      float mw[kWarps], mg = kNegInf;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        mw[v] = wparts[v * pf + g];
+        mg = fmaxf(mg, mw[v]);
+      }
+      float sum = 0.0f;
+      if (t < kG) {
+#pragma unroll
+        for (int v = 0; v < kWarps; ++v) {
+          sum += exp2f(mw[v] - mg) * wparts[v * pf + kG + g];
+        }
+        st_cluster(dst + 4 * g, mg);
+        st_cluster(dst + 4 * (kG + g), sum);
+      } else {
+        const int i = 2 * kG + (t - kG);  // acc[g][d]
+#pragma unroll
+        for (int v = 0; v < kWarps; ++v) {
+          sum += exp2f(mw[v] - mg) * wparts[v * pf + i];
+        }
+        st_cluster(dst + 4 * i, sum);
+      }
+    }
+  }
+  cluster_arrive_release();
+  cluster_wait();
+  GQA_MARK(3);
+  if (rank == 0) {
+    // the ranks whose ranges hold pages, merged in rank order
+    unsigned filled = 0;
+    for (int r = 0; r < p.n_split; ++r) {
+      if (r * n_live / p.n_split < (r + 1) * n_live / p.n_split) {
+        filled |= 1u << r;
+      }
+    }
+    TQ* out = static_cast<TQ*>(p.out);
+    for (int t = threadIdx.x; t < gt * hd; t += kThreads) {
+      const int g = t / hd;
+      float mg = kNegInf;
+      for (unsigned f = filled; f; f &= f - 1) {
+        mg = fmaxf(mg, cparts[(__ffs(f) - 1) * pf + g]);
+      }
+      float a = 0.0f, lg = 0.0f;
+      for (unsigned f = filled; f; f &= f - 1) {
+        const float* cp = cparts + (__ffs(f) - 1) * pf;
+        const float sc = exp2f(cp[g] - mg);
+        lg += sc * cp[kG + g];
+        a += sc * cp[2 * kG + t];
+      }
+      const int64_t orow = static_cast<int64_t>(b) * p.H + kv * p.G + g0 + g;
+      store_f(out + orow * hd + (t - g * hd), a / fmaxf(lg, 1e-30f));
+    }
+  }
+}
+
+template <typename TQ, typename TKV, bool kScaled, bool kVec, int kG>
+cudaError_t launch_tile(const Params& p, int B, cudaStream_t stream) {
+  auto kernel = decode_kernel<TQ, TKV, kScaled, kVec, kG>;
+  const size_t smem = smem_bytes(p.ps, p.hd, sizeof(TKV), kG, p.n_split,
+                                 p.stages);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.n_split, p.KV * p.n_gt, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// n_split page ranges a request come from ops.gqa_splits; the rest of the
+// layout is chosen here: 16-byte chunks where a row is a power-of-two
+// count (at most 32) of them and both pools are 16-byte aligned, else one
+// element a lane; G query rows cut into equal tiles of at most kMaxTile
+// rows (1 for one-element rows); the most ring stages (3, 2, else 1)
+// within kRingBytes.  Returns a cudaError_t as int: cudaErrorInvalidValue
+// for arguments or a shared-memory size the kernel does not take.
 template <typename TQ, typename TKV, bool kScaled>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const void* k_scale, const void* v_scale, const void* bt,
            const void* pos, void* out, int B, int H, int KV, int hd, int ps,
-           int bt_cols, int length, int window, int smem, void* stream) {
-  auto kernel = decode_kernel<TQ, TKV, kScaled>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+           int bt_cols, int length, int window, int n_split, void* stream) {
+  constexpr int kVecN = Vec<TKV>::n;
+  constexpr int kMaxTile = sizeof(TKV) == 1 ? 3 : 4;
+  const bool bad = B < 1 || KV < 1 || H % KV || hd < 1 || hd > kMaxHd ||
+                   ps < 1 || length < 1 || n_split < 1 ||
+                   n_split > kMaxSplit;
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = hd / kVecN;
+  const bool vec = hd % kVecN == 0 && nc <= 32 && (nc & (nc - 1)) == 0 &&
+                   reinterpret_cast<uintptr_t>(pool_k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(pool_v) % 16 == 0;
+  const int G = H / KV;
+  const int n_tiles = (G + (vec ? kMaxTile : 1) - 1) / (vec ? kMaxTile : 1);
+  const int gt = (G + n_tiles - 1) / n_tiles;
+  const int slot = slot_bytes(ps, hd, sizeof(TKV));
+  int stages = 3;
+  while (stages > 1 && kWarps * stages * slot > kRingBytes) --stages;
+  if (smem_bytes(ps, hd, sizeof(TKV), gt, n_split, stages) > kSmemLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  // the reference's 1.0 / (hd ** 0.5), a double rounded once to fp32
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
-  const dim3 grid(KV, B);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
-      static_cast<const TKV*>(pool_v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(bt),
-      static_cast<const int*>(pos), static_cast<TQ*>(out), H, KV, hd, ps,
-      bt_cols, length, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  Params p;
+  p.q = q;
+  p.pool_k = pool_k;
+  p.pool_v = pool_v;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.bt = static_cast<const int*>(bt);
+  p.pos = static_cast<const int*>(pos);
+  p.out = out;
+  p.H = H;
+  p.KV = KV;
+  p.G = G;
+  p.hd = hd;
+  p.ps = ps;
+  p.bt_cols = bt_cols;
+  p.length = length;
+  p.window = window;
+  p.n_split = n_split;
+  p.n_gt = n_tiles;
+  p.stages = stages;
+  p.lpr = vec ? nc : 32;
+  p.slot_bytes = slot;
+  // the reference's 1.0 / (hd ** 0.5) times log2(e), rounded once to fp32
+  p.scale2 = static_cast<float>(1.4426950408889634 /
+                                sqrt(static_cast<double>(hd)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (!vec) {
+    err = launch_tile<TQ, TKV, kScaled, false, 1>(p, B, s);
+  } else if (gt == 1) {
+    err = launch_tile<TQ, TKV, kScaled, true, 1>(p, B, s);
+  } else if (gt == 2) {
+    err = launch_tile<TQ, TKV, kScaled, true, 2>(p, B, s);
+  } else if (gt == 3 || kMaxTile == 3) {
+    err = launch_tile<TQ, TKV, kScaled, true, 3>(p, B, s);
+  } else {
+    err = launch_tile<TQ, TKV, kScaled, true, (kMaxTile > 3 ? 4 : 3)>(p, B,
+                                                                      s);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace paged_gqa
+
+#ifdef PAGED_GQA_TRACE
+// Copy the first n_ctas CTAs' timelines (5 values each) to host memory.
+extern "C" int paged_gqa_trace_read(void* host, int n_ctas) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      host, paged_gqa::g_trace,
+      sizeof(unsigned long long) * 5 * static_cast<size_t>(n_ctas)));
+}
+#endif

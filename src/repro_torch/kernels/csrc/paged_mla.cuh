@@ -49,55 +49,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "paged_gqa.cuh"
+#include "paged_common.cuh"
 
 namespace paged_mla {
 
-using paged_gqa::store_f;
-using paged_gqa::to_f;
+using paged_common::store_f;
+using paged_common::to_f;
+using paged_common::Vec;
 
 constexpr int kHeads = 8;      // query heads per block (ops.MLA_HEADS_PER_BLOCK)
 constexpr int kThreads = 128;
 constexpr int kPad = 4;        // floats of padding per staged row
 constexpr int kBatch = 8;      // 16-byte loads a thread keeps in flight
 constexpr float kNegInf = -1e30f;
-
-// Elements of TKV in one 16-byte load, and their conversion to fp32.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ static void unpack(const uint4& u, float* o) {
-    o[0] = __uint_as_float(u.x);
-    o[1] = __uint_as_float(u.y);
-    o[2] = __uint_as_float(u.z);
-    o[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ static void unpack(const uint4& u, float* o) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[2 * i] = __uint_as_float(w[i] << 16);
-      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-template <> struct Vec<int8_t> {
-  static constexpr int n = 16;
-  __device__ static void unpack(const uint4& u, float* o) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        o[4 * i + k] = static_cast<float>(
-            static_cast<int8_t>((w[i] >> (8 * k)) & 0xffu));
-      }
-    }
-  }
-};
 
 // Stage one page's rows x cols values of src (row-major, contiguous) into
 // dst (row stride ld floats) as fp32 times mul.  vec: the page is 16-byte

@@ -34,13 +34,38 @@ from repro_torch.kernels.paged_attention import ref
 
 #: Shared memory one block may use (H100: 227 KB).
 _SMEM_LIMIT = 232448
+#: cudaErrorInvalidValue: what a kernel's C entry point returns for a shape
+#: it does not take.
+_CUDA_INVALID_VALUE = 1
+
+#: Warps of one paged GQA CTA, and the most CTAs (page ranges) a cluster
+#: cuts a request's chain into: the portable cluster size
+#: (``csrc/paged_gqa.cuh``, which chooses the rest of its layout itself).
+GQA_WARPS = 4
+GQA_MAX_SPLIT = 8
+#: Head dims the GQA kernels take: a lane holds at most hd / 32 elements
+#: of a row that is not whole 16-byte chunks.
+_GQA_MAX_HD = 256
 
 
-def _smem_bytes(G, hd, ps):
-    """Dynamic shared memory of one block: q rows, one K and one V page,
-    the page's scores, the accumulator and (m, l, alpha) per query row,
-    all fp32 (the layout of both sources)."""
-    return 4 * (2 * G * hd + 2 * ps * hd + G * ps + 3 * G)
+def gqa_splits(length, page_size):
+    """CTAs of a cluster, and so page ranges, that the GQA kernels cut each
+    request's chain into: a page for each of a CTA's ``GQA_WARPS`` warps
+    when the chain is full, up to ``GQA_MAX_SPLIT``.  It depends on the
+    static shape alone (never on the batch, the other requests or the
+    card), so a request's output is bitwise the same whatever batch it
+    shares."""
+    n_pages = -(-length // page_size)
+    return max(1, min(GQA_MAX_SPLIT, -(-n_pages // GQA_WARPS)))
+
+
+def gqa_page_range(pos, length, page_size, n_split, rank):
+    """[begin, end) of the live pages (``p * ps <= pos`` and ``p * ps <
+    length``) that CTA ``rank`` of a cluster reads: the formula
+    ``csrc/paged_gqa.cuh`` applies on the card.  Ranges are contiguous and
+    balanced; one that is not empty begins with a live page."""
+    n_live = 0 if pos < 0 else min(pos, length - 1) // page_size + 1
+    return rank * n_live // n_split, (rank + 1) * n_live // n_split
 
 
 def _check(what, q, pool_k, pool_v, bt, pos, length, window, pool_dtypes,
@@ -79,23 +104,38 @@ def _check(what, q, pool_k, pool_v, bt, pos, length, window, pool_dtypes,
         raise ValueError(f"{what}: scales must be ({P}, {KV})")
     if length < 1 or (window is not None and window < 1):
         raise ValueError(f"{what}: length {length}, window {window}")
-    if B > 65535 or _smem_bytes(H // KV, hd, ps) > _SMEM_LIMIT:
+    if hd > _GQA_MAX_HD:
+        raise ValueError(f"{what}: head_dim {hd} > {_GQA_MAX_HD}")
+    if B > 65535 or H > 65535:
         raise ValueError(f"{what}: shape too large for one launch")
 
 
-def _launch(fn, what, q, pool_k, pool_v, scales, bt, pos, length, window):
+def gqa_launch(lib, what, q, pool_k, pool_v, bt, pos, *, length, window,
+               scales=()):
+    """One launch of kernel source ``what`` ("paged_gqa" or
+    "paged_gqa_q8") from its loaded library ``lib``, after ``_check``;
+    returns out.  The wrapper passes n_split = :func:`gqa_splits`; the
+    kernel chooses the rest of its layout (query-row tiles, 16-byte
+    chunks, ring stages) from the shape and the pools' alignment, and
+    refuses a shape whose shared memory does not fit (cudaErrorInvalidValue,
+    raised here as ValueError)."""
     B, H, hd = q.shape
     _P, ps, KV, _ = pool_k.shape
     out = torch.empty_like(q)
     if B == 0:
         return out
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    fn = getattr(lib, f"{what}_{dt}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()]
     ptrs += [s.data_ptr() for s in scales]
     err = fn(*ptrs, bt.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H,
              KV, hd, ps, bt.shape[1], length,
-             -1 if window is None else int(window),
-             _smem_bytes(H // KV, hd, ps), stream)
+             -1 if window is None else int(window), gqa_splits(length, ps),
+             stream)
+    if err == _CUDA_INVALID_VALUE:
+        raise ValueError(f"{what}: shape too large for one launch (q "
+                         f"{tuple(q.shape)}, pools {tuple(pool_k.shape)})")
     build.check(err, what)
     return out
 
@@ -110,11 +150,8 @@ def paged_gqa_kernel(q, pool_k, pool_v, block_tables, pos, *, length,
                                  length=length, window=window)
     _check("paged_gqa_kernel", q, pool_k, pool_v, block_tables, pos, length,
            window, (q.dtype,))
-    lib = build.load("paged_gqa")
-    fn = lib.paged_gqa_bf16 if q.dtype == torch.bfloat16 \
-        else lib.paged_gqa_f32
-    out = _launch(fn, "paged_gqa", q, pool_k, pool_v, (), block_tables, pos,
-                  length, window)
+    out = gqa_launch(build.load("paged_gqa"), "paged_gqa", q, pool_k,
+                     pool_v, block_tables, pos, length=length, window=window)
     paged_gqa_kernel.launches += 1
     return out
 
@@ -132,11 +169,9 @@ def paged_gqa_q8_kernel(q, pool_k, pool_v, k_scale, v_scale, block_tables,
                                  k_scale=k_scale, v_scale=v_scale)
     _check("paged_gqa_q8_kernel", q, pool_k, pool_v, block_tables, pos,
            length, window, (torch.int8,), (k_scale, v_scale))
-    lib = build.load("paged_gqa_q8")
-    fn = lib.paged_gqa_q8_bf16 if q.dtype == torch.bfloat16 \
-        else lib.paged_gqa_q8_f32
-    out = _launch(fn, "paged_gqa_q8", q, pool_k, pool_v,
-                  (k_scale, v_scale), block_tables, pos, length, window)
+    out = gqa_launch(build.load("paged_gqa_q8"), "paged_gqa_q8", q, pool_k,
+                     pool_v, block_tables, pos, length=length, window=window,
+                     scales=(k_scale, v_scale))
     paged_gqa_q8_kernel.launches += 1
     return out
 

@@ -1,7 +1,7 @@
-"""Where a training step's time goes on the card.
+"""Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn]
+        [--sections lm,qat,mamba,attn,paged]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -9,13 +9,23 @@ Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 full-width ``falcon-mamba-7b`` step (8 of its 64 layers,
 ``ssm_impl="fused"``, batch 4, seq 2048; ``mamba``) and a full-width
 ``smollm-360m`` step through the flash kernels (batch 4, seq 2048;
-``attn``):
+``attn``), and a 4-slot paged decode step of full-width ``smollm-360m``
+(section ``paged``):
 
   * the host-clock split of the step into forward + backward and
     ``AdamW.step``, each ending in ``torch.cuda.synchronize()``;
   * one ``torch.profiler`` window: device time summed over the CUDA
     kernels and copies alone, their count per step, the card's idle share
     of the profiled wall time, and the kernels with the most device time.
+
+The ``paged`` section has no training split: for one ``decode_step_paged``
+(4 slots at position 200, bf16 and then int8 pages) it prints the eager
+time, the CUDA-graph-replay time (bf16: the int8 page write cannot be
+captured) and one profiler window, then the paged
+GQA kernels alone (graph replay) at chip_smoke's kernel-row shapes.  It
+calls only the package's public entry points, so a copy of this file in
+an older checkout's ``repro_torch/launch/`` times that checkout's
+kernels in the same way.
 
 With ``--sass``, also the order of global loads (LDG), stores (STG) and
 FMAs in each scan kernel's SASS (``cuobjdump`` from the CUDA toolkit):
@@ -89,11 +99,12 @@ def sass_order(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--sections", default="lm,qat,mamba,attn",
-                    help="comma-separated subset of lm, qat, mamba, attn")
+    ap.add_argument("--sections", default="lm,qat,mamba,attn,paged",
+                    help="comma-separated subset of lm, qat, mamba, attn, "
+                    "paged")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
-    if not sections <= {"lm", "qat", "mamba", "attn"}:
+    if not sections <= {"lm", "qat", "mamba", "attn", "paged"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
@@ -115,6 +126,158 @@ def main(argv=None):
             get_config("smollm-360m"), attention_impl="flash"), 4, 2048),
             "smollm-360m flash train step (batch 4, seq 2048)",
             "smollm-360m flash")
+    if "paged" in sections:
+        _paged(dev, get_config("smollm-360m"))
+
+
+def _graph_ms(fn, iters):
+    """Mean device time per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed (no host work between the kernels)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# (label, B, H, KV, hd, length, window, pos): chip_smoke's PAGED_ROWS
+_PAGED_SHAPES = [
+    ("path", 4, 15, 5, 64, 256, None, [255] * 4),
+    ("long", 64, 15, 5, 64, 2048, None, [2047] * 64),
+    ("gemma", 4, 8, 4, 256, 1024, 1024, [4095, 3000, 1500, 1023]),
+]
+
+
+def _paged(dev, config):
+    """smollm-360m's paged decode step (4 slots, pos 200; bf16 then int8
+    pages): eager and graph-replay ms, one profiler window (device busy
+    time by kernel, idle share); then the paged GQA kernels alone."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+    from repro_torch.models import build_model
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"paged on {card}", flush=True)
+    n_pages, ps = 64, 16
+    for kv_dtype in ("bf16", "int8"):
+        model = build_model(dataclasses.replace(config, kv_dtype=kv_dtype),
+                            device=dev, generator=torch.Generator(
+                                device=dev).manual_seed(0))
+        state = model.init_paged_cache(n_pages, ps)
+        tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+        pos = torch.full((4,), 200, dtype=torch.int32, device=dev)
+        bt = torch.arange(n_pages, dtype=torch.int32,
+                          device=dev).reshape(4, -1)
+        act = torch.ones(4, dtype=torch.bool, device=dev)
+        rows = torch.arange(4, device=dev)
+
+        def step():
+            model.decode_step_paged(tok, state, pos, bt, act, 256,
+                                    rows=rows)
+        with torch.inference_mode():
+            for _ in range(3):
+                step()
+            eager = [_sync_ms(step) for _ in range(10)]
+            # the int8 page write builds a host scalar per call, which a
+            # CUDA graph cannot capture: its device time is the profiler's
+            graph = (f"graph replay {_graph_ms(step, 10):.4f} ms"
+                     if kv_dtype == "bf16" else "no graph replay")
+            print(f"paged decode_step_paged {kv_dtype} pages (4 slots, pos "
+                  f"200): eager ms {[round(t, 2) for t in eager]}, {graph}",
+                  flush=True)
+            profile_window(step, 5, f"paged {kv_dtype} decode step",
+                           top=10)
+        del model, state
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, B, H, KV, hd, length, window, pos in _PAGED_SHAPES:
+        n = -(-length // ps)
+        num = 2 * B * n
+        bt = torch.randperm(num, device=dev, generator=g)[:B * n].reshape(
+            B, n).to(torch.int32)
+        q = torch.randn(B, H, hd, device=dev, generator=g).to(torch.bfloat16)
+        pk = torch.randn(num, ps, KV, hd, device=dev, generator=g)
+        pv = torch.randn(num, ps, KV, hd, device=dev, generator=g)
+        pos_t = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+        ks, vs = kvq.page_abs_scale(pk), kvq.page_abs_scale(pv)
+        ck, cv = kvq.quantize(pk, ks), kvq.quantize(pv, vs)
+        pk, pv = pk.to(torch.bfloat16), pv.to(torch.bfloat16)
+        kw = dict(length=length, window=window)
+        bf = _graph_ms(lambda: pa_ops.paged_gqa_kernel(
+            q, pk, pv, bt, pos_t, **kw), 200)
+        i8 = _graph_ms(lambda: pa_ops.paged_gqa_q8_kernel(
+            q, ck, cv, ks, vs, bt, pos_t, **kw), 200)
+        print(f"paged kernels {label} (B {B}, H {H}, KV {KV}, hd {hd}, "
+              f"page {ps}, length {length}, window {window}): paged_gqa "
+              f"{bf:.5f} ms, paged_gqa_q8 {i8:.5f} ms (graph replay)",
+              flush=True)
+        if label == "long":
+            _paged_timeline(pa_ops, "paged_gqa", q, pk, pv, (), bt, pos_t,
+                            kw)
+            _paged_timeline(pa_ops, "paged_gqa_q8", q, ck, cv, (ks, vs), bt,
+                            pos_t, kw)
+        del q, pk, pv, ck, cv, ks, vs, bt
+        torch.cuda.empty_cache()
+
+
+def _paged_timeline(pa_ops, name, q, pk, pv, scales, bt, pos, kw):
+    """One call of kernel source ``name`` built with ``PAGED_GQA_TRACE``
+    (``csrc/paged_gqa.cuh``): each CTA's start, warp 0's first page in,
+    warp 0's pages done and the merge done, from the SM's globaltimer."""
+    import ctypes
+
+    import numpy as np
+
+    out = build.BUILD_DIR / f"lib{name}-trace.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-DPAGED_GQA_TRACE",
+                    "-o", str(out), str(build.CSRC / f"{name}.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.paged_gqa_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for _ in range(3):      # the last call's timeline is read
+        pa_ops.gqa_launch(lib, name, q, pk, pv, bt, pos, scales=scales, **kw)
+    torch.cuda.synchronize()
+    # the kernel chooses its query-row tiles: read as many CTAs as one tile
+    # a query head could give, and keep those that ran (the trace buffer
+    # starts zeroed)
+    B, H, _hd = q.shape
+    n_split = pa_ops.gqa_splits(kw["length"], pk.shape[1])
+    tr = np.zeros((n_split * H * B, 5), dtype=np.uint64)
+    build.check(lib.paged_gqa_trace_read(tr.ctypes.data, len(tr)), name)
+    tr = tr[tr[:, 0] > 0]
+    n = len(tr)
+    t = (tr[:, :4] - tr[:, 0].min()).astype(np.float64) / 1e3   # us
+    life = t[:, 3] - t[:, 0]
+    span = t[:, 3].max()
+    live = -(-int(pos.max()) // pk.shape[1])
+    print(f"{name} long CTA timeline ({n} CTAs, {n_split} a cluster, about "
+          f"{live / n_split / pa_ops.GQA_WARPS:.0f} pages a warp; "
+          f"globaltimer ticks 0.26 us here): span {span:.2f} us, life "
+          f"median {np.median(life):.2f} us = start to first page "
+          f"{np.median(t[:, 1] - t[:, 0]):.2f} + pages "
+          f"{np.median(t[:, 2] - t[:, 1]):.2f} + merge "
+          f"{np.median(t[:, 3] - t[:, 2]):.2f}; resident CTAs on average "
+          f"{life.sum() / span:.1f} over {len(np.unique(tr[:, 4]))} SMs",
+          flush=True)
 
 
 def _train_step(dev, config, batch_size, seq):

@@ -367,6 +367,101 @@ def test_paged_gqa_wrappers_raise_instead_of_falling_back(cuda):
                                    length=16)
 
 
+# (B, H, KV, hd, ps, length, window, pos) at the model shapes: smollm-360m
+# at the serving path's shape (positions at and around page edges), a
+# 2048-position chain (every cluster rank gets pages; then pos 0 and 17,
+# where most ranks are empty), gemma3-4b's heads of 256 on a wrapped ring
+# and on one not yet wrapped, and G 8 x hd 128 (two query-row tiles)
+PAGED_MODEL_CASES = [
+    (4, 15, 5, 64, 16, 256, None, [0, 15, 16, 17]),
+    (4, 15, 5, 64, 16, 256, None, [200, 255, 17, 0]),
+    (2, 15, 5, 64, 16, 2048, None, [2047, 1000]),
+    (2, 15, 5, 64, 16, 2048, None, [0, 17]),
+    (4, 8, 4, 256, 16, 1024, 1024, [4095, 3000, 1500, 1023]),
+    (4, 8, 4, 256, 16, 1024, 1024, [1022, 500, 17, 0]),
+    (4, 16, 2, 128, 16, 256, None, [255, 100, 31, 0]),
+]
+
+
+def _paged_model_case(dev, case, dtype, q8, seed=0):
+    """q and pools (dtype, or int8 codes with their scales) of disjoint
+    random chains in a pool twice their size."""
+    from repro_torch.kernels.paged_attention import quant as kvq
+
+    B, H, KV, hd, ps, length, window, pos = case
+    rng = np.random.default_rng(seed)
+    n = -(-length // ps)
+    num_pages = 2 * B * n
+    bt = rng.permutation(num_pages)[:B * n].reshape(B, n)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    pk = t(rng.standard_normal((num_pages, ps, KV, hd)))
+    pv = t(rng.standard_normal((num_pages, ps, KV, hd)))
+    q = t(rng.standard_normal((B, H, hd))).to(dtype)
+    sc = ()
+    if q8:
+        sc = (kvq.page_abs_scale(pk), kvq.page_abs_scale(pv))
+        pk, pv = kvq.quantize(pk, sc[0]), kvq.quantize(pv, sc[1])
+    else:
+        pk, pv = pk.to(dtype), pv.to(dtype)
+    kw = dict(length=length, window=window)
+    return q, pk, pv, sc, t(bt, torch.int32), t(pos, torch.int32), kw
+
+
+def _paged_kernel(q8):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    return pa_ops.paged_gqa_q8_kernel if q8 else pa_ops.paged_gqa_kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("case", PAGED_MODEL_CASES, ids=str)
+def test_paged_gqa_kernels_at_model_shapes(cuda, case, q8, dtype):
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    q, pk, pv, sc, bt, pos, kw = _paged_model_case(cuda, case, dtype, q8)
+    kern = _paged_kernel(q8)
+    n0 = kern.launches
+    got = kern(q, pk, pv, *sc, bt, pos, **kw)
+    assert kern.launches == n0 + 1
+    sk = dict(zip(("k_scale", "v_scale"), sc))
+    want = pa_ref.paged_gqa_ref(q, pk, pv, bt, pos, **kw, **sk)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-6
+    else:
+        assert _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+def test_paged_gqa_kernels_batch_independent_and_deterministic(cuda, q8):
+    """A request decoded alone (B 1) equals, bit for bit, its row inside
+    B 4 with other neighbours (the page ranges depend on the shape alone),
+    and two calls on the same inputs are bitwise equal (fixed merge order,
+    no atomics)."""
+    case = (4, 15, 5, 64, 16, 2048, None, [1900, 5, 700, 2047])
+    q, pk, pv, sc, bt, pos, kw = _paged_model_case(cuda, case,
+                                                   torch.bfloat16, q8)
+    kern = _paged_kernel(q8)
+    full = kern(q, pk, pv, *sc, bt, pos, **kw)
+    again = kern(q, pk, pv, *sc, bt, pos, **kw)
+    # row 2 with other neighbours: rows 0 and 3 swapped, row 1 replaced
+    perm = torch.tensor([3, 0, 2, 1], device=cuda)
+    q2, bt2, pos2 = q[perm].clone(), bt[perm].clone(), pos[perm].clone()
+    q2[3] = q2[3].flip(-1)
+    pos2[3] = 33
+    mixed = kern(q2, pk, pv, *sc, bt2, pos2, **kw)
+    alone = kern(q[2:3].clone(), pk, pv, *sc, bt[2:3].clone(),
+                 pos[2:3].clone(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    assert torch.equal(alone[0], full[2])
+    assert torch.equal(mixed[2], full[2])
+    assert torch.equal(mixed[0], full[3]) and torch.equal(mixed[1], full[0])
+
+
 # -- flash attention: forward and backward kernels against their plain
 #    versions ---------------------------------------------------------------
 
