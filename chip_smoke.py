@@ -66,8 +66,9 @@ Phases, each fatal on failure:
                prefix with and without the prefix cache (streams equal).
  11. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
-               dimensions, against its plain version, and Eq. 6's
-               all-ones and all-zeros properties.
+               dimensions (the 4096 x 1024 x 1024 one on the tc route),
+               against its plain version, and Eq. 6's all-ones and
+               all-zeros properties.
 
 Kernel launch counts are zeroed just before each main-path phase and read
 just after it.  The second-to-last stdout line is the card's name and
@@ -198,6 +199,13 @@ def phase_kernels(torch, dev):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=None)
 
+    # the launch floor: one one-element PyTorch op in the same harness, the
+    # least a kernel launch costs in graph replay
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(torch, lambda: one.add_(1.0), 500)
+    print(f"launch floor (one one-element add_, graph replay): "
+          f"{floor_ms:.5f} ms", flush=True)
+
     # -- minimalist_step: paper width (8 slots, 64 -> 64), and wide ------
     for B, K, N in [(8, 64, 64), (64, 1024, 1024)]:
         x = (torch.rand(B, K, device=dev, generator=g) > 0.5).float()
@@ -248,14 +256,18 @@ def phase_kernels(torch, dev):
               f"max_abs_err {err:.3g} (tol 2e-05; {int(near.sum())} gate "
               f"values within 1e-3 of a code step, {int((~same).sum())} z "
               "codes differ there) "
-              f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, library (one fp32 matmul) "
-              f"{library_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({by})", flush=True)
+              f"kernel {ms:.5f} ms (eager call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, library (one "
+              f"fp32 matmul) {library_ms:.5f} ms, launch floor "
+              f"{floor_ms:.5f} ms, bound {b_ms:.5f} ms ({by})", flush=True)
         if (B, K, N) == (8, 64, 64):
             rows["minimalist_step"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, library_ms=library_ms)
+                bound_by=by, library_ms=library_ms,
+                launch_floor_ms=floor_ms)
+        else:
+            rows["minimalist_step"].update(
+                wide_max_abs_err=err, wide_ms=ms, wide_plain_ms=plain_ms, wide_bound_ms=b_ms,
+                wide_library_ms=library_ms)
     # -- linear_scan_bwd: LM training (batch 8, seq 256, d 960) ----------
     for shape, dtype, tol in [((8, 256, 960), torch.bfloat16, 2e-2),
                               ((8, 256, 960), torch.float32, 1e-5),
@@ -818,24 +830,40 @@ def _imc_close(torch, got, want):
 
 def _kernel_rows_imc(torch, dev, g):
     """imc_mvm at the imc phase's shapes against the plain version (the
-    reference's 1e-5)."""
+    reference's 1e-5), and bitwise against the simt entry point."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.imc_mvm import ops as imc_ops
     from repro_torch.kernels.imc_mvm import ref as imc_ref
 
     rows = {}
     for M, K, N in IMC_SHAPES:
         x, codes, scale = _imc_inputs(torch, dev, g, M, K, N)
+        route = imc_ops.route(M, K, N, x.data_ptr(), codes.data_ptr())
         got = imc_ops.imc_mvm_kernel(x, codes, scale)
+        simt = torch.empty_like(got)
+        lib = build.load("imc_mvm")
+
+        def simt_call():
+            build.check(lib.imc_mvm_f32(
+                x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                simt.data_ptr(), M, K, N,
+                torch.cuda.current_stream().cuda_stream), "imc_mvm")
+        simt_call()
         want = imc_ref.imc_mvm_ref(x, codes, scale)
         torch.cuda.synchronize()
         ok, err = _imc_close(torch, got, want)
-        tag = f"imc_mvm (M {M}, K {K}, N {N}) fp32"
+        tag = f"imc_mvm (M {M}, K {K}, N {N}) fp32, {route} route"
         if not ok:
             fail(f"{tag}: max |kernel - plain| = {err} past 1e-5 + 1e-5 rel")
+        # binary x: the tc route's bf16 product is exact, so both routes
+        # agree bit for bit
+        if not torch.equal(got.view(torch.int32), simt.view(torch.int32)):
+            fail(f"{tag}: differs from the simt route")
 
         def kernel():
             imc_ops.imc_mvm_kernel(x, codes, scale)
         ms = device_ms(torch, kernel, 50)
+        simt_ms = device_ms(torch, simt_call, 50)
         call_ms = eager_ms(torch, kernel, 50)
         plain_ms = device_ms(torch, lambda: imc_ref.imc_mvm_ref(
             x, codes, scale), 20)
@@ -844,21 +872,28 @@ def _kernel_rows_imc(torch, dev, g):
         w = imc_ref.dequantize_codes(codes, scale)
         library_ms = device_ms(torch, lambda: torch.matmul(x, w) * (1.0 / K),
                                50)
+        # a reference point only (its output is bf16, not the function's
+        # fp32): the same product as one bf16 matmul
+        xb, wb = x.bfloat16(), w.bfloat16()
+        bf16_ms = device_ms(torch, lambda: torch.matmul(xb, wb), 50)
         # x and y in fp32, the int8 codes and the scales, each once; the
         # product is exact in bf16, so its operations count at that peak
         bytes_ = M * K * 4 + K * N + N * 4 + M * N * 4
         flops = 2 * M * K * N
         b_ms, by = bound(bytes_, flops, PEAK_BF16_TENSOR_FLOPS)
-        print(f"kernel {tag}: max_abs_err {err:.3g} (tol 1e-5 + 1e-5 rel) "
-              f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain "
+        print(f"kernel {tag}: max_abs_err {err:.3g} (tol 1e-5 + 1e-5 rel; "
+              f"bitwise the simt route's) kernel {ms:.5f} ms (simt route "
+              f"{simt_ms:.5f} ms; eager call {call_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, library (one fp32 matmul with the "
-              f"dequantized weight) {library_ms:.4f} ms, bound {b_ms:.5f} ms "
-              f"({by}, bf16 tensor peak; {flops / 1e9:.2f} GFLOP, "
+              f"dequantized weight) {library_ms:.5f} ms (bf16 matmul, "
+              f"reference point only: {bf16_ms:.5f} ms), bound {b_ms:.5f} "
+              f"ms ({by}, bf16 tensor peak; {flops / 1e9:.2f} GFLOP, "
               f"{bytes_ / 1e6:.2f} MB)", flush=True)
         if (M, K, N) == IMC_SHAPES[0]:
             rows["imc_mvm"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, library_ms=library_ms)
+                bound_by=by, library_ms=library_ms, imc_route=route,
+                simt_ms=simt_ms, bf16_matmul_ms=bf16_ms)
     return rows
 
 
@@ -1002,8 +1037,10 @@ def phase_stream(torch, dev):
     minimalist_step_kernel.launches = 0
     fused, dt = serve(True)
     launches = minimalist_step_kernel.launches
-    if launches == 0:
-        fail("stream: the fused path never launched minimalist_step")
+    layers = len(MINIMALIST_SMNIST_DIMS) - 1
+    if launches != 784 * layers:
+        fail(f"stream: minimalist_step launches {launches} != 784 frames x "
+             f"{layers} layers")
     unfused, udt = serve(False)
     worst = 0.0
     for r, u in zip(fused, unfused):
@@ -1978,6 +2015,7 @@ def phase_imc(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(7)
     imc_ops.imc_mvm_kernel.launches = 0
+    imc_ops.imc_mvm_kernel.launches_tc = 0
     worst = 0.0
     for M, K, N in IMC_SHAPES:
         x, codes, scale = _imc_inputs(torch, dev, g, M, K, N)
@@ -2005,10 +2043,13 @@ def phase_imc(torch, dev):
               f"the column mean {mean_err:.3g} (tol 1e-6), y(0) = 0 "
               "exactly", flush=True)
     launches = imc_ops.imc_mvm_kernel.launches
+    tc = imc_ops.imc_mvm_kernel.launches_tc
     if launches != 3 * len(IMC_SHAPES):
         fail(f"imc: imc_mvm launches {launches} != {3 * len(IMC_SHAPES)}")
+    if tc != 3:     # the (4096, 1024, 1024) shape's three calls
+        fail(f"imc: {tc} imc_mvm launches on the tc route, want 3")
     print(f"imc: {len(IMC_SHAPES)} shapes, max |kernel - plain| {worst:.3g}; "
-          f"imc_mvm launches {launches}", flush=True)
+          f"imc_mvm launches {launches} ({tc} on the tc route)", flush=True)
     return launches
 
 
@@ -2098,6 +2139,12 @@ def main():
     design.update({name: "cluster page ranges merged in DSMEM, warps on "
                    "pages, 16-byte cp.async ring, one launch"
                    for name in ("paged_gqa", "paged_gqa_q8")})
+    design["imc_mvm"] = ("tc route: bf16 wgmma m64n256k16 fed by a 4-stage "
+                         "TMA ring, codes widened in shared memory, TMA "
+                         "store; simt route for unaligned shapes")
+    design["minimalist_step"] = ("all slots of a column slab in one CTA, "
+                                 "16-byte staging, split-K over 8 lanes, "
+                                 "codes and biases loaded first")
     kernels = []
     for name in build.KERNELS:
         source, replaces = meta[name]

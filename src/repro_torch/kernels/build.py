@@ -86,6 +86,7 @@ SIGNATURES = {
     },
     "imc_mvm": {
         "imc_mvm_f32": [_P] * 4 + [_I] * 3 + [_P],
+        "imc_mvm_f32_tc": [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 

@@ -3,11 +3,17 @@
 
 ``imc_mvm_kernel`` runs ``csrc/imc_mvm.cu`` (which replaces the TPU
 kernel ``imc_mvm_pallas``) on CUDA tensors and its plain version,
-:func:`ref.imc_mvm_ref`, when every input lies on the CPU; it counts its
-launches in ``imc_mvm_kernel.launches``.  The reference's wrapper pads
+:func:`ref.imc_mvm_ref`, when every input lies on the CPU.  The source
+has two routes, picked by :func:`route` from the shape and the operands'
+alignment, never from their values: ``tc`` (a bf16 wgmma tile fed by a
+TMA ring) where TMA can address every operand, else ``simt`` (fp32 on
+the CUDA cores).  A launch that fails raises; it is never retried on the
+other route.  ``imc_mvm_kernel.launches`` counts launches and
+``.launches_tc`` those on the tc route.  The reference's wrapper pads
 every axis to whole tiles and rescales by Kp/K because its TPU kernel
-needs whole tiles; the CUDA kernel masks its ragged edges and divides by
-the true K, so the port's wrapper neither pads nor rescales.
+needs whole tiles; the CUDA kernels mask or zero-fill their ragged edges
+and divide by the true K, so the port's wrapper neither pads nor
+rescales.
 
 Inference only (the hardware path): the weights are frozen 2 b codes, so
 no autograd here.
@@ -24,9 +30,24 @@ from repro_torch.kernels.imc_mvm import ref
 BACKENDS = ("kernel", "plain")
 
 
+def route(M, K, N, *data_ptrs):
+    """The kernel's route for x (M, K) fp32, codes (K, N) int8 and y
+    (M, N) fp32 at ``data_ptrs``: ``"tc"`` where TMA can address every
+    operand (16-byte row strides, so K % 4 == 0 and N % 16 == 0, and
+    16-byte-aligned data pointers), else ``"simt"``."""
+    aligned = all(p % 16 == 0 for p in data_ptrs)
+    return "tc" if M > 0 and K > 0 and K % 4 == 0 and N % 16 == 0 \
+        and aligned else "simt"
+
+
 def imc_mvm_kernel(x, codes, scale):
     """x: (M, K) fp32 in {0, 1}; codes: (K, N) int8 in [0, 4); scale:
-    (N,) fp32 -> (M, N) fp32 = (x @ (codes - 1.5)) · scale / K."""
+    (N,) fp32 -> (M, N) fp32 = (x @ (codes - 1.5)) · scale / K.
+
+    The route is :func:`route`'s.  The tc route multiplies in bf16: binary
+    x and the 2 b levels are exact there, and it equals the simt route bit
+    for bit; x outside {0, 1} (outside the op's domain) is rounded to bf16
+    first, and a code's low two bits select its level."""
     if on_cpu(x, codes, scale):
         return ref.imc_mvm_ref(x, codes, scale)
     what = "imc_mvm_kernel"
@@ -51,16 +72,21 @@ def imc_mvm_kernel(x, codes, scale):
         return out
     if K == 0:
         return out.zero_()
+    tc = route(M, K, N, x.data_ptr(), codes.data_ptr(),
+               out.data_ptr()) == "tc"
     lib = build.load("imc_mvm")
-    err = lib.imc_mvm_f32(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-                          out.data_ptr(), M, K, N,
-                          torch.cuda.current_stream(x.device).cuda_stream)
+    fn = lib.imc_mvm_f32_tc if tc else lib.imc_mvm_f32
+    err = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+             out.data_ptr(), M, K, N,
+             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "imc_mvm")
     imc_mvm_kernel.launches += 1
+    imc_mvm_kernel.launches_tc += tc
     return out
 
 
 imc_mvm_kernel.launches = 0
+imc_mvm_kernel.launches_tc = 0
 
 
 def imc_mvm(x, codes, scale, *, backend="kernel"):

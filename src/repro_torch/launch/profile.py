@@ -1,7 +1,7 @@
 """Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn,paged]
+        [--sections lm,qat,mamba,attn,paged,imc]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -17,6 +17,14 @@ full-width ``falcon-mamba-7b`` step (8 of its 64 layers,
   * one ``torch.profiler`` window: device time summed over the CUDA
     kernels and copies alone, their count per step, the card's idle share
     of the profiled wall time, and the kernels with the most device time.
+
+The ``imc`` section times kernels alone (graph replay, card name and
+power limit first): ``imc_mvm`` at chip_smoke's kernel-row shapes on the
+route ``ops.route`` picks and on the simt entry point, beside one fp32
+and one bf16 ``torch.matmul`` (the bf16 one as a reference point only:
+its output is bf16), ``minimalist_step`` at (8, 64 -> 64) and
+(64, 1024 -> 1024) and the stream path's five-layer chain (paper dims,
+8 slots), and the launch floor: one one-element PyTorch op.
 
 The ``paged`` section has no training split: for one ``decode_step_paged``
 (4 slots at position 200, bf16 and then int8 pages) it prints the eager
@@ -99,12 +107,12 @@ def sass_order(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--sections", default="lm,qat,mamba,attn,paged",
+    ap.add_argument("--sections", default="lm,qat,mamba,attn,paged,imc",
                     help="comma-separated subset of lm, qat, mamba, attn, "
-                    "paged")
+                    "paged, imc")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
-    if not sections <= {"lm", "qat", "mamba", "attn", "paged"}:
+    if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
@@ -128,6 +136,8 @@ def main(argv=None):
             "smollm-360m flash")
     if "paged" in sections:
         _paged(dev, get_config("smollm-360m"))
+    if "imc" in sections:
+        _imc(dev)
 
 
 def _graph_ms(fn, iters):
@@ -170,10 +180,7 @@ def _paged(dev, config):
     from repro_torch.kernels.paged_attention import quant as kvq
     from repro_torch.models import build_model
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(f"paged on {card}", flush=True)
+    print(f"paged on {_card()}", flush=True)
     n_pages, ps = 64, 16
     for kv_dtype in ("bf16", "int8"):
         model = build_model(dataclasses.replace(config, kv_dtype=kv_dtype),
@@ -278,6 +285,83 @@ def _paged_timeline(pa_ops, name, q, pk, pv, scales, bt, pos, kw):
           f"{np.median(t[:, 3] - t[:, 2]):.2f}; resident CTAs on average "
           f"{life.sum() / span:.1f} over {len(np.unique(tr[:, 4]))} SMs",
           flush=True)
+
+
+def _card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def _imc(dev):
+    """imc_mvm (both routes) and minimalist_step alone in graph replay,
+    beside their library calls and the launch floor."""
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+    from repro_torch.kernels.minimalist_block import ops as mb_ops
+
+    print(f"imc on {_card()}", flush=True)
+    one = torch.zeros(1, device=dev)
+    print(f"launch floor (one one-element add_, graph replay) "
+          f"{_graph_ms(lambda: one.add_(1.0), 500):.5f} ms", flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for M, K, N in [(4096, 1024, 1024), (17, 70, 50), (5, 300, 129)]:
+        x = (torch.rand(M, K, device=dev, generator=g) > 0.5).float()
+        codes = torch.randint(0, 4, (K, N), device=dev, generator=g,
+                              dtype=torch.int8)
+        scale = torch.rand(N, device=dev, generator=g) * 0.3 + 0.01
+        y = torch.empty(M, N, device=dev)
+        lib = build.load("imc_mvm")
+
+        def simt():
+            build.check(lib.imc_mvm_f32(
+                x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                y.data_ptr(), M, K, N,
+                torch.cuda.current_stream().cuda_stream), "imc_mvm")
+        ms = _graph_ms(lambda: imc_ops.imc_mvm_kernel(x, codes, scale), 50)
+        simt_ms = _graph_ms(simt, 50)
+        w = (codes.float() - 1.5) * scale
+        wb, xb = w.bfloat16(), x.bfloat16()
+        fp32 = _graph_ms(lambda: torch.matmul(x, w), 50)
+        bf16 = _graph_ms(lambda: torch.matmul(xb, wb), 50)
+        route = imc_ops.route(M, K, N, x.data_ptr(), codes.data_ptr())
+        print(f"imc_mvm (M {M}, K {K}, N {N}): route {route} {ms:.5f} ms, "
+              f"simt entry {simt_ms:.5f} ms; fp32 matmul {fp32:.5f} ms, "
+              f"bf16 matmul {bf16:.5f} ms (graph replay)", flush=True)
+    for B, K, N in [(8, 64, 64), (64, 1024, 1024)]:
+        x, layer, hp = _step_inputs(dev, g, B, K, N)
+        ms = _graph_ms(lambda: mb_ops.minimalist_step_kernel(x, *layer, hp),
+                       500)
+        ch, cz, scale = layer[:3]
+        w = torch.cat([(ch.float() - 1.5) * scale,
+                       (cz.float() - 1.5) * scale], dim=1)
+        lib_ms = _graph_ms(lambda: torch.matmul(x, w), 500)
+        print(f"minimalist_step ({B}, {K}->{N}): {ms:.5f} ms; one fp32 "
+              f"matmul {lib_ms:.5f} ms (graph replay)", flush=True)
+    # the stream path's chain of layers: dims 1-64-64-64-64-10, 8 slots
+    dims = (1, 64, 64, 64, 64, 10)
+    chain = [_step_inputs(dev, g, 8, K, N) for K, N in zip(dims[:-1],
+                                                           dims[1:])]
+
+    def frame():
+        out = chain[0][0]
+        for _x, layer, hp in chain:
+            out = mb_ops.minimalist_step_kernel(out, *layer, hp)[0]
+    print(f"minimalist_step chain (5 layers, 8 slots, one frame): "
+          f"{_graph_ms(frame, 100):.5f} ms (graph replay)", flush=True)
+
+
+def _step_inputs(dev, g, B, K, N):
+    """Binary x (B, K), one layer's (codes_h, codes_z, scale, bh, bz) and
+    h_prev (B, N), as chip_smoke's minimalist_step rows make them."""
+    x = (torch.rand(B, K, device=dev, generator=g) > 0.5).float()
+    ch = torch.randint(0, 4, (K, N), device=dev, generator=g,
+                       dtype=torch.int8)
+    cz = torch.randint(0, 4, (K, N), device=dev, generator=g,
+                       dtype=torch.int8)
+    bh = torch.randn(N, device=dev, generator=g) * 0.5
+    bz = torch.randn(N, device=dev, generator=g) * 0.5
+    hp = torch.randn(B, N, device=dev, generator=g)
+    return x, (ch, cz, 0.11 if K == 64 else 0.11 / 16, bh, bz), hp
 
 
 def _train_step(dev, config, batch_size, seq):

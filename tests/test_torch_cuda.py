@@ -1107,3 +1107,189 @@ def test_imc_mvm_entry_point_on_cuda(cuda):
         imc_ops.imc_mvm_kernel(x[0], codes.cpu(), torch.ones(20, device=cuda))
     with pytest.raises(ValueError, match="int8"):
         imc_ops.imc_mvm_kernel(x[0], codes.long(), torch.ones(20, device=cuda))
+
+
+def _imc_case(dev, M, K, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.rand(M, K, device=dev, generator=g) > 0.5).float()
+    codes = torch.randint(0, 4, (K, N), device=dev, generator=g,
+                          dtype=torch.int8)
+    scale = torch.rand(N, device=dev, generator=g) * 0.3 + 0.01
+    return x, codes, scale
+
+
+def _imc_simt(x, codes, scale):
+    """The simt entry point of csrc/imc_mvm.cu, called directly: it takes
+    any shape and alignment."""
+    from repro_torch.kernels import build
+
+    (M, K), N = x.shape, codes.shape[1]
+    out = torch.empty(M, N, device=x.device)
+    build.check(build.load("imc_mvm").imc_mvm_f32(
+        x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, torch.cuda.current_stream().cuda_stream), "imc_mvm")
+    return out
+
+
+#: aligned shapes (the tc route) with partial tiles in M, N and K
+IMC_TC_CASES = [(4096, 1024, 1024), (4100, 1024, 1040), (130, 64, 48),
+                (1, 4, 16), (257, 36, 272)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", IMC_TC_CASES, ids=str)
+def test_imc_mvm_tc_route_equals_simt_bitwise(cuda, case):
+    """The tc route (bf16 wgmma) equals the simt route (fp32 FMAs) bit for
+    bit on binary x, and both lie within the reference's 1e-5 of the plain
+    version; all-zero x gives +0 on both."""
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+    from repro_torch.kernels.imc_mvm import ref as imc_ref
+
+    M, K, N = case
+    x, codes, scale = _imc_case(cuda, M, K, N, M + K + N)
+    assert imc_ops.route(M, K, N, x.data_ptr(), codes.data_ptr()) == "tc"
+    kern = imc_ops.imc_mvm_kernel
+    n0, t0 = kern.launches, kern.launches_tc
+    tc = kern(x, codes, scale)
+    simt = _imc_simt(x, codes, scale)
+    assert (kern.launches, kern.launches_tc) == (n0 + 1, t0 + 1)
+    want = imc_ref.imc_mvm_ref(x, codes, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(tc.view(torch.int32), simt.view(torch.int32))
+    assert bool(((tc - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+    zero = [f(torch.zeros_like(x), codes, scale)
+            for f in (imc_ops.imc_mvm_kernel, _imc_simt)]
+    torch.cuda.synchronize()
+    assert torch.equal(zero[0].view(torch.int32), zero[1].view(torch.int32))
+    assert float(zero[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_imc_mvm_route_rule_and_counters_on_card(cuda):
+    """The wrapper takes ops.route's route: simt for a ragged shape or a
+    misaligned operand, tc otherwise; only tc launches count in
+    launches_tc."""
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+
+    x, codes, scale = _imc_case(cuda, 64, 32, 48, 5)
+    t0 = imc_ops.imc_mvm_kernel.launches_tc
+    imc_ops.imc_mvm_kernel(x, codes, scale)
+    assert imc_ops.imc_mvm_kernel.launches_tc == t0 + 1
+    # x starting 4 bytes into its storage: not 16-byte aligned
+    xs = torch.empty(64 * 32 + 1, device=cuda)[1:].view(64, 32)
+    xs.copy_(x)
+    assert imc_ops.route(64, 32, 48, xs.data_ptr(), codes.data_ptr()) \
+        == "simt"
+    got = imc_ops.imc_mvm_kernel(xs, codes, scale)
+    assert imc_ops.imc_mvm_kernel.launches_tc == t0 + 1
+    want = imc_ops.imc_mvm_kernel(x, codes, scale)   # tc: bitwise as simt
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # a ragged shape: simt, counted in launches only
+    xr, cr, sr = _imc_case(cuda, 17, 70, 50, 6)
+    n0 = imc_ops.imc_mvm_kernel.launches
+    imc_ops.imc_mvm_kernel(xr, cr, sr)
+    assert imc_ops.imc_mvm_kernel.launches == n0 + 1
+    assert imc_ops.imc_mvm_kernel.launches_tc == t0 + 2
+
+
+@pytest.mark.cuda
+def test_imc_mvm_tc_route_rounds_non_binary_x_to_bf16(cuda):
+    """x outside {0, 1} is outside the op's domain: the tc route rounds it
+    to bf16 before the exact product (within 1e-5 + 1e-5 rel of the plain
+    version on bf16-rounded x), the simt route keeps fp32."""
+    from repro_torch.kernels.imc_mvm import ops as imc_ops
+    from repro_torch.kernels.imc_mvm import ref as imc_ref
+
+    _x, codes, scale = _imc_case(cuda, 256, 128, 256, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.rand(256, 128, device=cuda, generator=g)
+    tc = imc_ops.imc_mvm_kernel(x, codes, scale)
+    simt = _imc_simt(x, codes, scale)
+    want_bf16 = imc_ref.imc_mvm_ref(x.bfloat16().float(), codes, scale)
+    want = imc_ref.imc_mvm_ref(x, codes, scale)
+    torch.cuda.synchronize()
+    assert bool(((tc - want_bf16).abs()
+                 <= 1e-5 + 1e-5 * want_bf16.abs()).all())
+    assert bool(((simt - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+    assert not torch.equal(tc, simt)
+
+
+def _step_case(dev, B, K, N, seed, binary=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(B, K, device=dev, generator=g)
+    if binary:
+        x = (x > 0.5).float()
+    ch = torch.randint(0, 4, (K, N), device=dev, generator=g,
+                       dtype=torch.int8)
+    cz = torch.randint(0, 4, (K, N), device=dev, generator=g,
+                       dtype=torch.int8)
+    bh = torch.randn(N, device=dev, generator=g) * 0.5
+    bz = torch.randn(N, device=dev, generator=g) * 0.5
+    hp = torch.randn(B, N, device=dev, generator=g)
+    return x, ch, cz, 0.11 / max(1, K // 64), bh, bz, hp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,N", [(8, 64, 64), (64, 1024, 1024),
+                                   (3, 17, 130), (9, 70, 10)])
+def test_minimalist_step_kernel_analog_x_matches_plain(cuda, B, K, N):
+    """Analog x (a first layer fed unbinarised frames): the split-K order
+    keeps h within 2e-5 of the plain version and the gate codes equal
+    away from a code step."""
+    x, ch, cz, scale, bh, bz, hp = _step_case(cuda, B, K, N, B + K,
+                                              binary=False)
+    y, h, zc = mb_ops.minimalist_step_kernel(x, ch, cz, scale, bh, bz, hp,
+                                             return_z_codes=True)
+    yp, hpl, zcp = mb_ref.minimalist_step_ref(x, ch, cz, scale, bh, bz, hp,
+                                              return_z_codes=True)
+    torch.cuda.synchronize()
+    v = quant.hard_sigmoid((x @ (cz.float() - 1.5)) * scale + bz) * 63
+    near = ((v - torch.round(v)).abs() <= 1e-3).cpu().numpy()
+    same = (zc == zcp).cpu().numpy()
+    assert (same | near).all()
+    np.testing.assert_allclose(h.cpu().numpy()[same],
+                               hpl.cpu().numpy()[same], atol=2e-5)
+    flips = ((y != yp) & (hpl.abs() > 1e-4)).cpu().numpy()
+    assert not flips.any()
+
+
+@pytest.mark.cuda
+def test_minimalist_step_five_layer_chain_in_a_cuda_graph(cuda):
+    """The stream path's chain of layers (paper dims 1-64-64-64-64-10, 8
+    slots) captured in one CUDA graph equals the same chain launched eagerly and
+    the plain chain, bit for bit on binary frames."""
+    dims = (1, 64, 64, 64, 64, 10)
+    layers, hs = [], []
+    for i, (K, N) in enumerate(zip(dims[:-1], dims[1:])):
+        x0, ch, cz, _s, bh, bz, hp = _step_case(cuda, 8, K, N, 20 + i)
+        layers.append((ch, cz, 0.11, bh, bz))
+        hs.append(hp)
+        if i == 0:
+            x = x0
+
+    def chain(step):
+        out, new = x, []
+        for i, layer in enumerate(layers):
+            y, h = step(out, *layer, hs[i])
+            new.append(h)
+            out = h if i == len(layers) - 1 else y
+        return [out] + new
+
+    eager = chain(mb_ops.minimalist_step_kernel)
+    plain = chain(mb_ref.minimalist_step_ref)
+    n0 = mb_ops.minimalist_step_kernel.launches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain(mb_ops.minimalist_step_kernel)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = chain(mb_ops.minimalist_step_kernel)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert mb_ops.minimalist_step_kernel.launches == n0 + 10
+    for a, b, c in zip(captured, eager, plain):
+        assert torch.equal(a, b)
+        assert torch.equal(a, c)

@@ -129,3 +129,84 @@ def test_wrapper_refuses_mixed_devices():
             ops.imc_mvm_kernel(*mixed)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.imc_mvm_kernel(*[a.to("meta") for a in args])
+
+
+# -- the CUDA source's two routes: the rule, and the tc route's numerics --
+
+@pytest.mark.parametrize("M,K,N,ptrs,want", [
+    (4096, 1024, 1024, (0, 0, 0), "tc"),
+    (130, 64, 48, (0, 0, 0), "tc"),
+    (128, 256, 384, (0, 0, 0), "tc"),
+    (1, 4, 16, (0, 0, 0), "tc"),
+    (1, 1, 1, (0, 0, 0), "simt"),
+    (3, 5, 7, (0, 0, 0), "simt"),
+    (17, 70, 50, (0, 0, 0), "simt"),
+    (5, 300, 129, (0, 0, 0), "simt"),
+    (64, 1000, 10, (0, 0, 0), "simt"),
+    (64, 32, 48, (4, 0, 0), "simt"),      # x 4 bytes into its storage
+    (64, 32, 48, (0, 8, 0), "simt"),
+    (64, 32, 48, (0, 0, 1040), "tc"),
+    (0, 32, 48, (0, 0, 0), "simt"),
+    (8, 0, 48, (0, 0, 0), "simt"),
+    (8, 32, 40, (0, 0, 0), "simt"),       # N % 16 == 8: codes rows unaligned
+])
+def test_route_rule(M, K, N, ptrs, want):
+    """tc where TMA can address every operand (K % 4, N % 16, 16-byte
+    data pointers), else simt: the cases of the card tests among them."""
+    assert ops.route(M, K, N, *(4096 + p for p in ptrs)) == want
+
+
+def _tc_emulated(x, codes, scale):
+    """The tc route's arithmetic in PyTorch: x and the levels in bf16,
+    their products summed in fp32 (exact for binary x, in any order),
+    then +0 and the simt route's epilogue acc * scale / K."""
+    K = x.shape[1]
+    levels = (codes.float() - ref.LEVEL_OFFSET).bfloat16().float()
+    acc = x.bfloat16().float() @ levels
+    return (acc + 0.0) * scale / K
+
+
+def _exact_sum(x, codes, scale):
+    """Eq. 6 with the level sum taken exactly (float64), then the same
+    fp32 epilogue."""
+    K = x.shape[1]
+    acc = (x.double() @ (codes.double() - ref.LEVEL_OFFSET)).float()
+    return acc * scale / K
+
+
+@pytest.mark.parametrize("per_col", [True, False])
+@pytest.mark.parametrize("M,K,N", [
+    (1, 1, 1), (3, 5, 7), (8, 128, 128), (17, 70, 50),
+    (128, 256, 384), (5, 300, 129),
+])
+def test_tc_numerics_are_the_exact_sum_on_binary_x(M, K, N, per_col):
+    """bf16 x bf16 products of binary x and the 2 b levels, summed in
+    fp32, are the exact level sum bit for bit; so the tc route equals the
+    simt route, and lies within the reference's 1e-5 of its xla and
+    Pallas (interpret) paths."""
+    x, codes, scale = _inputs(M, K, N, M * 1000 + N, per_col)
+    s = torch.from_numpy(np.broadcast_to(scale, (N,)).copy())
+    xt, ct = torch.from_numpy(x), torch.from_numpy(codes)
+    got = _tc_emulated(xt, ct, s)
+    want = _exact_sum(xt, ct, s)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for backend in ("xla", "pallas"):
+        jwant = jops.imc_mvm(jnp.asarray(x), jnp.asarray(codes),
+                             jnp.asarray(scale), backend=backend)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant), **TOL)
+
+
+def test_tc_numerics_round_non_binary_x_to_bf16():
+    """x outside {0, 1} is outside the op's domain; the tc route reads it
+    as bf16: its result depends on bf16(x) only, lies within 1e-5 of the
+    plain version on bf16(x), and moves away from the fp32 plain version."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.random((32, 96)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 4, (96, 48)).astype(np.int8))
+    scale = torch.from_numpy(rng.random(48).astype(np.float32) + 0.5)
+    xb = x.bfloat16().float()
+    got = _tc_emulated(x, codes, scale)
+    assert torch.equal(got, _tc_emulated(xb, codes, scale))
+    want = ref.imc_mvm_ref(xb, codes, scale)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert float((got - ref.imc_mvm_ref(x, codes, scale)).abs().max()) > 1e-4

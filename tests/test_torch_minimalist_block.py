@@ -180,3 +180,82 @@ def test_wrappers_refuse_mixed_devices():
         meta = [a.to("meta") for a in args]
         with pytest.raises(ValueError, match="unsupported device"):
             fn(meta[0], meta[1], meta[2], 0.1, *meta[3:])
+
+
+# ---------------------------------------------------------------------------
+# The step kernel's summation order (csrc/minimalist_step.cu), emulated in
+# PyTorch: lane p of 8 sums the K rows k = p mod 8 in increasing k with
+# one rounding an FMA, and the eight parts are combined as
+# ((P0 + P4) + (P2 + P6)) + ((P1 + P5) + (P3 + P7)).
+
+
+def _split_k_sum(x, codes):
+    """x (B, K) fp32, codes (K, N) int8 -> x @ (codes - 1.5) in the
+    kernel's order (each FMA as an exact float64 product and sum rounded
+    once to fp32)."""
+    lv = (codes.float() - 1.5).double()
+    xd = x.double()
+    parts = []
+    for p in range(8):
+        acc = torch.zeros(x.shape[0], codes.shape[1])
+        for k in range(p, x.shape[1], 8):
+            acc = (acc.double() + xd[:, k:k + 1] * lv[k]).float()
+        parts.append(acc)
+    P = parts
+    return ((P[0] + P[4]) + (P[2] + P[6])) + ((P[1] + P[5]) + (P[3] + P[7]))
+
+
+def _split_k_step(x, ch, cz, scale, bh, bz, hp):
+    """The fused step of tref.minimalist_step_ref with the split-K sums:
+    (y, h, z codes)."""
+    pre_h = _split_k_sum(x, ch) * scale + bh
+    zc = tref.gate_codes(_split_k_sum(x, cz) * scale + bz)
+    z = zc / 63.0
+    h = z * pre_h + (1.0 - z) * hp
+    return (h > 0.0).float(), h, zc
+
+
+@pytest.mark.parametrize("B,K,N", [(1, 4, 8), (3, 16, 24), (8, 64, 64),
+                                   (2, 150, 40)])
+def test_split_k_order_matches_pallas_interpret_on_analog_x(B, K, N):
+    """Analog x (a first layer fed unbinarised frames): the kernel's order
+    keeps h within 2e-5 of the reference's Pallas kernel in interpret mode
+    and the z codes equal away from a code step."""
+    _jb, jp, tb = _blocks(K, N, seed=B + K + 1)
+    exp = tops.from_block_params(tb)
+    rng = np.random.default_rng(B + K)
+    x = rng.random((B, K)).astype(np.float32)
+    hp = rng.standard_normal((B, N)).astype(np.float32)
+    jexp = jops.from_block_params(jp)
+    jy, jh = jops.minimalist_step(jnp.asarray(x), *jexp, jnp.asarray(hp),
+                                  backend="pallas")
+    y, h, zc = _split_k_step(torch.from_numpy(x), *exp,
+                             torch.from_numpy(hp))
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=2e-5)
+    flips = y.numpy() != np.asarray(jy)
+    assert not (flips & (np.abs(np.asarray(jh)) > 1e-4)).any()
+    wz = (np.asarray(jexp[1], np.float32) - 1.5) * jexp[2]
+    v = np.asarray(jq.hard_sigmoid(jnp.asarray(x) @ wz + jexp[4])) * 63
+    tie = np.abs(v - np.round(v)) <= 1e-3
+    assert ((zc.numpy() == np.floor(v)) | tie).all()
+
+
+@pytest.mark.parametrize("B,K,N", [(8, 64, 64), (3, 17, 130), (4, 1, 10),
+                                   (2, 200, 24)])
+def test_split_k_order_is_bitwise_on_binary_x(B, K, N):
+    """Binary x: every part is an exact multiple of 1/2, so the kernel's
+    order gives the plain version's (and the serial kernel's) bits."""
+    rng = np.random.default_rng(K + N)
+    x = torch.from_numpy((rng.random((B, K)) > 0.5).astype(np.float32))
+    ch = torch.from_numpy(rng.integers(0, 4, (K, N)).astype(np.int8))
+    cz = torch.from_numpy(rng.integers(0, 4, (K, N)).astype(np.int8))
+    bh = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    bz = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    hp = torch.from_numpy(rng.standard_normal((B, N)).astype(np.float32))
+    for mat in (ch, cz):
+        assert torch.equal(_split_k_sum(x, mat), x @ (mat.float() - 1.5))
+    y, h, zc = _split_k_step(x, ch, cz, 0.11, bh, bz, hp)
+    yp, hpl, zcp = tref.minimalist_step_ref(x, ch, cz, 0.11, bh, bz, hp,
+                                            return_z_codes=True)
+    assert torch.equal(h, hpl) and torch.equal(y, yp)
+    assert torch.equal(zc.to(torch.int8), zcp)
