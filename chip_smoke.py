@@ -51,8 +51,10 @@ Phases, each fatal on failure:
                ssm_impl="fused" for 20 steps through Trainer (batch 4, seq
                2048): loss falls, no restores, every layer runs the
                fused_ssm_fwd and fused_ssm_bwd kernels once per step and
-               the linear-scan kernels never; the fp32 w_out products of a
-               layer timed alone; then 3 steps at batch 1 x 2048 from the
+               the linear-scan kernels never; both kernels held to their
+               plain versions on layer 0's scan inputs and cotangent at
+               the last step; the fp32 w_out products of a layer timed
+               alone; then 3 steps at batch 1 x 2048 from the
                same seed with the fused scan and with the materializing
                "xla" path, losses and grad norms compared.
  10. mla_paged — serve full-width deepseek-v3-671b (its 3 dense MLA layers
@@ -600,15 +602,14 @@ def _kernel_rows_flash(torch, dev, g):
     return rows
 
 
-def _kernel_rows_ssm(torch, dev, g):
-    """fused_ssm_fwd and fused_ssm_bwd at the mamba_train phase's shape
-    (falcon-mamba-7b: batch 4, seq 2048, d_inner 8192, d_state 16, fp32)
-    and at an odd one (T and d_inner off the kernels' 32-step chunks and
-    16-channel blocks), against their plain versions on the same inputs:
-    y and the entry states at the reference's atol 2e-5 / rtol 2e-5, the
-    gradients at 5e-5 / 5e-4, atol scaled by the largest magnitude of the
-    plain result (the gradients sum over thousands of steps and
-    channels)."""
+def _ssm_against_plain(torch, ins, dy, what):
+    """fused_ssm_fwd and fused_ssm_bwd on ``ins`` = (dt, x, Bm, Cm, A) and
+    dy against their plain versions on the same inputs: y and the entry
+    states at the reference's atol 2e-5 / rtol 2e-5, the gradients at
+    5e-5 / 5e-4, atol scaled by the largest magnitude of the plain result
+    (the gradients sum over thousands of steps and channels).  Returns
+    ({output: max |kernel - plain|}, {output: max |plain|}, the kernel's
+    entry states)."""
     from repro_torch.kernels.fused_ssm import ops as ssm_ops
     from repro_torch.kernels.fused_ssm import ref as ssm_ref
 
@@ -620,6 +621,43 @@ def _kernel_rows_ssm(torch, dev, g):
                  f"atol {atol} x max|plain| {want.abs().max().item()} + "
                  f"rtol {rtol}")
         return err.max().item()
+
+    y, ent = ssm_ops.fused_ssm_fwd_kernel(*ins)
+    yp, entp = ssm_ref.fused_ssm_fwd_ref(*ins, ssm_ops.CHUNK)
+    grads = ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy)
+    wgrads = ssm_ref.fused_ssm_bwd_ref(*ins, entp, dy, ssm_ops.CHUNK)
+    torch.cuda.synchronize()
+    errs = {"y": err_within(f"fused_ssm_fwd {what} y", y, yp, 2e-5, 2e-5),
+            "h_entries": err_within(f"fused_ssm_fwd {what} h_entries", ent,
+                                    entp, 2e-5, 2e-5)}
+    for name, a, w in zip(("ddt", "dx", "dB", "dC", "dA"), grads, wgrads):
+        errs[name] = err_within(f"fused_ssm_bwd {what} {name}", a, w, 5e-5,
+                                5e-4)
+    scale = {k: v.abs().max().item() for k, v in zip(
+        ("y", "h_entries", "ddt", "dx", "dB", "dC", "dA"),
+        (yp, entp) + tuple(wgrads))}
+    return errs, scale, ent
+
+
+def _ssm_errs_line(errs, scale):
+    return (f"max_abs_err y {errs['y']:.3g}, h_entries "
+            f"{errs['h_entries']:.3g} (tol 2e-5 x max|plain| {scale['y']:.3g}"
+            f" / {scale['h_entries']:.3g} + 2e-5 rel); "
+            + ", ".join(f"{k} {errs[k]:.3g} (max|plain| {scale[k]:.3g})"
+                        for k in ("ddt", "dx", "dB", "dC", "dA"))
+            + " (tol 5e-5 x max|plain| + 5e-4 rel)")
+
+
+def _kernel_rows_ssm(torch, dev, g):
+    """fused_ssm_fwd and fused_ssm_bwd at the mamba_train phase's shape
+    (falcon-mamba-7b: batch 4, seq 2048, d_inner 8192, d_state 16, fp32)
+    and at an odd one (T and d_inner off the kernels' 32-step chunks and
+    256-channel blocks), against their plain versions on the same inputs
+    (_ssm_against_plain), with what the build made of each kernel
+    (registers, local bytes, resident blocks an SM) and the dB/dC partial
+    bytes a backward call writes."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.fused_ssm import ref as ssm_ref
 
     rows = {}
     for B, T, di, n in [(4, 2048, 8192, 16), (3, 1000, 1000, 16)]:
@@ -633,21 +671,7 @@ def _kernel_rows_ssm(torch, dev, g):
         dy = torch.randn(B, T, di, device=dev, generator=g)
         ins = (dt, x, Bm, Cm, A)
         tag = f"(B {B}, T {T}, d_inner {di}, d_state {n}) fp32"
-        y, ent = ssm_ops.fused_ssm_fwd_kernel(*ins)
-        yp, entp = ssm_ref.fused_ssm_fwd_ref(*ins, ssm_ops.CHUNK)
-        grads = ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy)
-        wgrads = ssm_ref.fused_ssm_bwd_ref(*ins, entp, dy, ssm_ops.CHUNK)
-        torch.cuda.synchronize()
-        errs = {"y": err_within(f"fused_ssm_fwd {tag} y", y, yp, 2e-5, 2e-5),
-                "h_entries": err_within(f"fused_ssm_fwd {tag} h_entries",
-                                        ent, entp, 2e-5, 2e-5)}
-        for name, a, w in zip(("ddt", "dx", "dB", "dC", "dA"), grads,
-                              wgrads):
-            errs[name] = err_within(f"fused_ssm_bwd {tag} {name}", a, w,
-                                    5e-5, 5e-4)
-        scale = {k: v.abs().max().item() for k, v in zip(
-            ("y", "h_entries", "ddt", "dx", "dB", "dC", "dA"),
-            (yp, entp) + tuple(wgrads))}
+        errs, scale, ent = _ssm_against_plain(torch, ins, dy, tag)
 
         def fwd():
             ssm_ops.fused_ssm_fwd_kernel(*ins)
@@ -672,21 +696,28 @@ def _kernel_rows_ssm(torch, dev, g):
         b_bytes = t_bytes - f_bytes
         fb_ms, f_by = bound(f_bytes, ff)
         bb_ms, b_by = bound(b_bytes, tf - ff)
-        print(f"kernel fused_ssm_fwd {tag}: max_abs_err y {errs['y']:.3g}, "
-              f"h_entries {errs['h_entries']:.3g} (tol 2e-5 x max|plain| "
-              f"{scale['y']:.3g} / {scale['h_entries']:.3g} + 2e-5 rel) "
-              f"kernel {f_ms:.4f} ms (eager call {f_call:.4f} ms), plain "
-              f"{f_plain:.4f} ms, library none, bound {fb_ms:.5f} ms "
-              f"({f_by}; {ff / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB)",
-              flush=True)
-        print(f"kernel fused_ssm_bwd {tag}: max_abs_err "
-              + ", ".join(f"{k} {errs[k]:.3g} (max|plain| {scale[k]:.3g})"
-                          for k in ("ddt", "dx", "dB", "dC", "dA"))
-              + f" (tol 5e-5 x max|plain| + 5e-4 rel) kernel {b_ms:.4f} ms "
-              f"(eager call {b_call:.4f} ms, partial sums included), plain "
+        built = {}
+        for which in ("fwd", "bwd"):
+            i = ssm_ops.kernel_info(which, n)
+            built[which] = (f"{i['registers']} registers, {i['local_bytes']} "
+                            f"local bytes a thread, {i['blocks_per_sm']} "
+                            f"resident block(s) an SM of {i['threads']} "
+                            f"threads, {i['smem_bytes']} B shared")
+        p_mb = ssm_ops.partial_bytes(B, T, di, n) / 1e6
+        print(f"kernel fused_ssm_fwd {tag}: kernel {f_ms:.4f} ms (eager "
+              f"call {f_call:.4f} ms), plain {f_plain:.4f} ms, library none, "
+              f"bound {fb_ms:.5f} ms ({f_by}; {ff / 1e9:.2f} GFLOP, "
+              f"{f_bytes / 1e6:.1f} MB; {fb_ms / f_ms:.1%} of it); build: "
+              f"{built['fwd']}", flush=True)
+        print(f"kernel fused_ssm_bwd {tag}: kernel {b_ms:.4f} ms (eager "
+              f"call {b_call:.4f} ms, partial sums included), plain "
               f"{b_plain:.4f} ms, library none, bound {bb_ms:.5f} ms "
               f"({b_by}; {(tf - ff) / 1e9:.2f} GFLOP, {b_bytes / 1e6:.1f} "
-              "MB)", flush=True)
+              f"MB; {bb_ms / b_ms:.1%} of it); dB/dC partials {p_mb:.1f} MB "
+              f"a call ({ssm_ops.d_blocks(di, n)} rows a batch row); build: "
+              f"{built['bwd']}", flush=True)
+        print(f"kernel fused_ssm {tag}: {_ssm_errs_line(errs, scale)}",
+              flush=True)
         if path:
             # no single PyTorch call computes a selective scan: library none
             rows["fused_ssm_fwd"] = dict(
@@ -698,7 +729,7 @@ def _kernel_rows_ssm(torch, dev, g):
                                                   "dA")),
                 ms=b_ms, plain_ms=b_plain, bound_ms=bb_ms, bound_by=b_by,
                 library_ms=None)
-        del dt, x, Bm, Cm, A, dy, ins, y, ent, yp, entp, grads, wgrads
+        del dt, x, Bm, Cm, A, dy, ins, ent
         torch.cuda.empty_cache()
     return rows
 
@@ -1672,13 +1703,35 @@ def phase_mamba_train(torch, dev):
         # on the checkpointer, not the trainer: a closure over the trainer
         # would keep it, and the model, alive after `del trainer`
         trainer.ckpt.save = timed_save
+        # layer 0's scan inputs at the last step, copied to the host: its
+        # forward is the step's first scan launch, its backward the last
+        scan = ssm_ops.SelectiveScan
+        real_fwd, real_bwd = scan.forward, scan.backward
+        last = (steps - 1) * cfg.n_layers
+        caught = {}
+
+        def catch_fwd(ctx, *ins):
+            if counters[0].launches == last:
+                caught["ins"] = [t.float().cpu() for t in ins]
+            return real_fwd(ctx, *ins)
+
+        def catch_bwd(ctx, dy):
+            if counters[1].launches == last + cfg.n_layers - 1:
+                caught["dy"] = dy.float().cpu()
+            return real_bwd(ctx, dy)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         for k in counters:
             k.launches = 0
-        t0 = time.perf_counter()
-        _, step = trainer.run()
-        wall = time.perf_counter() - t0
+        scan.forward, scan.backward = (staticmethod(catch_fwd),
+                                       staticmethod(catch_bwd))
+        try:
+            t0 = time.perf_counter()
+            _, step = trainer.run()
+            wall = time.perf_counter() - t0
+        finally:
+            scan.forward, scan.backward = (staticmethod(real_fwd),
+                                           staticmethod(real_bwd))
         n_fwd, n_bwd, n_scan, n_scan_bwd = launches()
         ckpt_gb = sum(os.path.getsize(os.path.join(d, f))
                       for d, _, fs in os.walk(ckpt_dir) for f in fs) / 1e9
@@ -1717,6 +1770,22 @@ def phase_mamba_train(torch, dev):
           f"final checkpoint {ckpt_gb:.2f} GB in {saves[-1]:.1f} s "
           f"({free_gb:.0f} GB were free there)", flush=True)
     del trainer, model, opt
+    torch.cuda.empty_cache()
+
+    # both kernels against their plain versions on trained inputs: layer
+    # 0's (dt, x, B, C, A) and output cotangent at the last step
+    if "ins" not in caught or "dy" not in caught or \
+            caught["dy"].shape != caught["ins"][1].shape:
+        fail("mamba_train: layer 0's scan inputs at the last step were not "
+             "caught")
+    ins = [t.to(dev) for t in caught.pop("ins")]
+    dy = caught.pop("dy").to(dev)
+    errs, scale, _ = _ssm_against_plain(
+        torch, ins, dy, "mamba_train layer 0 at the last step")
+    print(f"mamba_train: layer 0's scan at step {steps} (inputs "
+          f"{tuple(ins[1].shape)}, d_state {ins[4].shape[1]}), kernels "
+          f"against plain: {_ssm_errs_line(errs, scale)}", flush=True)
+    del ins, dy
     torch.cuda.empty_cache()
 
     # one layer's fp32 w_out products a step, timed alone: the reference's

@@ -72,9 +72,11 @@ SIGNATURES = {
     },
     "fused_ssm_fwd": {
         "fused_ssm_fwd_f32": [_P] * 7 + [_I] * 5 + [_P],
+        "fused_ssm_fwd_info": [_I, _P],
     },
     "fused_ssm_bwd": {
         "fused_ssm_bwd_f32": [_P] * 12 + [_I] * 6 + [_P],
+        "fused_ssm_bwd_info": [_I, _P],
     },
     "paged_mla": {
         "paged_mla_f32": [_P] * 9 + [_I] * 10 + [_F, _P],

@@ -21,6 +21,8 @@ back, as the reference's kernels do inside.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.common import pow2ceil
@@ -30,9 +32,8 @@ from repro_torch.kernels.fused_ssm import ref
 #: Time steps per chunk-entry state (``kChunk`` of ``csrc/fused_ssm.cuh``,
 #: which the C entry points check).
 CHUNK = 32
-#: Threads per block of both kernels (``kThreads``).
-THREADS = 256
-#: The largest state size the kernels take (one warp's lanes per d).
+#: The largest state size the kernels take (two lanes of 16 states a
+#: channel).
 MAX_STATE = 32
 
 
@@ -40,11 +41,37 @@ def n_chunks(T):
     return -(-T // CHUNK)
 
 
+def block_channels(n):
+    """Channels a block of both kernels covers at state size n
+    (``ssm::config_for``): 256 with one lane a channel (n <= 16), 128 with
+    two (16 < n <= 32)."""
+    return 256 if pow2ceil(n) <= 16 else 128
+
+
 def d_blocks(di, n):
-    """Blocks along d_inner of both kernels: each covers 256 / NL channels,
-    NL the power of two >= n."""
-    per = THREADS // pow2ceil(n)
-    return -(-di // per)
+    """Blocks along d_inner of both kernels, and so the partial dB/dC rows
+    a batch row of the backward writes: each sums block_channels(n)
+    channels on chip."""
+    return -(-di // block_channels(n))
+
+
+def partial_bytes(B, T, di, n):
+    """Bytes of the dB and dC partials (B, d_blocks, T, n) fp32 one
+    backward call writes and its wrapper's sums read."""
+    return 2 * 4 * B * d_blocks(di, n) * T * n
+
+
+def kernel_info(which, n):
+    """What the build made of the ``which`` ("fwd" or "bwd") kernel at
+    state size n: registers and local (spill and stack) bytes a thread,
+    dynamic shared bytes, resident blocks an SM, threads and channels a
+    block (``ssm::kernel_info``).  Needs the CUDA toolkit and a device."""
+    name = f"fused_ssm_{which}"
+    out = (ctypes.c_int * 6)()
+    build.check(getattr(build.load(name), f"{name}_info")(
+        n, ctypes.addressof(out)), name)
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "threads", "channels"), out))
 
 
 def _check(what, dt, x, Bm, Cm, A, extra=()):
@@ -103,7 +130,8 @@ def fused_ssm_bwd_kernel(dt, x, Bm, Cm, A, h_entries, dy):
     """Cotangents (ddt, dx, dB, dC, dA), fp32, of the scan's inputs given
     the forward's inputs, its ``h_entries`` and the output cotangent dy
     (B, T, di).  The kernel writes dB and dC partials per (batch,
-    d-block) and dA partials per batch; they are summed here."""
+    d-block), each the sum over the block's channels, and dA partials per
+    batch; they are summed here in a fixed order."""
     if on_cpu(dt, x, Bm, Cm, A, h_entries, dy):
         return ref.fused_ssm_bwd_ref(dt, x, Bm, Cm, A, h_entries, dy, CHUNK)
     _check("fused_ssm_bwd_kernel", dt, x, Bm, Cm, A, (h_entries, dy))

@@ -1,7 +1,7 @@
 """Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn,paged,imc]
+        [--sections lm,qat,mamba,attn,paged,imc,ssm]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -26,6 +26,12 @@ its output is bf16), ``minimalist_step`` at (8, 64 -> 64) and
 (64, 1024 -> 1024) and the stream path's five-layer chain (paper dims,
 8 slots), and the launch floor: one one-element PyTorch op.
 
+The ``ssm`` section times the fused selective scan's kernels alone
+(graph replay, card name and power limit first) at chip_smoke's two
+shapes, (4, 2048, 8192, 16) and (3, 1000, 1000, 16) fp32:
+``fused_ssm_fwd_kernel``, ``fused_ssm_bwd_kernel`` with the sums of its
+partials, and those sums alone on tensors of the partials' shape.
+
 The ``paged`` section has no training split: for one ``decode_step_paged``
 (4 slots at position 200, bf16 and then int8 pages) it prints the eager
 time, the CUDA-graph-replay time (bf16: the int8 page write cannot be
@@ -36,8 +42,9 @@ an older checkout's ``repro_torch/launch/`` times that checkout's
 kernels in the same way.
 
 With ``--sass``, also the order of global loads (LDG), stores (STG) and
-FMAs in each scan kernel's SASS (``cuobjdump`` from the CUDA toolkit):
-how many loads a thread keeps in flight per step.  Needs a CUDA device.
+FMAs in each scan and selective-scan kernel's SASS (``cuobjdump`` from the
+CUDA toolkit): how many loads a thread keeps in flight per step.  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -95,29 +102,36 @@ def profile_window(fn, iters, tag, top=8):
 
 def sass_order(name):
     """The sequence of LDG/STG/FFMA opcodes of each function in kernel
-    ``name``'s library, as cuobjdump disassembles it."""
+    ``name``'s library, as cuobjdump disassembles it, and the function's
+    static count of its most frequent opcodes."""
     tool = str(Path(build.nvcc()).parent / "cuobjdump")
     out = subprocess.run([tool, "-sass", str(build.library_path(name))],
                          capture_output=True, text=True, check=True).stdout
     for func in re.split(r"\n\s*Function : ", out)[1:]:
         ops = re.findall(r"\*/\s+(?:@!?U?P\d+\s+)?(LDG|STG|FFMA)\S*", func)
         print(f"{name} {func.splitlines()[0][:70]}:\n  {' '.join(ops[:64])}")
+        every = collections.Counter(re.findall(
+            r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]+)", func))
+        print("  static: " + ", ".join(f"{op} {k}" for op, k in
+                                       every.most_common(12)))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--sections", default="lm,qat,mamba,attn,paged,imc",
+    ap.add_argument("--sections", default="lm,qat,mamba,attn,paged,imc,ssm",
                     help="comma-separated subset of lm, qat, mamba, attn, "
-                    "paged, imc")
+                    "paged, imc, ssm")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
-    if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc"}:
+    if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc",
+                        "ssm"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
     if args.sass:
-        for name in ("linear_scan", "linear_scan_bwd"):
+        for name in ("linear_scan", "linear_scan_bwd", "fused_ssm_fwd",
+                     "fused_ssm_bwd"):
             sass_order(name)
 
     from repro_torch.configs import get_config
@@ -138,6 +152,8 @@ def main(argv=None):
         _paged(dev, get_config("smollm-360m"))
     if "imc" in sections:
         _imc(dev)
+    if "ssm" in sections:
+        _ssm(dev)
 
 
 def _graph_ms(fn, iters):
@@ -348,6 +364,40 @@ def _imc(dev):
             out = mb_ops.minimalist_step_kernel(out, *layer, hp)[0]
     print(f"minimalist_step chain (5 layers, 8 slots, one frame): "
           f"{_graph_ms(frame, 100):.5f} ms (graph replay)", flush=True)
+
+
+def _ssm(dev):
+    """The fused selective scan's kernels alone in graph replay at
+    chip_smoke's two shapes; the backward's partial sums timed apart."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+
+    print(f"ssm on {_card()}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for B, T, di, n in [(4, 2048, 8192, 16), (3, 1000, 1000, 16)]:
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, T, di, device=dev, generator=g)) * 0.2
+        x = torch.randn(B, T, di, device=dev, generator=g)
+        Bm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+        Cm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+        A = -torch.exp(torch.randn(di, n, device=dev, generator=g) * 0.3)
+        dy = torch.randn(B, T, di, device=dev, generator=g)
+        ins = (dt, x, Bm, Cm, A)
+        _, ent = ssm_ops.fused_ssm_fwd_kernel(*ins)
+        f_ms = _graph_ms(lambda: ssm_ops.fused_ssm_fwd_kernel(*ins), 10)
+        b_ms = _graph_ms(
+            lambda: ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy), 5)
+        rows = ssm_ops.d_blocks(di, n)
+        dBp, dCp = (torch.randn(B, rows, T, n, device=dev, generator=g)
+                    for _ in range(2))
+        dAp = torch.randn(B, di, n, device=dev, generator=g)
+        sums_ms = _graph_ms(lambda: (dBp.sum(1), dCp.sum(1), dAp.sum(0)), 5)
+        print(f"fused_ssm (B {B}, T {T}, d_inner {di}, d_state {n}) fp32: "
+              f"fwd {f_ms:.5f} ms, bwd {b_ms:.5f} ms with its partial "
+              f"sums, the sums alone {sums_ms:.5f} ms ({rows} partial rows "
+              f"a batch row, {(dBp.numel() + dCp.numel()) * 4 / 1e6:.1f} "
+              "MB) (graph replay)", flush=True)
+        del dt, x, Bm, Cm, A, dy, ins, ent, dBp, dCp, dAp
+        torch.cuda.empty_cache()
 
 
 def _step_inputs(dev, g, B, K, N):

@@ -726,6 +726,14 @@ SSM_CASES = [
     (2, 64, 256, 1),
     (1, 40, 8, 32),       # one d a warp
     (1, 300, 8192, 16),   # the main path's width
+    # the layout's edges: d_inner one channel below and above a block
+    # (256 channels at n <= 16, 128 at n 32), T one step below and above
+    # CHUNK (32) and a backward sub-chunk (8), a forward stage (16) + 1
+    (2, 31, 255, 16),
+    (1, 33, 257, 16),
+    (2, 7, 127, 32),
+    (1, 9, 129, 32),
+    (3, 17, 513, 4),
 ]
 
 
@@ -800,6 +808,33 @@ def test_fused_ssm_kernels_bitwise_repeatable(cuda):
             dt, x, Bm, Cm, A, entries, dy))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_fused_ssm_path_shape_partials_and_build(cuda):
+    """At the main path's shape (4, 2048, 8192, 16) a backward call
+    allocates at most 67 MB of dB/dC partials beyond its outputs; both
+    kernels build without spills, at the wrapper's channels a block."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+
+    for n in (1, 5, 16, 32):
+        for which in ("fwd", "bwd"):
+            info = ssm_ops.kernel_info(which, n)
+            assert info["local_bytes"] == 0, (which, n, info)
+            assert info["blocks_per_sm"] >= 1, (which, n, info)
+            assert info["channels"] == ssm_ops.block_channels(n)
+    B, T, di, n = 4, 2048, 8192, 16
+    dt, x, Bm, Cm, A, dy = _ssm_inputs(cuda, B, T, di, n, seed=4)
+    _, entries = ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    grads = ssm_ops.fused_ssm_bwd_kernel(dt, x, Bm, Cm, A, entries, dy)
+    torch.cuda.synchronize()
+    outputs = sum(g.numel() * g.element_size() for g in grads)
+    extra = torch.cuda.max_memory_allocated(cuda) - base - outputs
+    assert ssm_ops.partial_bytes(B, T, di, n) <= 67e6
+    assert extra <= 67e6, extra
 
 
 @pytest.mark.cuda

@@ -163,3 +163,110 @@ def test_config_admits_xla_and_fused_only():
         assert dataclasses.replace(cfg, ssm_impl=impl).ssm_impl == impl
     with pytest.raises(ValueError, match="ssm_impl"):
         dataclasses.replace(cfg, ssm_impl="stub")
+
+
+@pytest.mark.parametrize("B,T,di,n", [(2, 2 * ops.CHUNK, 64, 16),
+                                      (1, ops.CHUNK, 32, 5)])
+def test_plain_versions_match_reference_kernels_at_chunk(B, T, di, n):
+    """The plain forward and backward at CHUNK against the reference's
+    Pallas kernels run with time blocks of CHUNK steps (interpret mode):
+    y, the entry states (the same spacing, so the same tensors), ddt, dx
+    and the summed dB, dC and dA, at the reference's bounds."""
+    from repro.kernels.fused_ssm.fused_ssm import fused_ssm_bwd, fused_ssm_fwd
+
+    args = _inputs(B, T, di, n, seed=7 * T + n)
+    dy = np.random.default_rng(5).standard_normal((B, T, di)).astype(
+        np.float32)
+    y, entries = ref.fused_ssm_fwd_ref(*_t(args), ops.CHUNK)
+    jargs = [jnp.asarray(a) for a in args]
+    jy, jent = fused_ssm_fwd(*jargs, tblk=ops.CHUNK, dblk=di)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **F32)
+    np.testing.assert_allclose(entries.numpy(), np.asarray(jent), **F32)
+    got = ref.fused_ssm_bwd_ref(*_t(args), entries, torch.from_numpy(dy),
+                                ops.CHUNK)
+    # one d-block (dblk = di): the dB/dC partials are the sums over d
+    ddt, dx, dBp, dCp, dAp = fused_ssm_bwd(*jargs, jent, jnp.asarray(dy),
+                                           tblk=ops.CHUNK, dblk=di)
+    want = (np.asarray(ddt), np.asarray(dx), np.asarray(dBp),
+            np.asarray(dCp), np.asarray(dAp).sum(0))
+    for name, g, w in zip(("ddt", "dx", "dB", "dC", "dA"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **GRAD)
+
+
+@pytest.mark.parametrize("B,T,di,n", [(1, 80, 64, 8), (2, 48, 40, 16),
+                                      (1, ops.CHUNK + 8, 24, 4)])
+def test_plain_versions_off_chunk_match_reference(B, T, di, n):
+    """T not a multiple of CHUNK: the plain forward's y and the plain
+    backward's cotangents of a dy against the reference's Pallas op
+    (interpret mode) and its materializing oracle, at the reference's
+    bounds; the last entry state is the oracle's state before the last
+    chunk's first step."""
+    assert T % ops.CHUNK
+    args = _inputs(B, T, di, n, seed=T + 3 * n)
+    dy = np.random.default_rng(6).standard_normal((B, T, di)).astype(
+        np.float32)
+    y, entries = ref.fused_ssm_fwd_ref(*_t(args), ops.CHUNK)
+    got = ref.fused_ssm_bwd_ref(*_t(args), entries, torch.from_numpy(dy),
+                                ops.CHUNK)
+    jargs = [jnp.asarray(a) for a in args]
+    for backend in ("pallas", "xla"):
+        jy, vjp = jax.vjp(lambda *a: jops.selective_scan(*a, backend),
+                          *jargs)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), **F32)
+        for name, g, w in zip(("ddt", "dx", "dB", "dC", "dA"), got,
+                              vjp(jnp.asarray(dy))):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg=f"{backend} {name}", **GRAD)
+    assert entries.shape == (B, ops.n_chunks(T), di, n)
+    t_last = (ops.n_chunks(T) - 1) * ops.CHUNK
+    np.testing.assert_allclose(entries[:, -1].numpy(),
+                               _state_after(args, t_last).numpy(), **F32)
+
+
+def _state_after(args, t):
+    """The oracle's state after the first t steps (B, di, n)."""
+    dt, x, Bm, _, A = (torch.from_numpy(a) for a in args)
+    a = torch.exp(dt[:, :t, :, None] * A)
+    b = (dt * x)[:, :t, :, None] * Bm[:, :t, None, :]
+    h = torch.zeros(dt.shape[0], dt.shape[2], A.shape[1])
+    for i in range(t):
+        h = a[:, i] * h + b[:, i]
+    return h
+
+
+def test_backward_partials_at_path_width():
+    """falcon-mamba-7b's SSM (d_inner 8192, d_state 16) at batch 4 x 2048:
+    each backward block sums 256 channels on chip, so a batch row gets at
+    most 32 partial dB/dC rows and a call writes at most 67 MB of them
+    (the 16-channel blocks before wrote 512 rows, 1.07 GB)."""
+    assert ops.block_channels(16) == 256
+    assert ops.d_blocks(8192, 16) == 32
+    assert ops.partial_bytes(4, 2048, 8192, 16) == 2 * 4 * 4 * 32 * 2048 * 16
+    assert ops.partial_bytes(4, 2048, 8192, 16) <= 67e6
+
+
+def test_wrapper_partials_fit_the_c_check():
+    """The partial rows the wrapper allocates are the rows the C entry
+    point checks (n_rows == ceil(di / CB), CB from ssm::config_for), for
+    every state size and d_inner around a block's width: read from the C
+    source's configuration rule, computed from shapes alone."""
+    import re
+    from pathlib import Path
+
+    import repro_torch.kernels.fused_ssm.ops as mod
+    csrc = Path(mod.__file__).resolve().parents[1] / "csrc"
+    header = (csrc / "fused_ssm.cuh").read_text()
+    rule = header[header.index("inline Config config_for"):]
+    rule = rule[:rule.index("\n}\n")]
+    m = re.search(r"return np <= (\d+) \? Config\{np, 1, (\d+)\} : "
+                  r"Config\{(\d+), 2, (\d+)\};", rule)
+    assert m, rule
+    assert "n_rows != (di + CB - 1) / CB" in (
+        csrc / "fused_ssm_bwd.cu").read_text()
+    for n in range(1, ops.MAX_STATE + 1):
+        cb = int(m[2]) if ops.pow2ceil(n) <= int(m[1]) else int(m[4])
+        assert ops.block_channels(n) == cb, n
+        for di in (1, cb - 1, cb, cb + 1, 3 * cb + 5, 8192):
+            rows = ops.d_blocks(di, n)
+            assert rows == -(-di // cb)
+            assert (rows - 1) * cb < di <= rows * cb
