@@ -10,7 +10,9 @@ Phases, each fatal on failure:
   2. kernels — call each kernel's wrapper on the card at the main path's
                shapes and hold it against its plain PyTorch version;
                time kernel, plain version and (where one exists) one
-               PyTorch library call computing the same function.
+               PyTorch library call computing the same function; the
+               two scan kernels also L2-warm and L2-cold, five rounds
+               in alternating order, with the SM clock around each.
   3. lm      — serve full-width minimalist-lm-360m (random weights from a
                seed) through ServeEngine: 8 greedy requests, 4 slots,
                prefill through the linear_scan kernel; then the same
@@ -98,6 +100,11 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 
 
+# falcon-mamba-7b's ssm_impl="xla" scan at batch 1 x 2048: d_inner 8192 x
+# d_state 16 channels (models/mamba.py), one fp32 linear_scan a layer
+MAMBA_XLA_SCAN = (1, 2048, 131072)
+
+
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -167,39 +174,59 @@ def phase_kernels(torch, dev):
     g = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    # -- linear_scan: minGRU prefill chunk (wave 4, chunk 256, d 960) ----
+    # -- linear_scan: minGRU prefill chunk (wave 4, chunk 256, d 960), the
+    #    training step's forward (batch 8) and falcon-mamba's ssm_impl="xla"
+    #    scan (batch 1, seq 2048, d_inner 8192 x d_state 16) -------------
     shapes = [((4, 256, 960), torch.bfloat16, 2e-2),
               ((4, 256, 960), torch.float32, 1e-5),
               ((3, 77, 1000), torch.float32, 1e-5),
-              ((3, 77, 1000), torch.bfloat16, 2e-2)]
+              ((3, 77, 1000), torch.bfloat16, 2e-2),
+              ((8, 256, 960), torch.bfloat16, 2e-2),
+              (MAMBA_XLA_SCAN, torch.float32, 1e-5)]
     for shape, dtype, tol in shapes:
         B, T, D = shape
+        big = shape == MAMBA_XLA_SCAN
         z = torch.sigmoid(torch.randn(shape, device=dev, generator=g))
         a = (1.0 - z).to(dtype)
         b = (z * torch.randn(shape, device=dev, generator=g)).to(dtype)
+        del z
         h0 = torch.randn(B, D, device=dev, generator=g).to(dtype)
         got = scan_ops.linear_scan_kernel(a, b, h0)
         want = scan_ref.linear_scan_associative(a, b, h0)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        del got, want
         tag = f"linear_scan {shape} {str(dtype)[6:]}"
         if not err <= tol:
             fail(f"{tag}: max |kernel - plain| = {err} > {tol}")
+        n = 20 if big else 200
         ms = device_ms(torch, lambda: scan_ops.linear_scan_kernel(a, b, h0),
-                       200)
+                       n)
         call_ms = eager_ms(
-            torch, lambda: scan_ops.linear_scan_kernel(a, b, h0), 200)
+            torch, lambda: scan_ops.linear_scan_kernel(a, b, h0), n)
         plain_ms = device_ms(
-            torch, lambda: scan_ref.linear_scan_associative(a, b, h0), 20)
+            torch, lambda: scan_ref.linear_scan_associative(a, b, h0),
+            2 if big else 20)
         elt = a.element_size()
         b_ms, by = bound((3 * B * T * D + B * D) * elt, 2 * B * T * D)
         print(f"kernel {tag}: max_abs_err {err:.3g} (tol {tol}) "
-              f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})", flush=True)
+              f"kernel {ms:.5f} ms (eager call {call_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
+              f"{b_ms / ms:.1%} of it)", flush=True)
         if shape == (4, 256, 960) and dtype == torch.bfloat16:
             rows["linear_scan"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=None)
+        elif shape == (8, 256, 960):
+            rows["linear_scan"].update(
+                train_max_abs_err=err, train_ms=ms, train_plain_ms=plain_ms,
+                train_bound_ms=b_ms)
+        elif big:
+            rows["linear_scan"].update(
+                mamba_xla_max_abs_err=err, mamba_xla_ms=ms,
+                mamba_xla_plain_ms=plain_ms, mamba_xla_bound_ms=b_ms)
+        del a, b, h0
+        torch.cuda.empty_cache()
 
     # the launch floor: one one-element PyTorch op in the same harness, the
     # least a kernel launch costs in graph replay
@@ -270,43 +297,74 @@ def phase_kernels(torch, dev):
             rows["minimalist_step"].update(
                 wide_max_abs_err=err, wide_ms=ms, wide_plain_ms=plain_ms, wide_bound_ms=b_ms,
                 wide_library_ms=library_ms)
-    # -- linear_scan_bwd: LM training (batch 8, seq 256, d 960) ----------
+    # -- linear_scan_bwd: LM training (batch 8, seq 256, d 960), and the
+    #    falcon-mamba xla scan's backward ---------------------------------
     for shape, dtype, tol in [((8, 256, 960), torch.bfloat16, 2e-2),
                               ((8, 256, 960), torch.float32, 1e-5),
                               ((3, 77, 1000), torch.float32, 1e-5),
-                              ((3, 77, 1000), torch.bfloat16, 2e-2)]:
+                              ((3, 77, 1000), torch.bfloat16, 2e-2),
+                              (MAMBA_XLA_SCAN, torch.float32, 1e-5)]:
         B, T, D = shape
+        big = shape == MAMBA_XLA_SCAN
         z = torch.sigmoid(torch.randn(shape, device=dev, generator=g))
         a = (1.0 - z).to(dtype)
         b = (z * torch.randn(shape, device=dev, generator=g)).to(dtype)
+        del z
         h0 = torch.randn(B, D, device=dev, generator=g).to(dtype)
         gout = torch.randn(shape, device=dev, generator=g).to(dtype)
         h = scan_ref.linear_scan_associative(a, b, h0)
+        del b
         got = scan_ops.linear_scan_bwd_kernel(a, h, h0, gout)
         want = scan_ref.linear_scan_bwd(a, h, h0, gout)
         torch.cuda.synchronize()
         err = max((x.float() - y.float()).abs().max().item()
                   for x, y in zip(got, want))
+        del got, want
         tag = f"linear_scan_bwd {shape} {str(dtype)[6:]}"
         if not err <= tol:
             fail(f"{tag}: max |kernel - plain| = {err} > {tol}")
 
         def kernel():
             scan_ops.linear_scan_bwd_kernel(a, h, h0, gout)
-        ms = device_ms(torch, kernel, 200)
-        call_ms = eager_ms(torch, kernel, 200)
+        n = 20 if big else 200
+        ms = device_ms(torch, kernel, n)
+        call_ms = eager_ms(torch, kernel, n)
         plain_ms = device_ms(
-            torch, lambda: scan_ref.linear_scan_bwd(a, h, h0, gout), 20)
+            torch, lambda: scan_ref.linear_scan_bwd(a, h, h0, gout),
+            2 if big else 20)
         elt = a.element_size()
         # reads a, g, h, h0 once, writes da, db, dh0 once; 3 flops/element
         b_ms, by = bound((5 * B * T * D + 2 * B * D) * elt, 3 * B * T * D)
         print(f"kernel {tag}: max_abs_err {err:.3g} (tol {tol}) "
-              f"kernel {ms:.4f} ms (eager call {call_ms:.4f} ms), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by})", flush=True)
+              f"kernel {ms:.5f} ms (eager call {call_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({by}; "
+              f"{b_ms / ms:.1%} of it)", flush=True)
         if shape == (8, 256, 960) and dtype == torch.bfloat16:
             rows["linear_scan_bwd"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=by, library_ms=None)
+        elif big:
+            rows["linear_scan_bwd"].update(
+                mamba_xla_max_abs_err=err, mamba_xla_ms=ms,
+                mamba_xla_plain_ms=plain_ms, mamba_xla_bound_ms=b_ms)
+        del a, h, h0, gout
+        torch.cuda.empty_cache()
+
+    # -- the two scan rows in both L2 states: five rounds in alternating
+    #    order with minimalist_step, the SM clock around each round -----
+    from repro_torch.launch.profile import scan_readings
+    print(f"scan readings on {torch.cuda.get_device_name(0)}: L2-warm = "
+          "graph replay of 200 launches on the same inputs, each = each "
+          "launch by its own events after a spin kernel, cold = each "
+          "launch by its own events after 256 MB are written", flush=True)
+    got = scan_readings(dev)
+    for name in ("linear_scan", "linear_scan_bwd"):
+        for mode, key in (("warm", "l2_warm"), ("cold", "l2_cold"),
+                          ("each", "each_launch")):
+            med, spread, _ = got[name][mode]
+            rows[name][f"{key}_ms"] = med
+            rows[name][f"{key}_spread"] = spread
+    rows["linear_scan"]["sm_clocks"] = got["clocks"]
 
     # -- minimalist_block: the system check's layer shape (32 streams,
     #    98 frames, 48 -> 48), the paper's (8, 784, 64 -> 64) and a small
@@ -500,9 +558,10 @@ def _kernel_rows_paged(torch, dev, g):
 
 def _kernel_rows_flash(torch, dev, g):
     """flash_fwd and flash_bwd at the attn_train phase's shape (smollm-360m:
-    batch 4, 15/5 heads of 64, seq 2048, causal, bf16: the tc route) and
-    at gemma3-4b's local layers (8/4 heads of 256, window 1024: the simt
-    route), against their plain versions.  Every bf16 output (out, dq,
+    batch 4, 15/5 heads of 64, seq 2048, causal, bf16: the tc route), at
+    gemma3-4b's local layers (8/4 heads of 256, window 1024: the simt
+    route) and at stablelm-12b's 32/8 heads of 160 (seq 1024, causal: the
+    simt route), against their plain versions.  Every bf16 output (out, dq,
     dk, dv) within one bf16 ulp of the larger magnitude plus 2e-6 (both
     round to bf16 the fp32 results of the same sums taken in another
     order); lse (fp32) within 2e-5 + 2e-5 |plain|."""
@@ -511,9 +570,12 @@ def _kernel_rows_flash(torch, dev, g):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
+    # the path shape; gemma3-4b's local layers; stablelm-12b's 32/8 heads
+    # of 160 (simt route at its own compiled head dim)
     for B, H, KV, S, D, window in [(4, 15, 5, 2048, 64, None),
-                                   (1, 8, 4, 2048, 256, 1024)]:
-        path = window is None
+                                   (1, 8, 4, 2048, 256, 1024),
+                                   (1, 32, 8, 1024, 160, None)]:
+        path = (B, H, D) == (4, 15, 64)
         bf = torch.bfloat16
         q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(bf)
         k = (torch.randn(B, KV, S, D, device=dev, generator=g) * 0.5).to(bf)
@@ -556,7 +618,7 @@ def _kernel_rows_flash(torch, dev, g):
         # yardstick the port never calls: SDPA (GQA), causal, or with a
         # boolean window mask; its backward alone, timed on a retained
         # autograd graph
-        if path:
+        if window is None:
             kw = dict(is_causal=True, enable_gqa=True)
         else:
             kw = dict(attn_mask=fa_ref.attend_mask(S, True, window, dev),
@@ -597,6 +659,13 @@ def _kernel_rows_flash(torch, dev, g):
             rows["flash_bwd"] = dict(
                 max_abs_err=gerr, ms=b_ms, plain_ms=b_plain, bound_ms=bb_ms,
                 bound_by=b_by, library_ms=b_lib)
+        elif D == 160:
+            rows["flash_fwd"].update(
+                d160_max_abs_err=err, d160_ms=f_ms, d160_plain_ms=f_plain,
+                d160_bound_ms=fb_ms, d160_library_ms=f_lib)
+            rows["flash_bwd"].update(
+                d160_max_abs_err=gerr, d160_ms=b_ms, d160_plain_ms=b_plain,
+                d160_bound_ms=bb_ms, d160_library_ms=b_lib)
         del q, k, v, do, out, lse, want, want_lse, grads, wgrads
         torch.cuda.empty_cache()
     return rows
@@ -2214,6 +2283,11 @@ def main():
     design["minimalist_step"] = ("all slots of a column slab in one CTA, "
                                  "16-byte staging, split-K over 8 lanes, "
                                  "codes and biases loaded first")
+    design.update({name: "chunked scan across T: a thread's L steps all "
+                   "loaded before its first FMA, chunk summaries combined "
+                   "in shared memory, re-walk from registers; tiles carry "
+                   "in registers with the next tile's loads in flight"
+                   for name in ("linear_scan", "linear_scan_bwd")})
     kernels = []
     for name in build.KERNELS:
         source, replaces = meta[name]

@@ -27,14 +27,14 @@
 // xor-shuffles.  Tiles live in shared memory as fp32 with a row stride
 // of D+1 (or BK+1), which keeps the column reads of the 16 lanes in 16
 // different banks.  Any S: rows past S are loaded as zeros, masked, and
-// never stored, and keys past S are masked.
+// never stored, and keys past S are masked.  Any head dim up to 256: it
+// runs at the next compiled one (FLASH_DISPATCH_D) with the columns past
+// it loaded as zeros and never stored.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace flash {
 
@@ -91,14 +91,16 @@ __device__ __forceinline__ void q_tiles(int k0, int BK, int BQ, int S,
 
 // ROWS rows of D values from global memory (row stride `ld` elements,
 // first row `row0`) into shared memory as fp32 at row stride D + 1;
-// rows at or past S become zeros.
+// rows at or past S, and columns at or past the true head dim `dim`
+// (<= D, the compiled one), become zeros.
 template <int D, int ROWS, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long ld, int row0, int S) {
+                                          long long ld, int row0, int S,
+                                          int dim) {
   for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int s = row0 + r;
-    dst[r * (D + 1) + d] = s < S ? to_f(src[s * ld + d]) : 0.0f;
+    dst[r * (D + 1) + d] = s < S && d < dim ? to_f(src[s * ld + d]) : 0.0f;
   }
 }
 
@@ -138,28 +140,20 @@ cudaError_t allow_smem(K kernel, int smem, bool* done) {
 
 }  // namespace flash
 
-// Instantiate `FN<T, D, BQ, BK>(args...)` for the head dims the simt
-// route takes: every one in fp32, only 256 in bf16 (bf16 at 16-128 takes
-// the tc route, flash_tc.cuh).  Tiles are 64 x 64, and 32 x 32 at D =
-// 256 where the backward's six fp32 tiles would not fit in shared memory
-// at 64.
+// Instantiate `FN<T, D, BQ, BK>(args...)` of the simt route at the
+// smallest compiled head dim that holds the true one (1 to 256): 16, 32,
+// 64, 128, 160 or 256, in fp32 and bf16.  A true head dim below the
+// compiled one runs with its extra columns zero in shared memory (they
+// add nothing to q.k, and the output columns they would give are not
+// stored); the softmax scale is the true dim's, passed in the params.
+// Tiles are 64 x 64, and 32 x 32 at D = 256 where the backward's six
+// fp32 tiles would not fit in shared memory at 64.  The bf16 head dims of
+// the tc route (16/32/64/128) take flash_tc.cuh unless called here.
 #define FLASH_DISPATCH_D(D, FN, T, ...)                          \
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {         \
-    if (D == 256) return FN<T, 256, 32, 32>(__VA_ARGS__);        \
-    return static_cast<int>(cudaErrorInvalidValue);              \
-  } else {                                                       \
-    switch (D) {                                                 \
-      case 16:                                                   \
-        return FN<T, 16, 64, 64>(__VA_ARGS__);                   \
-      case 32:                                                   \
-        return FN<T, 32, 64, 64>(__VA_ARGS__);                   \
-      case 64:                                                   \
-        return FN<T, 64, 64, 64>(__VA_ARGS__);                   \
-      case 128:                                                  \
-        return FN<T, 128, 64, 64>(__VA_ARGS__);                  \
-      case 256:                                                  \
-        return FN<T, 256, 32, 32>(__VA_ARGS__);                  \
-      default:                                                   \
-        return static_cast<int>(cudaErrorInvalidValue);          \
-    }                                                            \
-  }
+  if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue); \
+  if (D <= 16) return FN<T, 16, 64, 64>(__VA_ARGS__);            \
+  if (D <= 32) return FN<T, 32, 64, 64>(__VA_ARGS__);            \
+  if (D <= 64) return FN<T, 64, 64, 64>(__VA_ARGS__);            \
+  if (D <= 128) return FN<T, 128, 64, 64>(__VA_ARGS__);          \
+  if (D <= 160) return FN<T, 160, 64, 64>(__VA_ARGS__);          \
+  return FN<T, 256, 32, 32>(__VA_ARGS__);

@@ -37,9 +37,11 @@
 //     shared memory, ds and p split into three bf16 parts as the A
 //     operand of dq += ds.K, dv += p^T.do and dk += ds^T.q, each tile's
 //     product added to the fp32 sums in registers (flash_tc.cuh).
-//   * simt (fp32, and bf16 at D 256: flash_bwd_{dq,dkv}_{f32,bf16}): the
-//     first version, on the CUDA cores with p and ds staged in shared
-//     memory as fp32, bound by shared-memory loads.
+//   * simt (fp32, and bf16 at the other head dims up to 256:
+//     flash_bwd_{dq,dkv}_{f32,bf16}; a head dim is run at the next
+//     compiled one, flash_attention.cuh): the first version, on the CUDA
+//     cores with p and ds staged in shared memory as fp32, bound by
+//     shared-memory loads.
 #include "flash_attention.cuh"
 #include "flash_tc.cuh"
 
@@ -59,6 +61,7 @@ struct BwdParams {
   T* dv;
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int H, KV, S, causal, window;
+  int dim;  // the true head dim, <= D
   float scale;
 };
 
@@ -149,9 +152,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdParams<T> p) {
   const T* kb = p.k + b * p.sk.b + kvh * p.sk.h;
   const T* vb = p.v + b * p.sv.b + kvh * p.sv.h;
   const T* ob = p.o + b * p.so.b + h * p.so.h;
-  load_tile<D, BQ>(qs, p.q + b * p.sq.b + h * p.sq.h, p.sq.s, q0, p.S);
+  load_tile<D, BQ>(qs, p.q + b * p.sq.b + h * p.sq.h, p.sq.s, q0, p.S,
+                   p.dim);
   load_tile<D, BQ>(dos, p.dout + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
-                   p.S);
+                   p.S, p.dim);
   __syncthreads();
 
   // delta = rowsum(out * do) in fp32 for this tile's rows
@@ -165,7 +169,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdParams<T> p) {
 #pragma unroll
       for (int j = 0; j < CD; ++j) {
         const int d = tx + 16 * j;
-        part = fmaf(to_f(ob[row * p.so.s + d]), dos[r * LD + d], part);
+        if (d < p.dim)
+          part = fmaf(to_f(ob[row * p.so.s + d]), dos[r * LD + d], part);
       }
     }
     delta[i] = row_sum(part);
@@ -184,8 +189,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdParams<T> p) {
   for (int ki = lo; ki <= hi; ++ki) {
     const int k0 = ki * BK;
     __syncthreads();  // the previous tile's readers of ks, vs, dss are done
-    load_tile<D, BK>(ks, kb, p.sk.s, k0, p.S);
-    load_tile<D, BK>(vs, vb, p.sv.s, k0, p.S);
+    load_tile<D, BK>(ks, kb, p.sk.s, k0, p.S, p.dim);
+    load_tile<D, BK>(vs, vb, p.sv.s, k0, p.S, p.dim);
     __syncthreads();
     float pr[RQ][CK], ds[RQ][CK];
     p_and_ds<D, RQ, CK>(qs, dos, ks, vs, q0, k0, lse, delta, p.S, p.causal,
@@ -218,7 +223,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdParams<T> p) {
     if (row >= p.S) continue;
 #pragma unroll
     for (int j = 0; j < CD; ++j)
-      store_f(dqb + row * p.sdq.s + tx + 16 * j, acc[i][j]);
+      if (tx + 16 * j < p.dim)
+        store_f(dqb + row * p.sdq.s + tx + 16 * j, acc[i][j]);
   }
 }
 
@@ -242,8 +248,10 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdParams<T> p) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = ki * BK;
 
-  load_tile<D, BK>(ks, p.k + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0, p.S);
-  load_tile<D, BK>(vs, p.v + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0, p.S);
+  load_tile<D, BK>(ks, p.k + b * p.sk.b + kvh * p.sk.h, p.sk.s, k0, p.S,
+                   p.dim);
+  load_tile<D, BK>(vs, p.v + b * p.sv.b + kvh * p.sv.h, p.sv.s, k0, p.S,
+                   p.dim);
 
   float dk[RK][CD], dv[RK][CD];
 #pragma unroll
@@ -261,8 +269,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdParams<T> p) {
     for (int qi = lo; qi <= hi; ++qi) {
       const int q0 = qi * BQ;
       __syncthreads();  // the previous tile's readers are done
-      load_tile<D, BQ>(qs, qb, p.sq.s, q0, p.S);
-      load_tile<D, BQ>(dos, dob, p.sdo.s, q0, p.S);
+      load_tile<D, BQ>(qs, qb, p.sq.s, q0, p.S, p.dim);
+      load_tile<D, BQ>(dos, dob, p.sdo.s, q0, p.S, p.dim);
       for (int r = threadIdx.x; r < BQ; r += kThreads) {
         const int row = q0 + r;
         lse_s[r] = row < p.S ? p.lse[row_base + row] : 0.0f;
@@ -319,6 +327,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdParams<T> p) {
     if (row >= p.S) continue;
 #pragma unroll
     for (int j = 0; j < CD; ++j) {
+      if (tx + 16 * j >= p.dim) continue;
       store_f(dkb + row * p.sdk.s + tx + 16 * j, dk[i][j]);
       store_f(dvb + row * p.sdv.s + tx + 16 * j, dv[i][j]);
     }
@@ -365,7 +374,7 @@ BwdParams<T> bwd_params(const void* q, const void* k, const void* v,
       static_cast<T*>(dv), strides_at(st, 0), strides_at(st, 1),
       strides_at(st, 2), strides_at(st, 3), strides_at(st, 4),
       strides_at(st, 5), strides_at(st, 6), strides_at(st, 7), H, KV, S,
-      causal, window, softmax_scale(D)};
+      causal, window, D, softmax_scale(D)};
 }
 
 template <typename T>

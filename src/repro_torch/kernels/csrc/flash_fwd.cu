@@ -25,8 +25,10 @@
 //     added to the rescaled fp32 accumulator in registers (flash_tc.cuh);
 //     the mask is applied only on tiles that cross the diagonal, the
 //     window edge or S.
-//   * simt (fp32, and bf16 at D 256: flash_fwd_f32, flash_fwd_bf16): the
-//     first version: 256 threads a 64-row tile (32 at D 256), K and V in
+//   * simt (fp32, and bf16 at the other head dims up to 256:
+//     flash_fwd_f32, flash_fwd_bf16; a head dim is run at the next
+//     compiled one, flash_attention.cuh): the first version: 256
+//     threads a 64-row tile (32 at D 256), K and V in
 //     shared memory as fp32, register-tiled dots (4 x 4 a thread), p
 //     through shared memory.  Its inner loops run one shared-memory load
 //     per two FMAs, so shared-memory bandwidth, not the FMA rate (67
@@ -45,6 +47,7 @@ struct FwdParams {
   float* lse;
   Strides sq, sk, sv, so;
   int H, KV, S, causal, window;
+  int dim;  // the true head dim, <= D
   float scale;
 };
 
@@ -74,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdParams<T> p) {
   const T* qb = p.q + b * p.sq.b + h * p.sq.h;
   const T* kb = p.k + b * p.sk.b + kvh * p.sk.h;
   const T* vb = p.v + b * p.sv.b + kvh * p.sv.h;
-  load_tile<D, BQ>(qs, qb, p.sq.s, q0, p.S);
+  load_tile<D, BQ>(qs, qb, p.sq.s, q0, p.S, p.dim);
 
   float m[RQ], l[RQ], acc[RQ][CD];
 #pragma unroll
@@ -90,8 +93,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdParams<T> p) {
   for (int ki = lo; ki <= hi; ++ki) {
     const int k0 = ki * BK;
     __syncthreads();  // the previous tile's readers of ks, vs, ps are done
-    load_tile<D, BK>(ks, kb, p.sk.s, k0, p.S);
-    load_tile<D, BK>(vs, vb, p.sv.s, k0, p.S);
+    load_tile<D, BK>(ks, kb, p.sk.s, k0, p.S, p.dim);
+    load_tile<D, BK>(vs, vb, p.sv.s, k0, p.S, p.dim);
     __syncthreads();
 
     float s[RQ][CK];
@@ -162,7 +165,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdParams<T> p) {
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < CD; ++j)
-      store_f(ob + row * p.so.s + tx + 16 * j, acc[i][j] / li);
+      if (tx + 16 * j < p.dim)
+        store_f(ob + row * p.so.s + tx + 16 * j, acc[i][j] / li);
     if (tx == 0) lb[row] = m[i] + logf(li);
   }
 }
@@ -188,7 +192,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                  static_cast<const T*>(v), static_cast<T*>(o),
                  static_cast<float*>(lse), strides_at(strides, 0),
                  strides_at(strides, 1), strides_at(strides, 2),
-                 strides_at(strides, 3), H, KV, S, causal, window,
+                 strides_at(strides, 3), H, KV, S, causal, window, D,
                  softmax_scale(D)};
   const auto st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH_D(D, launch_fwd, T, p, B, st)

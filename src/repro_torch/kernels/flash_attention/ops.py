@@ -9,7 +9,11 @@ runs the two kernels of ``csrc/flash_bwd.cu`` (which replace
 or :func:`ref.flash_attention_bwd_ref`.  On a CUDA tensor they launch or
 raise.  Each source has two routes, picked by :func:`route`: ``tc``
 (bf16 at head dims 16/32/64/128: wgmma tiles fed by TMA, P and dS split
-into bf16 hi + lo) and ``simt`` (fp32, and bf16 at 256: the CUDA cores).
+into bf16 hi + lo) and ``simt`` (fp32, and bf16 at every other head dim
+up to 256: the CUDA cores).  The simt kernels are compiled at head dims
+16, 32, 64, 128, 160 and 256 and run any other at the next of these,
+with the extra columns read as zeros and never written, and the softmax
+scale of the true head dim; a head dim above 256 is refused.
 A launch that fails on the tc route raises; it is never retried on the
 other.  ``flash_fwd_kernel.launches`` counts forward launches and
 ``.launches_tc`` those on the tc route; ``flash_bwd_kernel.launches_dq``
@@ -33,8 +37,8 @@ import torch
 from repro_torch.kernels import build, check_devices, on_cpu
 from repro_torch.kernels.flash_attention import ref
 
-#: Head dims the CUDA kernels are compiled for.
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: The largest head dim the CUDA kernels take (every one from 1 up).
+MAX_HEAD_DIM = 256
 #: Head dims of the tensor-core route (bf16 only).
 TC_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -42,8 +46,9 @@ TC_HEAD_DIMS = (16, 32, 64, 128)
 def route(dtype, head_dim):
     """The kernels' route for inputs of ``dtype`` and ``head_dim``:
     ``"tc"`` (wgmma fed by TMA) for bf16 at 16/32/64/128, else ``"simt"``
-    (the CUDA cores: fp32 has no exact bf16 product, and at 256 the dK/dV
-    accumulators of a warpgroup would not fit its registers)."""
+    (the CUDA cores: fp32 has no exact bf16 product, at 256 the dK/dV
+    accumulators of a warpgroup would not fit its registers, and the
+    other head dims run padded at a compiled one)."""
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS \
         else "simt"
 
@@ -92,8 +97,8 @@ def _check(what, q, k, v, window, extra=()):
                          f"{tuple(k.shape)} (B, S, D and H % KV)")
     if any(t.shape != q.shape for t in extra):
         raise ValueError(f"{what}: out / do must have q's shape")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {D} outside 1..{MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window {window} < 1")
     if any(t.stride(-1) != 1 for t in tensors):

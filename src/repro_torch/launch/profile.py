@@ -1,7 +1,7 @@
 """Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn,paged,imc,ssm]
+        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -31,6 +31,19 @@ The ``ssm`` section times the fused selective scan's kernels alone
 shapes, (4, 2048, 8192, 16) and (3, 1000, 1000, 16) fp32:
 ``fused_ssm_fwd_kernel``, ``fused_ssm_bwd_kernel`` with the sums of its
 partials, and those sums alone on tensors of the partials' shape.
+
+The ``scan`` section times the linear-scan kernels alone (card name and
+power limit first) in two L2 states, as chip_smoke's kernel phase does
+(:func:`scan_readings`): L2-warm, 200 launches on the same inputs in
+graph replay (the inputs stay in the 50 MB L2), and L2-cold, each launch
+timed by its own CUDA events after 256 MB are written between launches
+(outside the events); also each launch by its own events after a spin
+kernel that touches no memory instead of the write, which separates the
+events' own cost from the L2's.  Five rounds, the kernels in alternating
+order with ``minimalist_step`` (8, 64 -> 64) as a neighbouring row, and
+the SM clock (``nvidia-smi``) before and after each round; then the
+forward at the training shape and at falcon-mamba's ``ssm_impl="xla"``
+shape (1, 2048, 131072) fp32.
 
 The ``paged`` section has no training split: for one ``decode_step_paged``
 (4 slots at position 200, bf16 and then int8 pages) it prints the eager
@@ -119,13 +132,14 @@ def sass_order(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--sections", default="lm,qat,mamba,attn,paged,imc,ssm",
+    ap.add_argument("--sections",
+                    default="lm,qat,mamba,attn,paged,imc,ssm,scan",
                     help="comma-separated subset of lm, qat, mamba, attn, "
-                    "paged, imc, ssm")
+                    "paged, imc, ssm, scan")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
     if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc",
-                        "ssm"}:
+                        "ssm", "scan"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
@@ -154,6 +168,9 @@ def main(argv=None):
         _imc(dev)
     if "ssm" in sections:
         _ssm(dev)
+    if "scan" in sections:
+        print(f"scan on {_card()}", flush=True)
+        scan_readings(dev)
 
 
 def _graph_ms(fn, iters):
@@ -398,6 +415,121 @@ def _ssm(dev):
               "MB) (graph replay)", flush=True)
         del dt, x, Bm, Cm, A, dy, ins, ent, dBp, dCp, dAp
         torch.cuda.empty_cache()
+
+
+def sm_clock():
+    """The SM clock now, as ``nvidia-smi`` reads it (e.g. "1980 MHz")."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def _events_each_ms(fn, iters, flush=None):
+    """Each of ``iters`` launches of ``fn`` timed by its own CUDA events,
+    the median in ms.  Before each launch, outside the events, either
+    ``flush`` (a tensor larger than the L2) is written or, without one, a
+    spin kernel of about 50 us that touches no memory runs: either keeps
+    the card busier than the host takes to enqueue the next launch, so no
+    host gap falls inside the events."""
+    for _ in range(3):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in ev:
+        if flush is not None:
+            flush.zero_()
+        else:
+            torch.cuda._sleep(100_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in ev)
+    return ms[len(ms) // 2]
+
+
+def _spread(xs):
+    """The median of ``xs`` and their spread, (max - min) / median."""
+    xs = sorted(xs)
+    med = xs[len(xs) // 2]
+    return med, (xs[-1] - xs[0]) / med
+
+
+def scan_inputs(dev, g, shape, dtype):
+    """a, b, h0, g_out as chip_smoke's scan rows make them."""
+    z = torch.sigmoid(torch.randn(shape, device=dev, generator=g))
+    a = (1.0 - z).to(dtype)
+    b = (z * torch.randn(shape, device=dev, generator=g)).to(dtype)
+    h0 = torch.randn(shape[0], shape[2], device=dev, generator=g).to(dtype)
+    gout = torch.randn(shape, device=dev, generator=g).to(dtype)
+    return a, b, h0, gout
+
+
+def scan_readings(dev, rounds=5):
+    """``linear_scan`` at the LM's prefill chunk (4, 256, 960) bf16 and
+    ``linear_scan_bwd`` at the training shape (8, 256, 960) bf16, each
+    read ``rounds`` times L2-warm (graph replay), per launch and L2-cold
+    (see the module docstring), in alternating order with
+    ``minimalist_step`` (8, 64 -> 64); the SM clock before and after each
+    round.  Prints every reading and returns {kernel: {mode: (median,
+    spread, readings)}} with ``"clocks"`` the SM clock readings."""
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.kernels.minimalist_block import ops as mb_ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b, h0, _ = scan_inputs(dev, g, (4, 256, 960), torch.bfloat16)
+    a2, b2, h02, g2 = scan_inputs(dev, g, (8, 256, 960), torch.bfloat16)
+    h2 = scan_ops.linear_scan_kernel(a2, b2, h02)
+    x, layer, hp = _step_inputs(dev, g, 8, 64, 64)
+    rows = {
+        "linear_scan": lambda: scan_ops.linear_scan_kernel(a, b, h0),
+        "linear_scan_bwd": lambda: scan_ops.linear_scan_bwd_kernel(
+            a2, h2, h02, g2),
+        "minimalist_step": lambda: mb_ops.minimalist_step_kernel(
+            x, *layer, hp),
+    }
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    modes = {"warm": lambda fn: _graph_ms(fn, 200),
+             "each": lambda fn: _events_each_ms(fn, 50),
+             "cold": lambda fn: _events_each_ms(fn, 50, flush)}
+    got = {name: {m: [] for m in modes} for name in rows}
+    clocks = []
+    for r in range(rounds):
+        order = list(rows) if r % 2 == 0 else list(rows)[::-1]
+        clocks.append(sm_clock())
+        for name in order:
+            for m in (modes if r % 2 == 0 else list(modes)[::-1]):
+                got[name][m].append(modes[m](rows[name]))
+        clocks.append(sm_clock())
+        print(f"scan readings round {r + 1} ({' '.join(order)}): SM clock "
+              f"{clocks[-2]} before, {clocks[-1]} after", flush=True)
+    out = {"clocks": clocks}
+    for name in rows:
+        out[name] = {}
+        for m in modes:
+            med, spread = _spread(got[name][m])
+            out[name][m] = (med, spread, got[name][m])
+            each = ", ".join(f"{v:.5f}" for v in got[name][m])
+            print(f"  {name} {m:4s}: median {med:.5f} ms, spread "
+                  f"{spread:.1%} ({each})", flush=True)
+    del flush, a, b, h0, a2, b2, h02, g2, h2
+    # the forward at the training shape and at falcon-mamba's xla shape
+    for shape, dtype in [((8, 256, 960), torch.bfloat16),
+                         ((1, 2048, 131072), torch.float32)]:
+        a, b, h0, _ = scan_inputs(dev, g, shape, dtype)
+
+        def fn():
+            scan_ops.linear_scan_kernel(a, b, h0)
+        flush = torch.empty(256 * 2**20 // 4, device=dev)
+        n = 200 if shape[2] < 10**4 else 20
+        warm, cold = _graph_ms(fn, n), _events_each_ms(fn, 20, flush)
+        print(f"  linear_scan {shape} {str(dtype)[6:]}: warm {warm:.5f} ms, "
+              f"cold {cold:.5f} ms", flush=True)
+        out[f"linear_scan {shape}"] = {"warm": warm, "cold": cold}
+        del a, b, h0, flush
+        torch.cuda.empty_cache()
+    return out
 
 
 def _step_inputs(dev, g, B, K, N):

@@ -33,11 +33,25 @@ def cuda():
     return torch.device("cuda")
 
 
+# the chunked scan's edges (csrc/linear_scan.cuh: chunks of 8 or 16
+# steps, blocks of up to 512 threads, several tiles of T walked in turn
+# past that): T of one step, one below and one above a chunk of each
+# length, T past a whole tile (at D 40, forward and backward, fp32 and
+# bf16), a long T at a narrow D (the next tile's loads in flight), a D
+# that two but not four divides and an odd D at sizes that would take
+# the vector route, 4-element vectors over several tiles, B = 1 at the
+# LM's prefill chunk
+SCAN_EDGE_SHAPES = [(2, 1, 7), (1, 7, 33), (1, 9, 33), (1, 15, 33),
+                    (1, 17, 33), (2, 513, 40), (2, 257, 40), (1, 1025, 40),
+                    (2, 2048, 64), (2, 1024, 2050), (2, 1024, 2051),
+                    (4, 512, 8192), (1, 256, 960)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(3, 77, 1000), (4, 256, 960),
-                                   (1, 5, 3)])
+                                   (1, 5, 3)] + SCAN_EDGE_SHAPES)
 def test_linear_scan_kernel_matches_plain(cuda, shape, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(0)
     z = torch.sigmoid(torch.randn(shape, device=cuda, generator=g))
@@ -132,7 +146,7 @@ def _scan_inputs(shape, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(3, 77, 1000), (8, 256, 960), (1, 5, 3),
-                                   (2, 1, 7)])
+                                   (2, 1, 7)] + SCAN_EDGE_SHAPES[1:])
 def test_linear_scan_bwd_kernel_matches_plain(cuda, shape, dtype, tol):
     a, b, h0, gout = _scan_inputs(shape, dtype, cuda)
     h = scan_ref.linear_scan_associative(a, b, h0)
@@ -477,6 +491,12 @@ FLASH_CASES = [
     (1, 2, 2, 64, 128, True, None),
     (4, 15, 5, 2048, 64, True, None),
     (1, 8, 4, 2048, 256, True, 1024),
+    # head dims between the compiled ones: stablelm-12b's 160 (compiled)
+    # and 80 (run at 128 with its extra columns zero), causal and windowed
+    (1, 4, 2, 300, 160, True, None),
+    (1, 4, 1, 300, 160, True, 64),
+    (2, 3, 3, 130, 80, True, None),
+    (1, 4, 2, 200, 80, True, 48),
 ]
 
 
@@ -707,8 +727,14 @@ def test_flash_wrappers_raise_instead_of_falling_back(cuda):
         fa_ops.flash_fwd_kernel(q, k.cpu(), v)
     with pytest.raises(ValueError, match="dtype"):
         fa_ops.flash_fwd_kernel(q, k.bfloat16(), v)
+    # every head dim up to 256 runs (FLASH_CASES); above it the card
+    # refuses, the one head-dim divergence from the CPU path
+    wide = _flash_inputs(cuda, 1, 4, 2, 32, 264, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
-        fa_ops.flash_fwd_kernel(q[..., :48], k[..., :48], v[..., :48])
+        fa_ops.flash_fwd_kernel(*wide[:3])
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_bwd_kernel(*wide[:3], wide[0], torch.zeros(
+            1, 4, 32, device=cuda), wide[3])
     with pytest.raises(ValueError, match="H % KV"):
         fa_ops.flash_fwd_kernel(q[:, :3], k, v)
     with pytest.raises(ValueError, match="contiguous"):

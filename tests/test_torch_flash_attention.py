@@ -53,7 +53,7 @@ def _np(x):
 
 @pytest.mark.parametrize("B,H,KV,S,D", [
     (1, 1, 1, 8, 8), (1, 2, 2, 64, 16), (2, 4, 2, 128, 32),
-    (1, 6, 2, 96, 64), (1, 8, 1, 256, 16),
+    (1, 6, 2, 96, 64), (1, 8, 1, 256, 16), (1, 2, 1, 64, 160),
 ])
 def test_forward_matches_reference(B, H, KV, S, D):
     q, k, v = _inputs(B, H, KV, S, D, seed=S + H)
@@ -206,10 +206,11 @@ def test_wrappers_refuse_mixed_devices():
 
 # -- the tensor-core route (bf16 at head dims 16-128) ----------------------
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256, 80, 160])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_route_picks_tc_for_bf16_up_to_head_dim_128(dtype, D):
-    want = "tc" if dtype == torch.bfloat16 and D <= 128 else "simt"
+    want = "tc" if dtype == torch.bfloat16 and D in (16, 32, 64, 128) \
+        else "simt"
     assert ops.route(dtype, D) == want
 
 
