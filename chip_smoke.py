@@ -12,8 +12,10 @@ Phases, each fatal on failure:
                time kernel, plain version and (where one exists) one
                PyTorch library call computing the same function; the
                two scan kernels also L2-warm and L2-cold, five rounds
-               in alternating order, with the SM clock around each.
-  3. lm      — serve full-width minimalist-lm-360m (random weights from a
+               in alternating order, with the SM clock around each;
+               the MLA pair on its tc route and, at the path and odd
+               shapes, on its simt route too (unaligned bf16 queries).
+  3. lm     — serve full-width minimalist-lm-360m (random weights from a
                seed) through ServeEngine: 8 greedy requests, 4 slots,
                prefill through the linear_scan kernel; then the same
                requests with the plain scan, greedy tokens compared.
@@ -64,10 +66,11 @@ Phases, each fatal on failure:
                from a seed) from paged latent pools through build_engine: 8
                greedy requests with 256-1024-token prompts, 4 slots, page
                16, every decode step through the paged_mla kernel (bf16
-               pages); the gather read (margin rule), int8 pages through
-               paged_mla_q8, the kernel against the gather read on a copy
-               with the output projections x32, and a shared 512-token
-               prefix with and without the prefix cache (streams equal).
+               pages) on its tensor-core (tc) route; the gather read
+               (margin rule), int8 pages through paged_mla_q8 (tc route
+               too), the kernel against the gather read on a copy with the
+               output projections x32, and a shared 512-token prefix with
+               and without the prefix cache (streams equal).
  11. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
@@ -803,62 +806,99 @@ def _kernel_rows_ssm(torch, dev, g):
     return rows
 
 
-def _mla_case(torch, dev, g, *, B, H, r, dr, ps, length, pos, q8):
-    """Inputs of one paged MLA decode read: random disjoint latent chains
-    in a pool twice the chains' size (the rest holds other tenants'
-    pages), bf16 queries and pages (int8 codes with per-page scales)."""
-    n = -(-length // ps)
-    num_pages = 2 * B * n
-    perm = torch.randperm(num_pages, device=dev, generator=g)
-    bt = perm[:B * n].reshape(B, n).to(torch.int32).contiguous()
-    bf = torch.bfloat16
-    qa = torch.randn(B, H, r, device=dev, generator=g).to(bf)
-    qr = torch.randn(B, H, dr, device=dev, generator=g).to(bf)
-    pc = torch.randn(num_pages, ps, r, device=dev, generator=g)
-    pr = torch.randn(num_pages, ps, dr, device=dev, generator=g)
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-    if not q8:
-        return qa, qr, pc.to(bf), pr.to(bf), (), bt, pos
-    from repro_torch.kernels.paged_attention import quant as kvq
-    cs, rs = kvq.page_abs_scale(pc), kvq.page_abs_scale(pr)
-    return qa, qr, kvq.quantize(pc, cs), kvq.quantize(pr, rs), (cs, rs), \
-        bt, pos
+def _mla_simt(torch, kern, tag, inputs, kw, sk):
+    """The simt route (paged_mla.cuh) of one MLA wrapper on the same bf16
+    inputs, reached through the route rule: q_abs one element off 16-byte
+    alignment.  Held against the plain version at one bf16 ulp + 2e-6; it
+    must count in launches and not in launches_tc -> (max |kernel -
+    plain|, a call of it)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    qa, qr, pc, pr, sc, bt, pos_t = inputs
+    buf = torch.empty(qa.numel() + 1, dtype=qa.dtype, device=qa.device)
+    qa = buf[1:].view(qa.shape).copy_(qa)
+    route = pa_ops.mla_route(
+        qa.dtype, pc.dtype, qa.shape[2], qr.shape[2], pc.shape[1],
+        all(t.data_ptr() % 16 == 0 for t in (qa, qr, pc, pr)))
+    n0, tc0 = kern.launches, kern.launches_tc
+    got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+    moved = (kern.launches - n0, kern.launches_tc - tc0)
+    tag = f"{tag} unaligned bf16 q, simt route"
+    if route != "simt" or moved != (1, 0):
+        fail(f"{tag}: route {route}, (launches, launches_tc) moved by "
+             f"{moved}, not (1, 0)")
+    want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos_t, **kw, **sk)
+    torch.cuda.synchronize()
+    n_bad, err = _past_bf16_ulp(torch, got, want)
+    if n_bad:
+        fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 at "
+             f"{n_bad} outputs (max {err})")
+    print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp + 2e-6)",
+          flush=True)
+    return err, lambda: kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
 
 
 def _kernel_rows_mla(torch, dev, g):
-    """paged_mla and paged_mla_q8 at the mla_paged phase's decode shape
-    (4 slots, deepseek-v3-671b's 128 heads, kv_lora 512, rope 64, page
-    16, cache 1056, pos 1055) and at an odd one (20 heads, off the
-    kernels' 8-head blocks; a partial last page; one request with
-    pos < length - 1), against the plain version: one bf16 ulp of the
-    output plus 2e-6."""
+    """paged_mla and paged_mla_q8 at mla_shapes.MLA_SHAPES (kv_lora 512,
+    rope 64, page 16, bf16 queries: the tc route) against the plain
+    version: one bf16 ulp of the output plus 2e-6; the build's registers,
+    spills and resident CTAs of each tc instantiation first.  At the path
+    and odd shapes the simt route too (:func:`_mla_simt`)."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.launch.mla_shapes import MLA_SHAPES, mla_inputs
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     r, dr, ps = 512, 64, 16
     scale = 1.0 / (128 + 64) ** 0.5      # 1 / sqrt(nope + rope)
-    cases = [(4, 128, 1056, [1055] * 4), (3, 20, 100, [99, 37, 99])]
+    for q8 in (False, True):
+        name = "paged_mla_q8" if q8 else "paged_mla"
+        info = pa_ops.mla_kernel_info(q8)
+        print(f"kernel {name} tc route build: {info['registers']} registers, "
+              f"{info['local_bytes']} local (spill) bytes a thread, "
+              f"{info['smem_bytes']} B dynamic shared memory, "
+              f"{info['blocks_per_sm']} CTA(s) of {info['threads']} threads "
+              "resident an SM", flush=True)
+        if info["local_bytes"]:
+            fail(f"{name}: the tc route spills ({info})")
     for q8 in (False, True):
         name = "paged_mla_q8" if q8 else "paged_mla"
         kern = pa_ops.paged_mla_q8_kernel if q8 else pa_ops.paged_mla_kernel
-        for B, H, length, pos in cases:
-            path = H == 128
-            qa, qr, pc, pr, sc, bt, pos_t = _mla_case(
-                torch, dev, g, B=B, H=H, r=r, dr=dr, ps=ps, length=length,
-                pos=pos, q8=q8)
+        for label, B, H, length, pos in MLA_SHAPES:
+            qa, qr, pc, pr, sc, bt, pos_t = mla_inputs(
+                dev, g, B, H, length, pos, q8, ps=ps, r=r, dr=dr)
+            route = pa_ops.mla_route(
+                qa.dtype, pc.dtype, r, dr, ps,
+                all(t.data_ptr() % 16 == 0 for t in (qa, qr, pc, pr)))
             kw = dict(length=length, scale=scale)
             sk = dict(zip(("ckv_scale", "krope_scale"), sc))
+            tc0 = kern.launches_tc
             got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+            if route != "tc" or kern.launches_tc - tc0 != 1:
+                fail(f"{name} {label}: not on the tc route ({route}; "
+                     f"launches_tc moved by {kern.launches_tc - tc0})")
             want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos_t, **kw, **sk)
             torch.cuda.synchronize()
             n_bad, err = _past_bf16_ulp(torch, got, want)
-            tag = (f"{name} (B {B}, H {H}, r {r}, dr {dr}, page {ps}, "
-                   f"length {length}, pos {pos}) bf16 q")
+            del got, want
+            tag = (f"{name} {label} (B {B}, H {H}, r {r}, dr {dr}, page {ps}, "
+                   f"length {length}, pos {pos if B < 8 else pos[0]}) bf16 "
+                   f"q, {route} route")
             if n_bad:
                 fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
                      f"at {n_bad} outputs (max {err})")
+            simt = {}
+            if label != "long":
+                inputs = (qa, qr, pc, pr, sc, bt, pos_t)
+                simt_err, simt_call = _mla_simt(torch, kern, f"{name} {label}",
+                                                inputs, kw, sk)
+                simt["simt_max_abs_err"] = simt_err
+                simt["simt_ms"] = device_ms(torch, simt_call, 50)
+                print(f"kernel {name} {label} simt route (unaligned bf16 q): "
+                      f"{simt['simt_ms']:.4f} ms", flush=True)
+                del simt_call
 
             def kernel():
                 kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
@@ -868,7 +908,8 @@ def _kernel_rows_mla(torch, dev, g):
                 qa, qr, pc, pr, bt, pos_t, **kw, **sk), 10)
             # yardstick the port never calls: one SDPA call over the
             # gathered dense (dequantized) latent view, q = [q_abs, q_rope],
-            # k = [ckv, krope] as one shared head, v = ckv
+            # k = [ckv, krope], v = ckv: one head, the H query heads (which
+            # share the latent) along the query axis
             if q8:
                 cd = pa_ref.gather_dequant(pc, sc[0], bt, length,
                                            torch.bfloat16)
@@ -877,14 +918,14 @@ def _kernel_rows_mla(torch, dev, g):
             else:
                 cd = pa_ref.gather_pages(pc, bt, length)
                 rd = pa_ref.gather_pages(pr, bt, length)
-            qd = torch.cat([qa, qr], dim=-1)[:, :, None, :]
+            qd = torch.cat([qa, qr], dim=-1)[:, None]
             kd = torch.cat([cd, rd], dim=-1)[:, None]
             vd = cd[:, None]
             _kp, valid = pa_ref.paged_positions(pos_t, length)
             mask = valid[:, None, None, :]
             library_ms = device_ms(torch, lambda: sdpa(
-                qd, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True),
-                100)
+                qd, kd, vd, attn_mask=mask, scale=scale),
+                100 if B < 8 else 20)
             # bytes and flops that this run's positions need: each row's
             # live latent pages, q and out, the block table
             flops = bytes_ = 0
@@ -899,13 +940,18 @@ def _kernel_rows_mla(torch, dev, g):
                   f"ms), plain {plain_ms:.4f} ms, library (SDPA on the "
                   f"dense latent view) {library_ms:.4f} ms, bound "
                   f"{b_ms:.5f} ms ({by}, bf16 tensor peak; "
-                  f"{flops / 1e9:.2f} GFLOP, {bytes_ / 1e6:.2f} MB)",
-                  flush=True)
-            if path:
+                  f"{flops / 1e9:.2f} GFLOP, {bytes_ / 1e6:.2f} MB; "
+                  f"{b_ms / ms:.1%} of it)", flush=True)
+            if label == "path":
                 rows[name] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, library_ms=library_ms)
-            del qa, qr, pc, pr, sc, cd, rd, qd, kd, vd
+                    bound_by=by, library_ms=library_ms, mla_route=route,
+                    **simt)
+            elif label == "long":
+                rows[name].update(long_ms=ms, long_bound_ms=b_ms,
+                                  long_library_ms=library_ms)
+            del qa, qr, pc, pr, sc, bt, pos_t, cd, rd, qd, kd, vd, mask
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1960,6 +2006,7 @@ def phase_mla_paged(torch, dev):
     model = build_model(cfg, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
     kernels = (pa_ops.paged_mla_kernel, pa_ops.paged_mla_q8_kernel)
+    tc_launches = {}
 
     def variant(**kw):
         other = build_model(dataclasses.replace(cfg, **kw), device=dev)
@@ -1986,9 +2033,12 @@ def phase_mla_paged(torch, dev):
         torch.cuda.reset_peak_memory_stats(dev)
         for k in kernels:
             k.launches = 0
+            k.launches_tc = 0
         eng, reqs, dt = _serve_mla(torch, mdl, prompts, gen_tokens, **kw)
         launches = kernel.launches if kernel is not None else sum(
             k.launches for k in kernels)
+        if kernel is not None:
+            tc_launches[tag] = kernel.launches_tc
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
         for r in reqs:
             toks = r.tokens
@@ -2022,8 +2072,11 @@ def phase_mla_paged(torch, dev):
     if launches == 0 or launches != cfg.n_layers * eng.n_steps:
         fail(f"mla_paged bf16: paged_mla launches {launches} != "
              f"{cfg.n_layers} layers x {eng.n_steps} decode steps")
+    if tc_launches["bf16 kernel"] != launches:
+        fail(f"mla_paged bf16: {tc_launches['bf16 kernel']} of {launches} "
+             "paged_mla launches on the tc route")
     print(f"mla_paged: paged_mla launches {launches} = {cfg.n_layers} layers "
-          f"x {eng.n_steps} decode steps", flush=True)
+          f"x {eng.n_steps} decode steps, all on the tc route", flush=True)
 
     # one 4-slot decode step at position 1055 (the longest chains): called
     # eagerly vs its kernels replayed from a CUDA graph; the difference is
@@ -2091,6 +2144,9 @@ def phase_mla_paged(torch, dev):
     if q8_launches == 0 or q8_launches != cfg.n_layers * qeng.n_steps:
         fail(f"mla_paged int8: paged_mla_q8 launches {q8_launches} != "
              f"{cfg.n_layers} layers x {qeng.n_steps} decode steps")
+    if tc_launches["int8 kernel"] != q8_launches:
+        fail(f"mla_paged int8: {tc_launches['int8 kernel']} of {q8_launches} "
+             "paged_mla_q8 launches on the tc route")
     same = sum(int(np.sum(np.asarray(a.tokens) == np.asarray(b.tokens)))
                for a, b in zip(reqs, qreqs))
     firsts = [_first_divergence(a.tokens, b.tokens) for a, b in
@@ -2099,8 +2155,8 @@ def phase_mla_paged(torch, dev):
           f"{pool_int8 / 2**20:.2f} MiB ({pool_int8 / pool_bf16:.3f}x); "
           f"int8 greedy tokens equal bf16's at {same}/"
           f"{len(reqs) * gen_tokens} positions; first divergence per "
-          f"request {firsts}; paged_mla_q8 launches {q8_launches}",
-          flush=True)
+          f"request {firsts}; paged_mla_q8 launches {q8_launches}, all on "
+          "the tc route", flush=True)
     del qmodel, qeng
 
     # (b') random weights give few-token greedy streams, so the kernel is
@@ -2283,6 +2339,12 @@ def main():
     design["minimalist_step"] = ("all slots of a column slab in one CTA, "
                                  "16-byte staging, split-K over 8 lanes, "
                                  "codes and biases loaded first")
+    design.update({name: "tc route: 64 heads of a request a CTA over a "
+                   "range of its live pages (cut on the card from pos), TMA "
+                   "page ring (int8 widened to bf16 in shared memory), bf16 "
+                   "wgmma for the scores and for the latent sum with P in "
+                   "three bf16 parts, fp32 range partials and a second pass"
+                   for name in ("paged_mla", "paged_mla_q8")})
     design.update({name: "chunked scan across T: a thread's L steps all "
                    "loaded before its first FMA, chunk summaries combined "
                    "in shared memory, re-walk from registers; tiles carry "

@@ -81,10 +81,14 @@ SIGNATURES = {
     "paged_mla": {
         "paged_mla_f32": [_P] * 9 + [_I] * 10 + [_F, _P],
         "paged_mla_bf16": [_P] * 9 + [_I] * 10 + [_F, _P],
+        "paged_mla_bf16_tc": [_P] * 9 + [_I] * 9 + [_F, _P],
+        "paged_mla_tc_info": [_P],
     },
     "paged_mla_q8": {
         "paged_mla_q8_f32": [_P] * 11 + [_I] * 10 + [_F, _P],
         "paged_mla_q8_bf16": [_P] * 11 + [_I] * 10 + [_F, _P],
+        "paged_mla_q8_bf16_tc": [_P] * 11 + [_I] * 9 + [_F, _P],
+        "paged_mla_q8_tc_info": [_P],
     },
     "imc_mvm": {
         "imc_mvm_f32": [_P] * 4 + [_I] * 3 + [_P],

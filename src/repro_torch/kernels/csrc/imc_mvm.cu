@@ -412,13 +412,11 @@ int launch(const void* x, const void* codes, const void* scale, void* out,
     err = make_map(&ymap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, M, N, kBM,
                    32, CU_TENSOR_MAP_L2_PROMOTION_NONE);
   if (err) return err;
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        imc_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sized = true;
-  }
+  // on every launch: the attribute belongs to the current device's
+  // context, and a host-side call costs less than a microsecond
+  const cudaError_t e = cudaFuncSetAttribute(
+      imc_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   imc_tc_kernel<<<grid, kThreads, kSmem, stream>>>(
       xmap, cmap, ymap, static_cast<const float*>(scale), K, N);

@@ -1,6 +1,8 @@
 // One-token weight-absorbed MLA decode read through a block table: the
-// body shared by paged_mla.cu (bf16/fp32 latent pools) and paged_mla_q8.cu
-// (int8 latent pools with one float32 scale per page).
+// CUDA-core ("simt") route shared by paged_mla.cu (bf16/fp32 latent pools)
+// and paged_mla_q8.cu (int8 latent pools with one float32 scale per page),
+// which fp32 queries and the shapes ops.mla_route does not give the
+// tensor-core route (paged_mla_tc.cuh) take.
 //
 // q_abs (B, H, r), q_rope (B, H, dr); pool_ckv (P, ps, r), pool_krope
 // (P, ps, dr); bt (B, bt_cols) int32 page ids; pos (B,) int32 -> out
@@ -40,9 +42,9 @@
 // and reads every page once per head group (H / kHeads times, from L2
 // after the first: a request's latent chain is ~1.2 MB at 1056
 // positions), and its ranges' partial sums (B * H * n_split * r fp32)
-// make a round trip through memory.  All heads of a request reading each
-// page once (one cluster, or all heads in one block with the accumulator
-// in registers across warps) and mma/wgmma dots are the next steps.
+// make a round trip through memory.  The tc route (paged_mla_tc.cuh)
+// reads each page once per 64 heads and runs the dots on wgmma; this route
+// stays for fp32 queries and the shapes the tc route does not take.
 #pragma once
 
 #include <cuda_bf16.h>

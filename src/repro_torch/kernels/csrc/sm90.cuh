@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed wgmma
-// through TMA (flash_tc.cuh, imc_mvm.cu): mbarriers, the wgmma fences and
-// shared-memory matrix descriptors, 2-D TMA copies, and the host-side
-// lookup of cuTensorMapEncodeTiled.
+// through TMA (flash_tc.cuh, imc_mvm.cu, paged_mla_tc.cuh): mbarriers, the
+// wgmma fences and shared-memory matrix descriptors, 2-D and 3-D TMA
+// copies, and the host-side lookup of cuTensorMapEncodeTiled.
 #pragma once
 
 #include <cuda.h>
@@ -65,7 +65,7 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// -- TMA (2-D) -----------------------------------------------------------
+// -- TMA (2-D, 3-D) -------------------------------------------------------
 
 // The box of `map` at (c0, c1) (innermost first) into shared memory at
 // `dst`, completing on `bar`; elements past the tensor read as zeros.
@@ -77,6 +77,20 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// The box of a 3-D `map` at (c0, c1, c2) (innermost first), as
+// tma_load_2d.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -108,6 +122,10 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most one committed group of wgmmas is pending.
+__device__ __forceinline__ void wg_wait_1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // Keep the compiler from moving reads of an accumulator above the wait.
 template <int R>

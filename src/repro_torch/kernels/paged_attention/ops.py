@@ -12,7 +12,9 @@ pages (``csrc/paged_mla.cu`` and ``csrc/paged_mla_q8.cu``, replacing
 float32 scale per page).  When every input lies on the CPU a wrapper
 takes its plain version (:func:`ref.paged_gqa_ref`,
 :func:`ref.paged_mla_ref`); otherwise it launches the kernel or raises.
-Each counts its launches in ``<wrapper>.launches``.
+Each counts its launches in ``<wrapper>.launches``; the MLA wrappers also
+count those of their tensor-core route (:func:`mla_route`) in
+``<wrapper>.launches_tc``.
 
 :func:`paged_gqa_attention` and :func:`paged_mla_attention` dispatch one
 single-token decode read:
@@ -25,6 +27,8 @@ single-token decode read:
 Decode is inference-only: no autograd here.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -216,7 +220,8 @@ def paged_gqa_attention(q, pool_k, pool_v, block_tables, pos, *, length,
 
 # --- MLA over latent pages -----------------------------------------------
 
-#: Query heads one block of the MLA kernels holds (``paged_mla.cuh``).
+#: Query heads one block of the MLA kernels' simt route holds
+#: (``paged_mla.cuh``).
 MLA_HEADS_PER_BLOCK = 8
 #: Latent ranks the MLA kernels take: multiples of 4 (float4 rows), ``r``
 #: at most 1024 (each thread keeps two float4 accumulator columns).
@@ -243,6 +248,60 @@ def _mla_splits(B, H, n_pages, sm_count):
     groups = B * -(-H // MLA_HEADS_PER_BLOCK)
     want = -(-_MLA_BLOCKS_PER_SM * sm_count // max(groups, 1))
     return max(1, min(n_pages, want))
+
+
+#: The tensor-core route (``paged_mla_tc.cuh``): query heads of a CTA (one
+#: wgmma M tile), latent rows of a ring stage, the ranks and page sizes it
+#: takes.
+MLA_TC_HEADS = 64
+MLA_TC_ROWS = 32
+MLA_TC_RANKS = (512, 64)
+MLA_TC_PAGE_SIZES = (8, 16, 32)
+#: Most pages of one range on the tc route (their ids sit in shared memory).
+MLA_TC_MAX_RANGE = 256
+
+
+def mla_route(q_dtype, kv_dtype, r, dr, ps, aligned):
+    """"tc" (``paged_mla_tc.cuh``: wgmma fed by TMA) or "simt" (the CUDA-core
+    kernel of ``paged_mla.cuh``) for one MLA read: tc for bf16 queries over
+    bf16 or int8 pages at r 512, dr 64 (deepseek-v3's MLA), pages of 8, 16
+    or 32 entries, and ``aligned`` (q_abs, q_rope and both pools 16-byte
+    aligned: what TMA can address); simt for everything else, fp32 queries
+    among it.  A function of these arguments alone."""
+    tc = (q_dtype == torch.bfloat16
+          and kv_dtype in (torch.bfloat16, torch.int8)
+          and (r, dr) == MLA_TC_RANKS and ps in MLA_TC_PAGE_SIZES
+          and aligned)
+    return "tc" if tc else "simt"
+
+
+def mla_tc_splits(B, H, n_pages, ps, sm_count):
+    """Page ranges (n_split) the tc route cuts each request's live pages
+    into: one CTA a (64-head tile, request, range), at most ``sm_count``
+    of them (one is resident an SM) unless a range would pass
+    MLA_TC_MAX_RANGE pages on a full chain, each range as short as that
+    allows.  From the static shape alone: each CTA cuts its request's live
+    stages into n_split balanced ranges from the request's pos
+    (``csrc/paged_mla_tc.cuh``)."""
+    pps = MLA_TC_ROWS // ps
+    n_stages = -(-n_pages // pps)
+    ctas = B * -(-H // MLA_TC_HEADS)
+    per_stages = min(-(-n_stages // max(1, sm_count // ctas)),
+                     MLA_TC_MAX_RANGE // pps)
+    return -(-n_stages // per_stages)
+
+
+def mla_kernel_info(q8):
+    """What the build made of the tc route's split kernel (int8 pages when
+    ``q8``): registers and local (spill and stack) bytes a thread, dynamic
+    shared bytes, resident CTAs an SM, threads a CTA.  Needs the CUDA
+    toolkit and a device."""
+    name = "paged_mla_q8" if q8 else "paged_mla"
+    out = (ctypes.c_int * 5)()
+    build.check(getattr(build.load(name), f"{name}_tc_info")(
+        ctypes.addressof(out)), name)
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "threads"), out))
 
 
 def _check_mla(what, q_abs, q_rope, pool_ckv, pool_krope, bt, pos, length,
@@ -331,6 +390,43 @@ def _launch_mla(fn, what, q_abs, q_rope, pool_ckv, pool_krope, scales, bt,
     return out
 
 
+def _route_mla(q_abs, q_rope, pool_ckv, pool_krope):
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (q_abs, q_rope, pool_ckv, pool_krope))
+    return mla_route(q_abs.dtype, pool_ckv.dtype, q_abs.shape[2],
+                     q_rope.shape[2], pool_ckv.shape[1], aligned)
+
+
+def _launch_mla_tc(fn, what, q_abs, q_rope, pool_ckv, pool_krope, scales,
+                   bt, pos, length, scale):
+    """One launch of the tc route (split kernel and combine); a shape or
+    alignment it refuses raises, never falls back."""
+    B, H, r = q_abs.shape
+    P, ps, _ = pool_ckv.shape
+    dr = q_rope.shape[2]
+    out = torch.empty_like(q_abs)
+    if B == 0 or H == 0:
+        return out
+    dev = q_abs.device
+    n_split = mla_tc_splits(B, H, -(-length // ps), ps,
+                                 torch.cuda.get_device_properties(
+                                     dev).multi_processor_count)
+    # the ranges' unnormalized sums and (m, l), which the combine merges
+    part_acc = torch.empty(B * H * n_split * r, dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty(B * H * n_split * 2, dtype=torch.float32,
+                          device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [q_abs.data_ptr(), q_rope.data_ptr(), pool_ckv.data_ptr(),
+            pool_krope.data_ptr()]
+    ptrs += [s.data_ptr() for s in scales]
+    err = fn(*ptrs, bt.data_ptr(), pos.data_ptr(), part_acc.data_ptr(),
+             part_ml.data_ptr(), out.data_ptr(), B, H, r, dr, P, ps,
+             bt.shape[1], length, n_split, float(scale), stream)
+    build.check(err, what)
+    return out
+
+
 def paged_mla_kernel(q_abs, q_rope, pool_ckv, pool_krope, block_tables,
                      pos, *, length, scale):
     """q_abs: (B, H, r), q_rope: (B, H, dr) fp32/bf16; pool_ckv:
@@ -344,15 +440,22 @@ def paged_mla_kernel(q_abs, q_rope, pool_ckv, pool_krope, block_tables,
     _check_mla("paged_mla_kernel", q_abs, q_rope, pool_ckv, pool_krope,
                block_tables, pos, length, (q_abs.dtype,))
     lib = build.load("paged_mla")
-    fn = lib.paged_mla_bf16 if q_abs.dtype == torch.bfloat16 \
-        else lib.paged_mla_f32
-    out = _launch_mla(fn, "paged_mla", q_abs, q_rope, pool_ckv, pool_krope,
-                      (), block_tables, pos, length, scale)
+    if _route_mla(q_abs, q_rope, pool_ckv, pool_krope) == "tc":
+        out = _launch_mla_tc(lib.paged_mla_bf16_tc, "paged_mla", q_abs,
+                             q_rope, pool_ckv, pool_krope, (), block_tables,
+                             pos, length, scale)
+        paged_mla_kernel.launches_tc += 1
+    else:
+        fn = lib.paged_mla_bf16 if q_abs.dtype == torch.bfloat16 \
+            else lib.paged_mla_f32
+        out = _launch_mla(fn, "paged_mla", q_abs, q_rope, pool_ckv,
+                          pool_krope, (), block_tables, pos, length, scale)
     paged_mla_kernel.launches += 1
     return out
 
 
 paged_mla_kernel.launches = 0
+paged_mla_kernel.launches_tc = 0
 
 
 def paged_mla_q8_kernel(q_abs, q_rope, pool_ckv, pool_krope, ckv_scale,
@@ -370,16 +473,24 @@ def paged_mla_q8_kernel(q_abs, q_rope, pool_ckv, pool_krope, ckv_scale,
                block_tables, pos, length, (torch.int8,),
                (ckv_scale, krope_scale))
     lib = build.load("paged_mla_q8")
-    fn = lib.paged_mla_q8_bf16 if q_abs.dtype == torch.bfloat16 \
-        else lib.paged_mla_q8_f32
-    out = _launch_mla(fn, "paged_mla_q8", q_abs, q_rope, pool_ckv,
-                      pool_krope, (ckv_scale, krope_scale), block_tables,
-                      pos, length, scale)
+    scales = (ckv_scale, krope_scale)
+    if _route_mla(q_abs, q_rope, pool_ckv, pool_krope) == "tc":
+        out = _launch_mla_tc(lib.paged_mla_q8_bf16_tc, "paged_mla_q8", q_abs,
+                             q_rope, pool_ckv, pool_krope, scales,
+                             block_tables, pos, length, scale)
+        paged_mla_q8_kernel.launches_tc += 1
+    else:
+        fn = lib.paged_mla_q8_bf16 if q_abs.dtype == torch.bfloat16 \
+            else lib.paged_mla_q8_f32
+        out = _launch_mla(fn, "paged_mla_q8", q_abs, q_rope, pool_ckv,
+                          pool_krope, scales, block_tables, pos, length,
+                          scale)
     paged_mla_q8_kernel.launches += 1
     return out
 
 
 paged_mla_q8_kernel.launches = 0
+paged_mla_q8_kernel.launches_tc = 0
 
 
 def paged_mla_attention(q_abs, q_rope, pool_ckv, pool_krope, block_tables,

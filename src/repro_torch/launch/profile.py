@@ -1,7 +1,7 @@
 """Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan]
+        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan,mla]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -54,6 +54,23 @@ calls only the package's public entry points, so a copy of this file in
 an older checkout's ``repro_torch/launch/`` times that checkout's
 kernels in the same way.
 
+The ``mla`` section times the paged MLA kernels alone (card name and
+power limit first, then the tc route's registers, spills and resident
+CTAs) at chip_smoke's three rows, the 4-slot deepseek-v3-671b decode
+shape, an odd one and a 32 x 4096 long context, in both L2 states of the
+``scan`` section and in five alternating rounds (:func:`mla_readings`);
+then the device time of each kernel at the path shape split by CUDA
+kernel (the tc route's split kernel and its combine,
+:func:`mla_kernel_split`), then one 4-slot ``decode_step_paged`` of
+full-width deepseek-v3-671b cut
+to its 3 dense MLA layers at position 1055, from bf16 and int8 latent
+pages: eager ms, graph replay (bf16) and one profiler window
+(:func:`mla_decode_step`); last, with fp32 queries (the simt route) at
+the path and odd rows, the kernel and the plain version each against an
+fp64 evaluation (:func:`mla_f32_error`).  These call only the package's
+public entry points, so copies of this file and ``mla_shapes.py`` in an
+older checkout's ``repro_torch/launch/`` time that checkout's kernels.
+
 With ``--sass``, also the order of global loads (LDG), stores (STG) and
 FMAs in each scan and selective-scan kernel's SASS (``cuobjdump`` from the
 CUDA toolkit): how many loads a thread keeps in flight per step.  Needs a
@@ -73,6 +90,7 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.kernels import build
+from repro_torch.launch.mla_shapes import MLA_SHAPES, mla_inputs
 
 
 def _sync_ms(fn):
@@ -110,7 +128,7 @@ def profile_window(fn, iters, tag, top=8):
           f"{busy:.2f} ms/step (card idle {1 - busy / wall_ms:.1%}), "
           f"{count / iters:.0f} kernels+copies/step", flush=True)
     for name, ms in by_name.most_common(top):
-        print(f"  {ms:8.3f} ms/step  {name[:90]}")
+        print(f"  {ms:10.5f} ms/step  {name[:90]}")
 
 
 def sass_order(name):
@@ -133,13 +151,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--sections",
-                    default="lm,qat,mamba,attn,paged,imc,ssm,scan",
+                    default="lm,qat,mamba,attn,paged,imc,ssm,scan,mla",
                     help="comma-separated subset of lm, qat, mamba, attn, "
-                    "paged, imc, ssm, scan")
+                    "paged, imc, ssm, scan, mla")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
     if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc",
-                        "ssm", "scan"}:
+                        "ssm", "scan", "mla"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
@@ -171,6 +189,8 @@ def main(argv=None):
     if "scan" in sections:
         print(f"scan on {_card()}", flush=True)
         scan_readings(dev)
+    if "mla" in sections:
+        _mla(dev)
 
 
 def _graph_ms(fn, iters):
@@ -318,6 +338,179 @@ def _paged_timeline(pa_ops, name, q, pk, pv, scales, bt, pos, kw):
           f"{np.median(t[:, 3] - t[:, 2]):.2f}; resident CTAs on average "
           f"{life.sum() / span:.1f} over {len(np.unique(tr[:, 4]))} SMs",
           flush=True)
+
+
+def mla_readings(dev, rounds=5):
+    """``paged_mla_kernel`` and ``paged_mla_q8_kernel`` at ``MLA_SHAPES``,
+    each read ``rounds`` times L2-warm (graph replay) and L2-cold (each
+    launch by its own events after 256 MB are written), the kernels and
+    modes in alternating order, the SM clock before and after each round
+    (the method of :func:`scan_readings`).  Prints every reading and
+    returns {(kernel, label): {mode: (median, spread, readings)}}."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    scale = 1.0 / (128 + 64) ** 0.5
+    rows = {}
+    for label, B, H, length, pos in MLA_SHAPES:
+        kw = dict(length=length, scale=scale)
+        for q8 in (False, True):
+            kern = (pa_ops.paged_mla_q8_kernel if q8
+                    else pa_ops.paged_mla_kernel)
+            qa, qr, pc, pr, sc, bt, pos_t = mla_inputs(dev, g, B, H, length,
+                                                       pos, q8)
+            rows[(kern.__name__.replace("_kernel", ""), label)] = (
+                lambda kern=kern, a=(qa, qr, pc, pr, *sc, bt, pos_t), kw=kw:
+                kern(*a, **kw))
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    modes = {"warm": lambda fn: _graph_ms(fn, 50),
+             "cold": lambda fn: _events_each_ms(fn, 30, flush)}
+    got = {key: {m: [] for m in modes} for key in rows}
+    for r in range(rounds):
+        order = list(rows) if r % 2 == 0 else list(rows)[::-1]
+        before = sm_clock()
+        for key in order:
+            for m in (modes if r % 2 == 0 else list(modes)[::-1]):
+                got[key][m].append(modes[m](rows[key]))
+        print(f"mla readings round {r + 1}: SM clock {before} before, "
+              f"{sm_clock()} after", flush=True)
+    out = {}
+    for key in rows:
+        out[key] = {}
+        for m in modes:
+            med, spread = _spread(got[key][m])
+            out[key][m] = (med, spread, got[key][m])
+            each = ", ".join(f"{v:.5f}" for v in got[key][m])
+            print(f"  {key[0]} {key[1]} {m}: median {med:.5f} ms, spread "
+                  f"{spread:.1%} ({each})", flush=True)
+    del rows, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_kernel_split(dev, iters=50):
+    """Device time by kernel of ``paged_mla_kernel`` and
+    ``paged_mla_q8_kernel`` at the path shape (``MLA_SHAPES[0]``) under
+    the profiler: the tc route's split kernel and its combine apart."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    _label, B, H, length, pos = MLA_SHAPES[0]
+    kw = dict(length=length, scale=1.0 / (128 + 64) ** 0.5)
+    for kern in (pa_ops.paged_mla_kernel, pa_ops.paged_mla_q8_kernel):
+        a = mla_inputs(dev, g, B, H, length, pos,
+                       kern is pa_ops.paged_mla_q8_kernel)
+        args = a[:4] + a[4] + a[5:]
+        for _ in range(3):
+            kern(*args, **kw)
+        profile_window(lambda: kern(*args, **kw), iters,
+                       f"{kern.__name__.replace('_kernel', '')} path shape")
+
+
+def mla_f32_error(dev):
+    """fp32 queries (the simt route) at the path and odd rows of
+    ``MLA_SHAPES`` with chip_smoke's inputs and softmax scale: the kernel
+    and the plain version each against the same function evaluated in
+    fp64 from the same fp32 operands, and the kernel against the plain
+    version; max |error| and the outputs past 2e-6 of each."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    scale = 1.0 / (128 + 64) ** 0.5
+    scale32 = float(torch.tensor(scale, dtype=torch.float32))
+    for label, B, H, length, pos in MLA_SHAPES[:2]:
+        for q8 in (False, True):
+            qa, qr, pc, pr, sc, bt, pos_t = mla_inputs(dev, g, B, H, length,
+                                                       pos, q8)
+            qa, qr = qa.float(), qr.float()
+            if q8:
+                kern = pa_ops.paged_mla_q8_kernel
+                ck = quant.dequantize(pc, sc[0])
+                kr = quant.dequantize(pr, sc[1])
+            else:
+                kern = pa_ops.paged_mla_kernel
+                pc, pr = pc.float(), pr.float()
+                ck, kr = pc, pr
+            kw = dict(length=length, scale=scale)
+            sk = dict(zip(("ckv_scale", "krope_scale"), sc))
+            got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+            plain = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos_t, **kw,
+                                         **sk)
+            c64 = pa_ref.gather_pages(ck, bt, length).double()
+            r64 = pa_ref.gather_pages(kr, bt, length).double()
+            s = (torch.einsum("bhr,blr->bhl", qa.double(), c64)
+                 + torch.einsum("bhk,blk->bhl", qr.double(), r64)) * scale32
+            _kp, valid = pa_ref.paged_positions(pos_t, length)
+            s = s.masked_fill(~valid[:, None, :], float("-inf"))
+            truth = torch.einsum("bhl,blr->bhr", torch.softmax(s, -1), c64)
+            parts = []
+            for what, a, b in (("kernel - fp64", got.double(), truth),
+                               ("plain - fp64", plain.double(), truth),
+                               ("kernel - plain", got, plain)):
+                e = (a - b).abs()
+                parts.append(f"|{what}| max {e.max().item():.4g}, "
+                             f"{int((e > 2e-6).sum())} past 2e-6")
+            print(f"mla fp32 {'int8' if q8 else 'bf16'} pages {label} (B {B}, "
+                  f"H {H}, length {length}; {got.numel()} outputs, max |out| "
+                  f"{truth.abs().max().item():.3g}): " + "; ".join(parts),
+                  flush=True)
+
+
+def _mla(dev):
+    """The tc route's build info, then :func:`mla_readings`,
+    :func:`mla_kernel_split`, :func:`mla_decode_step` and
+    :func:`mla_f32_error`."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    print(f"mla on {_card()}", flush=True)
+    for q8 in (False, True):
+        print(f"mla tc route build, {'int8' if q8 else 'bf16'} pages: "
+              f"{pa_ops.mla_kernel_info(q8)}", flush=True)
+    mla_readings(dev)
+    mla_kernel_split(dev)
+    mla_decode_step(dev)
+    mla_f32_error(dev)
+
+
+def mla_decode_step(dev):
+    """One 4-slot ``decode_step_paged`` of full-width deepseek-v3-671b cut
+    to its 3 dense MLA layers at position 1055 from bf16 and int8 latent
+    pages: eager ms, graph replay (bf16) and one profiler window."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    config = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=3)
+    max_len, ps = 1056, 16
+    n_chain = max_len // ps
+    for kv_dtype in ("bf16", "int8"):
+        model = build_model(dataclasses.replace(config, kv_dtype=kv_dtype),
+                            device=dev, generator=torch.Generator(
+                                device=dev).manual_seed(0))
+        state = model.init_paged_cache(4 * n_chain + 36, ps)
+        tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+        pos = torch.full((4,), max_len - 1, dtype=torch.int32, device=dev)
+        bt = torch.arange(4 * n_chain, dtype=torch.int32,
+                          device=dev).reshape(4, n_chain)
+        act = torch.ones(4, dtype=torch.bool, device=dev)
+        rows = torch.arange(4, device=dev)
+
+        def step():
+            model.decode_step_paged(tok, state, pos, bt, act, max_len,
+                                    rows=rows)
+        with torch.inference_mode():
+            for _ in range(3):
+                step()
+            eager = [_sync_ms(step) for _ in range(10)]
+            graph = (f"graph replay {_graph_ms(step, 10):.4f} ms"
+                     if kv_dtype == "bf16" else "no graph replay")
+            print(f"mla decode_step_paged {kv_dtype} pages (4 slots, pos "
+                  f"{max_len - 1}): eager ms {[round(t, 2) for t in eager]}, "
+                  f"{graph}", flush=True)
+            profile_window(step, 5, f"mla {kv_dtype} decode step", top=10)
+        del model, state
+        torch.cuda.empty_cache()
 
 
 def _card():

@@ -951,6 +951,26 @@ MLA_CASES = [
     (1, 1, 8, 4, 2, 3),
 ]
 
+# (B, H, ps, L) of the tc route (bf16 queries, r 512, dr 64): H 64 (one
+# head tile) and H 128 (two) at the path's page 16; H around the 64-head
+# tile and eight tiles; a partial last page; a length that is not a whole
+# 32-row stage at page 8; a single live page at page 16 and page 32; long
+# chains whose many ranges the combine merges (32 ranges at 2 x 4096)
+MLA_TC_CASES = [
+    (2, 64, 16, 200),
+    (4, 128, 16, 1056),
+    (2, 65, 16, 200),
+    (2, 127, 16, 200),
+    (2, 129, 16, 200),
+    (2, 512, 16, 300),
+    (3, 128, 16, 40),
+    (2, 32, 8, 52),
+    (2, 128, 16, 16),
+    (2, 16, 32, 30),
+    (2, 128, 16, 4096),
+    (1, 64, 16, 8192),
+]
+
 
 def _mla_setup(dev, B, H, r, dr, ps, L, seed=0, garbage=50.0):
     """Disjoint random latent chains over a pool whose other pages hold
@@ -1044,6 +1064,117 @@ def test_paged_mla_kernel_stale_pages_and_repeatable(cuda):
                                 scale=0.1)
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("case", MLA_TC_CASES, ids=str)
+def test_paged_mla_tc_route_matches_plain(cuda, case, q8):
+    """Both kernels on the tc route (counted in launches_tc) within one
+    bf16 ulp + 2e-6 of the plain version, two calls bitwise equal; one
+    request of each case reads only up to pos = L // 3."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    B, H, ps, L = case
+    r, dr = 512, 64
+    qa, qr, pc, pr, bt, pos = _mla_setup(cuda, B, H, r, dr, ps, L,
+                                         seed=ps + H + q8)
+    qa, qr = qa.bfloat16(), qr.bfloat16()
+    kw = dict(length=L, scale=1.0 / (r + dr) ** 0.5)
+    if q8:
+        cs, rs = kvq.page_abs_scale(pc), kvq.page_abs_scale(pr)
+        pc, pr, sc = kvq.quantize(pc, cs), kvq.quantize(pr, rs), (cs, rs)
+        sk = dict(ckv_scale=cs, krope_scale=rs)
+        kern = pa_ops.paged_mla_q8_kernel
+    else:
+        pc, pr, sc, sk = pc.bfloat16(), pr.bfloat16(), (), {}
+        kern = pa_ops.paged_mla_kernel
+    n0, t0 = kern.launches, kern.launches_tc
+    a = kern(qa, qr, pc, pr, *sc, bt, pos, **kw)
+    b = kern(qa, qr, pc, pr, *sc, bt, pos, **kw)
+    want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos, **kw, **sk)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 2 and kern.launches_tc == t0 + 2
+    assert a.dtype == torch.bfloat16 and a.shape == qa.shape
+    assert torch.equal(a, b)
+    assert _bf16_close(a, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+def test_paged_mla_tc_stale_pages_and_repeatable(cuda, q8):
+    """The tc route (page 16, a stage of two pages) reads no page past a
+    request's last live page: foreign pages behind the later block-table
+    entries do not matter, and two calls are bitwise equal."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+
+    qa, qr, pc, pr, bt, pos = _mla_setup(cuda, 3, 128, 512, 64, 16, 96,
+                                         seed=6)
+    qa, qr = qa.bfloat16(), qr.bfloat16()
+    if q8:
+        cs, rs = kvq.page_abs_scale(pc), kvq.page_abs_scale(pr)
+        pc, pr, sc = kvq.quantize(pc, cs), kvq.quantize(pr, rs), (cs, rs)
+        kern = pa_ops.paged_mla_q8_kernel
+    else:
+        pc, pr, sc = pc.bfloat16(), pr.bfloat16(), ()
+        kern = pa_ops.paged_mla_kernel
+    assert pa_ops.mla_route(qa.dtype, pc.dtype, 512, 64, 16, True) == "tc"
+    short = torch.tensor([16, 40, 47], dtype=torch.int32, device=cuda)
+    poison = bt.clone()
+    poison[0, 2:] = (bt[0, 2:] + 1) % pc.shape[0]   # live: pages 0-1
+    poison[1:, 3:] = (bt[1:, 3:] + 1) % pc.shape[0]   # live: pages 0-2
+    n0 = kern.launches_tc
+    a = kern(qa, qr, pc, pr, *sc, bt, short, length=96, scale=0.05)
+    b = kern(qa, qr, pc, pr, *sc, poison, short, length=96, scale=0.05)
+    c = kern(qa, qr, pc, pr, *sc, bt, short, length=96, scale=0.05)
+    torch.cuda.synchronize()
+    assert kern.launches_tc == n0 + 3
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_paged_mla_route_counts_tc_launches(cuda):
+    """The path shape (bf16, H 128, r 512, dr 64, page 16) counts in
+    launches_tc on both kernels; fp32 queries take the simt route and do
+    not; neither route falls back to the other."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+
+    qa, qr, pc, pr, bt, pos = _mla_setup(cuda, 2, 128, 512, 64, 16, 64)
+    cs, rs = kvq.page_abs_scale(pc), kvq.page_abs_scale(pr)
+    cc, rc = kvq.quantize(pc, cs), kvq.quantize(pr, rs)
+    kw = dict(length=64, scale=0.05)
+    for kern, pools in ((pa_ops.paged_mla_kernel, None),
+                        (pa_ops.paged_mla_q8_kernel, (cc, rc, cs, rs))):
+        for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+            q = (qa.to(dtype), qr.to(dtype))
+            args = pools or (pc.to(dtype), pr.to(dtype))
+            n0, t0 = kern.launches, kern.launches_tc
+            kern(*q, *args, bt, pos, **kw)
+            assert kern.launches == n0 + 1
+            assert kern.launches_tc == t0 + tc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+def test_paged_mla_tc_build_spills_nothing(cuda, q8):
+    """Each tc instantiation keeps its running sums in registers: no
+    local (spill or stack) bytes, one CTA resident an SM; its dynamic
+    shared memory is Q (64 heads x 576 bf16), three 32-row page stages as
+    they land (int8: and two stages widened to bf16) and 1 KB of
+    alignment slack."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    info = pa_ops.mla_kernel_info(q8)
+    rows, k = pa_ops.MLA_TC_ROWS, sum(pa_ops.MLA_TC_RANKS)
+    q_bytes, tile = pa_ops.MLA_TC_HEADS * k * 2, rows * k * 2
+    smem = q_bytes + 3 * (rows * k if q8 else tile) + (2 * tile if q8 else 0)
+    assert info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1 and info["threads"] == 256, info
+    assert info["smem_bytes"] == smem + 1024 <= 232448, info
 
 
 @pytest.mark.cuda
