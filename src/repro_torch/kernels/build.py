@@ -46,7 +46,7 @@ SIGNATURES = {
         "minimalist_step_f32": [_P, _P, _P, _F] + [_P] * 6 + [_I] * 3 + [_P],
     },
     "minimalist_block": {
-        "minimalist_block_f32": [_P, _P, _P, _F] + [_P] * 5 + [_I] * 4
+        "minimalist_block_f32": [_P, _P, _P, _F] + [_P] * 5 + [_I] * 5
         + [_P],
     },
     "paged_gqa": {

@@ -127,15 +127,15 @@ inline Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
-// Raise the dynamic shared memory limit of `kernel` once, before its
-// first launch (and so never inside a CUDA-graph capture).
+// Raise the dynamic shared memory limit of `kernel` before a launch.  On
+// every launch: the attribute belongs to the current device's context (a
+// flag kept once a process would skip a second card), and a host-side
+// call costs less than a microsecond.
 template <typename K>
-cudaError_t allow_smem(K kernel, int smem, bool* done) {
-  if (*done || smem <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(K kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) *done = true;
-  return err;
 }
 
 }  // namespace flash

@@ -336,10 +336,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdParams<T> p) {
 
 template <typename T, int D, int BQ, int BK>
 int launch_dq(const BwdParams<T>& p, int B, cudaStream_t stream) {
-  static bool smem_set = false;
   auto kernel = dq_kernel<D, BQ, BK, T>;
   constexpr int smem = dq_smem<D, BQ, BK>();
-  const cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(p);
@@ -348,10 +347,9 @@ int launch_dq(const BwdParams<T>& p, int B, cudaStream_t stream) {
 
 template <typename T, int D, int BQ, int BK>
 int launch_dkv(const BwdParams<T>& p, int B, cudaStream_t stream) {
-  static bool smem_set = false;
   auto kernel = dkv_kernel<D, BQ, BK, T>;
   constexpr int smem = dkv_smem<D, BQ, BK>();
-  const cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.S + BK - 1) / BK, p.KV, B);
   kernel<<<grid, kThreads, smem, stream>>>(p);
@@ -770,10 +768,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a.H, a.KV, a.S, kDqBQ,
                               kDqBK);
   if (err) return err;
-  static bool smem_set = false;
   auto kernel = dq_tc_kernel<D>;
   constexpr int smem = dq_smem<D>();
-  const cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.S + kDqBQ - 1) / kDqBQ, a.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
@@ -788,10 +785,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a.H, a.KV, a.S,
                               dkv_bq<D>(), kDkvBK);
   if (err) return err;
-  static bool smem_set = false;
   auto kernel = dkv_tc_kernel<D>;
   constexpr int smem = dkv_smem<D>();
-  const cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.S + kDkvBK - 1) / kDkvBK, a.KV, B);
   kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);

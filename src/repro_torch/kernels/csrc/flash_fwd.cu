@@ -173,10 +173,9 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdParams<T> p) {
 
 template <typename T, int D, int BQ, int BK>
 int launch_fwd(const FwdParams<T>& p, int B, cudaStream_t stream) {
-  static bool smem_set = false;
   auto kernel = fwd_kernel<D, BQ, BK, T>;
   constexpr int smem = fwd_smem<D, BQ, BK>();
-  const cudaError_t err = allow_smem(kernel, smem, &smem_set);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(p);
@@ -383,10 +382,9 @@ int launch_fwd(const void* q, const void* k, const void* v,
   if (!err) err = make_map<D>(&tk, k, strides_at(st, 1), B, a.KV, a.S, kFwdBK);
   if (!err) err = make_map<D>(&tv, v, strides_at(st, 2), B, a.KV, a.S, kFwdBK);
   if (err) return err;
-  static bool smem_set = false;
   auto kernel = fwd_tc_kernel<D>;
   constexpr int smem = fwd_smem<D>();
-  const cudaError_t e = allow_smem(kernel, smem, &smem_set);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.S + kFwdBQ - 1) / kFwdBQ, a.H, B);
   kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, a);

@@ -169,15 +169,15 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Lets Kernel take `smem` bytes of dynamic shared memory (once).
+// Lets Kernel take `smem` bytes of dynamic shared memory.  On every
+// launch: the attribute belongs to the current device's context (a flag
+// kept once a process would skip a second card), and a host-side call
+// costs less than a microsecond.
 template <auto Kernel>
 cudaError_t allow_smem(int smem) {
-  static bool done = false;
-  if (done || smem <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
       Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done = true;
-  return err;
 }
 
 // What the build made of Kernel, launched as a block of `threads` threads

@@ -67,11 +67,12 @@ def mha_ref(q, k, v, causal=True, window=None):
     return torch.einsum("bhst,bhtd->bhsd", w.to(q.dtype), v)
 
 
-def _scores(q, k, causal, window):
-    """fp32 q·kᵀ · scale with the additive mask; k expanded to H heads."""
+def _scores(q, k, causal, window, acc=torch.float32):
+    """q·kᵀ · scale in ``acc`` with the additive mask; k expanded to H
+    heads."""
     S, D = q.shape[2], q.shape[3]
-    s = torch.einsum("bhsd,bhtd->bhst", q.float(),
-                     _expand(k, q.shape[1] // k.shape[1]).float())
+    s = torch.einsum("bhsd,bhtd->bhst", q.to(acc),
+                     _expand(k, q.shape[1] // k.shape[1]).to(acc))
     s = s * _scale(D, q.device)
     ok = attend_mask(S, causal, window, q.device)
     return s + torch.where(ok, torch.zeros((), device=q.device),
@@ -97,19 +98,24 @@ def _group_sum(t, KV):
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True,
-                            window=None):
+                            window=None, acc=torch.float32):
     """Cotangents (dq, dk, dv) of :func:`flash_attention_ref` given its
     saved ``out`` and ``lse`` and the output cotangent ``do``; dq in q's
-    dtype, dk/dv summed over the GQA group in k's/v's dtype."""
+    dtype, dk/dv summed over the GQA group in k's/v's dtype.  The sums
+    are taken in ``acc``: fp32 is what the kernels compute; fp64 makes
+    them exact enough that a kernel's own rounding can be held to a bound
+    (over thousands of rows two fp32 orders part by up to about 1e-7 of
+    the terms' summed magnitude)."""
     KV, D = k.shape[1], q.shape[3]
     G = q.shape[1] // KV
-    p = torch.exp(_scores(q, k, causal, window) - lse[..., None].float())
-    do32 = do.float()
-    delta = (out.float() * do32).sum(-1)
+    p = torch.exp(_scores(q, k, causal, window, acc)
+                  - lse[..., None].to(acc))
+    do32 = do.to(acc)
+    delta = (out.to(acc) * do32).sum(-1)
     dv = torch.einsum("bhst,bhsd->bhtd", p, do32)
-    dp = torch.einsum("bhsd,bhtd->bhst", do32, _expand(v, G).float())
+    dp = torch.einsum("bhsd,bhtd->bhst", do32, _expand(v, G).to(acc))
     ds = p * (dp - delta[..., None]) * _scale(D, q.device)
-    dq = torch.einsum("bhst,bhtd->bhsd", ds, _expand(k, G).float())
-    dk = torch.einsum("bhst,bhsd->bhtd", ds, q.float())
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, _expand(k, G).to(acc))
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, q.to(acc))
     return (dq.to(q.dtype), _group_sum(dk, KV).to(k.dtype),
             _group_sum(dv, KV).to(v.dtype))

@@ -95,10 +95,35 @@ def minimalist_step_kernel(x, codes_h, codes_z, scale, bh, bz, h_prev, *,
 minimalist_step_kernel.launches = 0
 
 
+#: Column slabs the sequence kernel is compiled for, widest first.
+BLOCK_SLABS = (64, 32, 16, 8)
+
+
+def block_plan(B, N, sms):
+    """The sequence kernel's grid for B batch rows and N columns on a card
+    of ``sms`` SMs: ``(slab, ctas)``, one CTA a batch row and ``slab``
+    columns.  The slab is the widest of :data:`BLOCK_SLABS` no wider than
+    N needs that still gives each SM a CTA; where none does, the
+    narrowest: a small batch spreads its columns over the most SMs, and
+    each SM's projection work then slows its state-update chain the
+    least."""
+    cap = BLOCK_SLABS[-1]
+    while cap < min(N, BLOCK_SLABS[0]):
+        cap *= 2
+    slab = BLOCK_SLABS[-1]
+    for cand in BLOCK_SLABS:
+        if cand <= cap and B * -(-N // cand) >= sms:
+            slab = cand
+            break
+    return slab, B * -(-N // slab)
+
+
 def minimalist_block_kernel(x, codes_h, codes_z, scale, bh, bz, h0):
-    """The fused core over a sequence: x (B, T, K) fp32 binary, codes
-    (K, N) int8, scale float, bh/bz (N,) fp32, h0 (B, N) fp32 ->
-    (y = Θ(h), h) each (B, T, N) fp32."""
+    """The fused core over a sequence: x (B, T, K) fp32 (binary on the
+    deployment path), codes (K, N) int8, scale float, bh/bz (N,) fp32,
+    h0 (B, N) fp32 -> (y = Θ(h), h) each (B, T, N) fp32.  On the card:
+    one launch tiled by :func:`block_plan`, bit for bit the plain
+    version's on binary x and within fp32 rounding of it on analog x."""
     if on_cpu(x, codes_h, codes_z, bh, bz, h0):
         return ref.minimalist_block_ref(x, codes_h, codes_z, scale, bh, bz,
                                         h0)
@@ -112,11 +137,13 @@ def minimalist_block_kernel(x, codes_h, codes_z, scale, bh, bz, h0):
     y = torch.empty((B, T, N), dtype=torch.float32, device=x.device)
     h = torch.empty_like(y)
     if y.numel():
+        slab, _ = block_plan(B, N, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
         lib = build.load("minimalist_block")
         err = lib.minimalist_block_f32(
             x.data_ptr(), codes_h.data_ptr(), codes_z.data_ptr(),
             float(scale), bh.data_ptr(), bz.data_ptr(), h0.data_ptr(),
-            y.data_ptr(), h.data_ptr(), B, T, K, N,
+            y.data_ptr(), h.data_ptr(), B, T, K, N, slab,
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(err, "minimalist_block")
         minimalist_block_kernel.launches += 1

@@ -1,7 +1,7 @@
 """Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan,mla]
+        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -70,6 +70,15 @@ the path and odd rows, the kernel and the plain version each against an
 fp64 evaluation (:func:`mla_f32_error`).  These call only the package's
 public entry points, so copies of this file and ``mla_shapes.py`` in an
 older checkout's ``repro_torch/launch/`` time that checkout's kernels.
+
+The ``block`` section times ``minimalist_block_kernel`` alone (card name
+and power limit first) at chip_smoke's six rows (``BLOCK_SHAPES``: the
+system check's layers at T 98 and the paper's widths at 8 and 256
+streams, T 784) on binary x, L2-warm and L2-cold as the ``scan`` section
+reads them, in five alternating rounds with the SM clock around each
+(:func:`block_readings`).  It calls only the public wrapper, so a copy
+of this file in an older checkout's ``repro_torch/launch/`` times that
+checkout's kernel.
 
 With ``--sass``, also the order of global loads (LDG), stores (STG) and
 FMAs in each scan and selective-scan kernel's SASS (``cuobjdump`` from the
@@ -151,13 +160,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--sections",
-                    default="lm,qat,mamba,attn,paged,imc,ssm,scan,mla",
+                    default="lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block",
                     help="comma-separated subset of lm, qat, mamba, attn, "
-                    "paged, imc, ssm, scan, mla")
+                    "paged, imc, ssm, scan, mla, block")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
     if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc",
-                        "ssm", "scan", "mla"}:
+                        "ssm", "scan", "mla", "block"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
@@ -191,6 +200,9 @@ def main(argv=None):
         scan_readings(dev)
     if "mla" in sections:
         _mla(dev)
+    if "block" in sections:
+        print(f"block on {_card()}", flush=True)
+        block_readings(dev)
 
 
 def _graph_ms(fn, iters):
@@ -617,6 +629,11 @@ def sm_clock():
                           text=True).stdout.strip()
 
 
+def sm_clock_mhz():
+    """The SM clock now in MHz, as :func:`sm_clock` reads it."""
+    return float(sm_clock().split()[0])
+
+
 def _events_each_ms(fn, iters, flush=None):
     """Each of ``iters`` launches of ``fn`` timed by its own CUDA events,
     the median in ms.  Before each launch, outside the events, either
@@ -722,6 +739,69 @@ def scan_readings(dev, rounds=5):
         out[f"linear_scan {shape}"] = {"warm": warm, "cold": cold}
         del a, b, h0, flush
         torch.cuda.empty_cache()
+    return out
+
+
+# (B, T, K, N) of chip_smoke's minimalist_block rows: the system check's
+# layer (32 streams, T 98, 48 -> 48), the paper's widths at 8 and 256
+# streams (T 784, 64 -> 64), a small batch, and the system check's first
+# layer (K 1) and readout (N 10)
+BLOCK_SHAPES = [(32, 98, 48, 48), (8, 784, 64, 64), (256, 784, 64, 64),
+                (4, 98, 48, 48), (32, 98, 1, 48), (32, 98, 48, 10)]
+
+
+def _block_inputs(dev, g, B, T, K, N):
+    """Binary x and one layer's codes and biases, h0 zero, as chip_smoke's
+    minimalist_block rows make them: (x, codes_h, codes_z, scale, bh, bz,
+    h0)."""
+    x = (torch.rand(B, T, K, device=dev, generator=g) > 0.5).float()
+    ch, cz = (torch.randint(0, 4, (K, N), device=dev, generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    bh, bz = (torch.randn(N, device=dev, generator=g) * 0.5
+              for _ in range(2))
+    return x, ch, cz, 0.11, bh, bz, torch.zeros(B, N, device=dev)
+
+
+def block_readings(dev, rounds=5):
+    """``minimalist_block_kernel`` at ``BLOCK_SHAPES`` on binary x, each
+    read ``rounds`` times L2-warm (graph replay) and L2-cold (each launch
+    by its own events after 256 MB are written), the shapes and modes in
+    alternating order, the SM clock before and after each round (the
+    method of :func:`scan_readings`).  Calls only the public wrapper, so a
+    copy of this file in an older checkout reads that checkout's kernel.
+    Prints every reading and returns {shape: {mode: (median, spread,
+    readings)}}."""
+    from repro_torch.kernels.minimalist_block import ops as mb_ops
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for B, T, K, N in BLOCK_SHAPES:
+        rows[(B, T, K, N)] = (
+            lambda a=_block_inputs(dev, g, B, T, K, N):
+            mb_ops.minimalist_block_kernel(*a))
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    modes = {"warm": lambda fn: _graph_ms(fn, 50),
+             "cold": lambda fn: _events_each_ms(fn, 30, flush)}
+    got = {key: {m: [] for m in modes} for key in rows}
+    for r in range(rounds):
+        order = list(rows) if r % 2 == 0 else list(rows)[::-1]
+        before = sm_clock()
+        for key in order:
+            for m in (modes if r % 2 == 0 else list(modes)[::-1]):
+                got[key][m].append(modes[m](rows[key]))
+        print(f"block readings round {r + 1}: SM clock {before} before, "
+              f"{sm_clock()} after", flush=True)
+    out = {}
+    for key in rows:
+        out[key] = {}
+        for m in modes:
+            med, spread = _spread(got[key][m])
+            out[key][m] = (med, spread, got[key][m])
+            each = ", ".join(f"{v:.5f}" for v in got[key][m])
+            print(f"  minimalist_block {key} {m}: median {med:.5f} ms, "
+                  f"spread {spread:.1%} ({each})", flush=True)
+    del rows, flush
+    torch.cuda.empty_cache()
     return out
 
 

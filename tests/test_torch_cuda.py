@@ -194,8 +194,13 @@ def test_linear_scan_is_differentiable_on_cuda(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,K,N", [(8, 784, 64, 64), (4, 98, 48, 48),
                                      (3, 60, 8, 130), (1, 8, 4, 8),
-                                     (8, 98, 48, 10)])
+                                     (8, 98, 48, 10), (32, 98, 1, 48),
+                                     (32, 98, 48, 10), (256, 784, 64, 64),
+                                     (2, 1, 17, 24), (5, 130, 17, 70),
+                                     (2, 70, 150, 24), (1, 65, 3100, 8)])
 def test_minimalist_block_kernel_matches_plain_bitwise(cuda, B, T, K, N):
+    """Binary x: equal bit for bit, including K of several 64-column panels
+    (150) and K whose levels do not stay in shared memory (3100)."""
     g = torch.Generator(device=cuda).manual_seed(B + T + K + N)
     x = (torch.rand(B, T, K, device=cuda, generator=g) > 0.5).float()
     ch = torch.randint(0, 4, (K, N), device=cuda, generator=g,
@@ -212,6 +217,82 @@ def test_minimalist_block_kernel_matches_plain_bitwise(cuda, B, T, K, N):
     yp, hp = mb_ref.minimalist_block_ref(x, ch, cz, scale, bh, bz, h0)
     torch.cuda.synchronize()
     assert torch.equal(h, hp) and torch.equal(y, yp)
+
+
+def _block_inputs(cuda, B, T, K, N, seed, *, binary=True):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.rand(B, T, K, device=cuda, generator=g)
+    if binary:
+        x = (x > 0.5).float()
+    ch = torch.randint(0, 4, (K, N), device=cuda, generator=g,
+                       dtype=torch.int8)
+    cz = torch.randint(0, 4, (K, N), device=cuda, generator=g,
+                       dtype=torch.int8)
+    bh = torch.randn(N, device=cuda, generator=g) * 0.5
+    bz = torch.randn(N, device=cuda, generator=g) * 0.5
+    h0 = torch.randn(B, N, device=cuda, generator=g)
+    return x, ch, cz, 0.11, bh, bz, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,K,N", [(8, 784, 64, 64), (3, 70, 17, 130),
+                                     (4, 98, 1, 48)])
+def test_minimalist_block_kernel_analog_x_within_fp32_rounding(cuda, B, T,
+                                                               K, N):
+    """Analog x (x carried in three bf16 parts): h within 2e-5 of the
+    plain version up to a chain's first gate value within 1e-3 of a code
+    step, Θ flips only where |h| < 1e-4."""
+    x, ch, cz, scale, bh, bz, h0 = _block_inputs(cuda, B, T, K, N,
+                                                 seed=B + T + K + N,
+                                                 binary=False)
+    y, h = mb_ops.minimalist_block_kernel(x, ch, cz, scale, bh, bz, h0)
+    yp, hp = mb_ref.minimalist_block_ref(x, ch, cz, scale, bh, bz, h0)
+    v = quant.hard_sigmoid((x @ (cz.float() - 1.5)) * scale + bz) * 63
+    tie = ((v - torch.round(v)).abs() <= 1e-3).int()
+    clean = torch.cummax(tie, dim=1).values == 0
+    assert clean.float().mean() > 0.5
+    assert (h - hp).abs()[clean].max().item() <= 2e-5
+    flips = (y != yp) & clean & (hp.abs() > 1e-4)
+    assert not flips.any()
+
+
+@pytest.mark.cuda
+def test_minimalist_block_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph and replayed, the launch writes what an
+    eager call writes (the per-launch shared-memory attribute is set
+    outside the stream)."""
+    args = _block_inputs(cuda, 16, 130, 64, 64, seed=5)
+    want = mb_ops.minimalist_block_kernel(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mb_ops.minimalist_block_kernel(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = mb_ops.minimalist_block_kernel(*args)
+    for t in got:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_minimalist_block_kernel_raises_on_meta_and_mixed_devices(cuda):
+    """No plain fallback off the CPU: the meta device and a meta input
+    among CUDA tensors are refused before any launch."""
+    x, ch, cz, scale, bh, bz, h0 = _block_inputs(cuda, 2, 5, 4, 8, seed=1)
+    n0 = mb_ops.minimalist_block_kernel.launches
+    args = [x, ch, cz, bh, bz, h0]
+    for i in range(len(args)):
+        mixed = [a.to("meta") if j == i else a for j, a in enumerate(args)]
+        with pytest.raises(ValueError, match="different devices"):
+            mb_ops.minimalist_block_kernel(*mixed[:3], scale, *mixed[3:])
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        mb_ops.minimalist_block_kernel(*meta[:3], scale, *meta[3:])
+    assert mb_ops.minimalist_block_kernel.launches == n0
 
 
 @pytest.mark.cuda
@@ -516,8 +597,9 @@ def _tc_counts():
             fa_ops.flash_bwd_kernel.launches_dkv_tc)
 
 
-def _flash_inputs(dev, B, H, KV, S, D, dtype, seed=0):
-    g = torch.Generator(device=dev).manual_seed(seed)
+def _flash_inputs(dev, B, H, KV, S, D, dtype, seed=0, g=None):
+    if g is None:
+        g = torch.Generator(device=dev).manual_seed(seed)
     q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(dtype)
     k = (torch.randn(B, KV, S, D, device=dev, generator=g) * 0.5).to(dtype)
     v = torch.randn(B, KV, S, D, device=dev, generator=g).to(dtype)
@@ -615,6 +697,33 @@ def test_flash_tc_edge_cases_match_plain(cuda, case):
     _flash_check(lse, want_lse, torch.float32, 2e-5, 2e-5)
     for g, w in zip(got, wgrads):
         _flash_check(g, w, bf, 5e-5, 5e-4)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tc_within_one_bf16_ulp_of_fp64_sums(cuda):
+    """chip_smoke's flash_bwd path row (B 4, H 15, KV 5, S 2048, D 64,
+    causal, bf16: the tc route) on the inputs its generator drew there
+    once every minimalist_block row shared it (seed 0 at Philox offset
+    41004): dq, dk and dv within one bf16 ulp + 2e-6 of the plain
+    version's sums taken in fp64.  Against the fp32 plain version dv[0,
+    2, 0, 63] is 2.5e-6 off on these inputs (kernel -2.861e-5, fp32 plain
+    -2.611e-5, fp64 -2.785e-5; its terms sum to 20.4 in magnitude): the
+    fp32 plain version's own error, which chip_smoke's check no longer
+    measures."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, H, KV, S, D = 4, 15, 5, 2048, 64
+    g = torch.Generator(device=cuda).manual_seed(0)
+    g.set_offset(41004)
+    q, k, v, do = _flash_inputs(cuda, B, H, KV, S, D, torch.bfloat16, g=g)
+    out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, None)
+    got = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, None)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True, None,
+                                          acc=torch.float64)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert _bf16_close(a, w), name
 
 
 @pytest.mark.cuda
