@@ -14,7 +14,11 @@ Phases, each fatal on failure:
                two scan kernels also L2-warm and L2-cold, five rounds
                in alternating order, with the SM clock around each;
                the MLA pair on its tc route and, at the path and odd
-               shapes, on its simt route too (unaligned bf16 queries).
+               shapes, on its simt route too (unaligned bf16 queries, and
+               fp32 queries held to fp64 sums at 2e-6); fused_ssm_fwd
+               from a carried state with the final state written out (the
+               form mamba_serve's prefill calls) at its chunk shape and an
+               odd tail.
   3. lm     — serve full-width minimalist-lm-360m (random weights from a
                seed) through ServeEngine: 8 greedy requests, 4 slots,
                prefill through the linear_scan kernel; then the same
@@ -75,14 +79,44 @@ Phases, each fatal on failure:
                too), the kernel against the gather read on a copy with the
                output projections x32, and a shared 512-token prefix with
                and without the prefix cache (streams equal).
- 11. imc     — the paper's IMC projection (Eq. 6) through its entry point
+ 11. sched   — full-width smollm-360m (output projections x32, so greedy
+               streams vary) from paged bf16 pages, page 16, 4 slots, every
+               decode step through paged_gqa: 6 priority-0 requests
+               (prompts 128-256, 64 new tokens), 8 engine steps, then 2
+               priority-1 ones, from a pool of three worst-case
+               reservations under priority, sjf and edf (deadlines on the
+               pair): priority and edf preempt, and every stream equals an
+               undisturbed fifo run's with a pool for all, bit for bit; a
+               fork of the first request into 2 greedy children (their
+               streams equal the parent's; pages copied on write); a
+               planted fault (priority again, each victim restored with
+               its last page zeroed) must change a victim's stream; the
+               static baseline generate() on 4 prompts of 128 against the
+               dense engine (margin rule).
+ 12. spec    — the same target with the minimalist-lm-360m drafter at
+               spec_k 4, 8 greedy requests (prompts 64-192, 32 new
+               tokens): on the gather read bitwise the target-only
+               streams, on the kernel read against the target-only kernel
+               streams (margin rule); a drafter double proposing the
+               target-only streams (every draft accepted) and one
+               corrupting every third draft position (the accepted count
+               worked out in advance); the engine's own spec wave
+               (ServeEngine.step with the drafter) against its plain
+               step, wall time and the profiler's device busy time.
+ 13. mamba_serve — full-width falcon-mamba-7b (all 64 layers, seeded fp32
+               weights) served dense through build_engine: 4 greedy
+               requests (prompts 256-1024, 16 new tokens), 2 slots, with
+               ssm_impl="fused" (prefill through fused_ssm_fwd, carrying
+               the state in and out) and "xla" (through linear_scan),
+               tokens compared under the margin rule.
+ 14. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
                against its plain version, and Eq. 6's all-ones and
                all-zeros properties.
 
-Kernel launch counts are zeroed just before each main-path phase and read
-just after it.  The second-to-last stdout line is the card's name and
+Kernel launch counts are zeroed just before each main-path run and read
+just after it; a kernel's count in the last line sums its phases.  The second-to-last stdout line is the card's name and
 power limit; the last is {"ok": true, "device": {...}}.  Exits non-zero
 without a result when CUDA is unavailable or the port is not next to
 this script.
@@ -90,6 +124,7 @@ this script.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -449,6 +484,7 @@ def phase_kernels(torch, dev):
     rows.update(_kernel_rows_ssm(torch, dev, g))
     rows.update(_kernel_rows_mla(torch, dev, g))
     rows.update(_kernel_rows_imc(torch, dev, g))
+    _ssm_carry_against_plain(torch, dev, g)
     return rows
 
 
@@ -701,6 +737,52 @@ def _kernel_rows_flash(torch, dev, g):
     return rows
 
 
+def _ssm_err_within(name, got, want, atol, rtol):
+    """max |got - want|; fails past atol x max|want| + rtol x |want|."""
+    err = (got - want).abs()
+    if not bool((err <= atol * want.abs().max() + rtol * want.abs()).all()):
+        fail(f"{name}: max |kernel - plain| {err.max().item()} past atol "
+             f"{atol} x max|plain| {want.abs().max().item()} + rtol {rtol}")
+    return err.max().item()
+
+
+def _ssm_carry_against_plain(torch, dev, g):
+    """fused_ssm_fwd in the form mamba_serve's prefill calls it (from a
+    carried state h0, the final state written to h_last) at the path's
+    prefill chunk (B 1, T 256, d_inner 8192, d_state 16) and at an odd
+    tail (T 77): y, the entry states and h_last against the plain version
+    from the same h0 at the forward's atol 2e-5 x max|plain| / rtol
+    2e-5."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.fused_ssm import ref as ssm_ref
+
+    for B, T, di, n in [(1, 256, 8192, 16), (1, 77, 8192, 16)]:
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, T, di, device=dev, generator=g)) * 0.2
+        x = torch.randn(B, T, di, device=dev, generator=g)
+        Bm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+        Cm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+        A = -torch.exp(torch.randn(di, n, device=dev, generator=g) * 0.3)
+        h0 = torch.randn(B, di, n, device=dev, generator=g)
+        h_last, want_last = torch.empty_like(h0), torch.empty_like(h0)
+        y, ent = ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A, h0=h0,
+                                              h_last=h_last)
+        yp, entp = ssm_ref.fused_ssm_fwd_ref(dt, x, Bm, Cm, A, ssm_ops.CHUNK,
+                                             h0=h0, h_last=want_last)
+        torch.cuda.synchronize()
+        tag = f"fused_ssm_fwd carry (B {B}, T {T}, d_inner {di}, d_state {n})"
+        errs = {k: _ssm_err_within(f"{tag} {k}", a, w, 2e-5, 2e-5)
+                for k, a, w in (("y", y, yp), ("h_entries", ent, entp),
+                                ("h_last", h_last, want_last))}
+        print(f"kernel {tag} fp32 from a random h0: max_abs_err "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + " (tol 2e-5 x max|plain| "
+              + " / ".join(f"{w.abs().max().item():.3g}"
+                           for w in (yp, entp, want_last))
+              + " + 2e-5 rel)", flush=True)
+        del dt, x, Bm, Cm, A, h0, h_last, want_last, y, ent, yp, entp
+
+
 def _ssm_against_plain(torch, ins, dy, what):
     """fused_ssm_fwd and fused_ssm_bwd on ``ins`` = (dt, x, Bm, Cm, A) and
     dy against their plain versions on the same inputs: y and the entry
@@ -712,26 +794,18 @@ def _ssm_against_plain(torch, ins, dy, what):
     from repro_torch.kernels.fused_ssm import ops as ssm_ops
     from repro_torch.kernels.fused_ssm import ref as ssm_ref
 
-    def err_within(name, got, want, atol, rtol):
-        err = (got - want).abs()
-        if not bool((err <= atol * want.abs().max()
-                     + rtol * want.abs()).all()):
-            fail(f"{name}: max |kernel - plain| {err.max().item()} past "
-                 f"atol {atol} x max|plain| {want.abs().max().item()} + "
-                 f"rtol {rtol}")
-        return err.max().item()
-
     y, ent = ssm_ops.fused_ssm_fwd_kernel(*ins)
     yp, entp = ssm_ref.fused_ssm_fwd_ref(*ins, ssm_ops.CHUNK)
     grads = ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy)
     wgrads = ssm_ref.fused_ssm_bwd_ref(*ins, entp, dy, ssm_ops.CHUNK)
     torch.cuda.synchronize()
-    errs = {"y": err_within(f"fused_ssm_fwd {what} y", y, yp, 2e-5, 2e-5),
-            "h_entries": err_within(f"fused_ssm_fwd {what} h_entries", ent,
-                                    entp, 2e-5, 2e-5)}
+    errs = {"y": _ssm_err_within(f"fused_ssm_fwd {what} y", y, yp, 2e-5,
+                                 2e-5),
+            "h_entries": _ssm_err_within(f"fused_ssm_fwd {what} h_entries",
+                                         ent, entp, 2e-5, 2e-5)}
     for name, a, w in zip(("ddt", "dx", "dB", "dC", "dA"), grads, wgrads):
-        errs[name] = err_within(f"fused_ssm_bwd {what} {name}", a, w, 5e-5,
-                                5e-4)
+        errs[name] = _ssm_err_within(f"fused_ssm_bwd {what} {name}", a, w,
+                                     5e-5, 5e-4)
     scale = {k: v.abs().max().item() for k, v in zip(
         ("y", "h_entries", "ddt", "dx", "dB", "dC", "dA"),
         (yp, entp) + tuple(wgrads))}
@@ -866,12 +940,45 @@ def _mla_simt(torch, kern, tag, inputs, kw, sk):
     return err, lambda: kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
 
 
+def _mla_simt_f32(torch, kern, tag, inputs, kw, sk, q8):
+    """The simt route on fp32 queries (bf16 pages widened to fp32; int8
+    pages as they are), held to the function evaluated in fp64 from the
+    same operands (``paged_mla_ref(acc=torch.float64)``) at the contract's
+    2e-6: the fp32 plain version's cuBLAS sums are farther from it than
+    the kernel is -> max |kernel - fp64|."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    qa, qr, pc, pr, sc, bt, pos_t = inputs
+    qa, qr = qa.float(), qr.float()
+    if not q8:
+        pc, pr = pc.float(), pr.float()
+    n0, tc0 = kern.launches, kern.launches_tc
+    got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+    moved = (kern.launches - n0, kern.launches_tc - tc0)
+    tag = f"{tag} fp32 q, simt route"
+    if moved != (1, 0) or pa_ops.mla_route(
+            qa.dtype, pc.dtype, qa.shape[2], qr.shape[2], pc.shape[1],
+            True) != "simt":
+        fail(f"{tag}: (launches, launches_tc) moved by {moved}, not (1, 0)")
+    want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos_t, **kw, **sk,
+                                acc=torch.float64)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not err <= 2e-6:
+        fail(f"{tag}: |kernel - fp64| max {err:.3g} > 2e-6")
+    print(f"kernel {tag}: max |kernel - fp64 sums| {err:.3g} (tol 2e-6)",
+          flush=True)
+    return err
+
+
 def _kernel_rows_mla(torch, dev, g):
     """paged_mla and paged_mla_q8 at mla_shapes.MLA_SHAPES (kv_lora 512,
     rope 64, page 16, bf16 queries: the tc route) against the plain
     version: one bf16 ulp of the output plus 2e-6; the build's registers,
     spills and resident CTAs of each tc instantiation first.  At the path
-    and odd shapes the simt route too (:func:`_mla_simt`)."""
+    and odd shapes the simt route too, on bf16 queries (:func:`_mla_simt`)
+    and on fp32 queries against fp64 sums (:func:`_mla_simt_f32`)."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
     from repro_torch.launch.mla_shapes import MLA_SHAPES, mla_inputs
@@ -922,6 +1029,8 @@ def _kernel_rows_mla(torch, dev, g):
                 simt_err, simt_call = _mla_simt(torch, kern, f"{name} {label}",
                                                 inputs, kw, sk)
                 simt["simt_max_abs_err"] = simt_err
+                simt["simt_f32_max_abs_err_fp64"] = _mla_simt_f32(
+                    torch, kern, f"{name} {label}", inputs, kw, sk, q8)
                 simt["simt_ms"] = device_ms(torch, simt_call, 50)
                 print(f"kernel {name} {label} simt route (unaligned bf16 q): "
                       f"{simt['simt_ms']:.4f} ms", flush=True)
@@ -2267,6 +2376,549 @@ def phase_mla_paged(torch, dev):
     return {"paged_mla": launches, "paged_mla_q8": q8_launches}
 
 
+def _margin_rule(torch, tag, sm, vocab, prompts, got, want):
+    """``got`` equals ``want`` per stream up to the first token where the
+    top-2 margin of ``sm`` (the side ``want`` came from; a fresh prefill
+    of the prompt and ``want``'s tokens so far) is <= 0.1."""
+    import numpy as np
+
+    n_same = 0
+    for prompt, a, b in zip(prompts, got, want):
+        i = _first_divergence(a, b)
+        if i is None:
+            n_same += 1
+            continue
+        ctx = np.concatenate([prompt, b[:i]]).astype(np.int64)
+        last, _ = sm.prefill(ctx[None, :])
+        top2 = torch.topk(last[0, :vocab].float(), 2).values
+        margin = (top2[0] - top2[1]).item()
+        if margin > 0.1:
+            fail(f"{tag}: a stream diverges at token {i} where the top-2 "
+                 f"margin is {margin:.3f} > 0.1")
+        print(f"{tag}: a stream parts at token {i} (top-2 margin "
+              f"{margin:.4f} <= 0.1)", flush=True)
+    print(f"{tag}: {n_same}/{len(got)} streams equal end to end", flush=True)
+
+
+def _sharpen(torch, model, factor=32.0):
+    """Every layer's output projections x ``factor``, in place: random
+    weights give one-token greedy streams (the tied head reads each
+    input's own embedding off the residual); x32 makes them vary at
+    smollm-360m's width (phase_paged)."""
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.mixer.wo.mul_(factor)
+            layer.mlp.w_down.mul_(factor)
+    return model
+
+
+SCHED_GEN = 64
+
+
+def _sched_run(torch, model, policy, low, high, *, num_pages, deadlines=None,
+               fault=None):
+    """The sched traffic through build_engine: the priority-0 prompts
+    ``low``, 8 engine steps, then the priority-1 pair ``high``; ``fault``,
+    if given, is applied to the new engine first.  Returns (engine,
+    requests in submission order, seconds)."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import Telemetry
+
+    eng = build_engine(model, ServeConfig(
+        slots=4, max_len=256 + SCHED_GEN, kv_layout="paged", page_size=16,
+        num_pages=num_pages, policy=policy), telemetry=Telemetry())
+    if fault is not None:
+        fault(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=SCHED_GEN) for p in low]
+    for _ in range(8):
+        eng.step()
+    reqs += [eng.submit(p, max_new_tokens=SCHED_GEN, priority=1,
+                        deadline=None if deadlines is None else deadlines[i])
+             for i, p in enumerate(high)]
+    eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for r in reqs:
+        if not r.finished or len(r.tokens) != SCHED_GEN:
+            fail(f"sched {policy}: request {r.uid} finished={r.finished} "
+                 f"with {len(r.tokens)} tokens")
+    _check_drained(eng, f"sched {policy}")
+    return eng, reqs, dt
+
+
+def _zero_last_restored_page(torch, eng):
+    """A planted fault: every restore of a preempted request zeroes the
+    last page of its fresh chain (its newest positions) in every layer's
+    pool, as a restore that lost one page would."""
+    restore = eng.sm.restore_slot
+
+    def faulty(state, snap, slot, pages):
+        state = restore(state, snap, slot, pages)
+        with torch.inference_mode():
+            for sub in state:
+                for v in sub.values():
+                    v[int(pages[-1])] = 0
+        return state
+    eng.sm.restore_slot = faulty
+
+
+def _victims(reqs, streams):
+    """(uid, preemptions, distinct tokens) of each preempted request."""
+    return [(r.uid, r.n_preemptions, len(set(map(int, t))))
+            for r, t in zip(reqs, streams) if r.n_preemptions]
+
+
+def phase_sched(torch, dev):
+    """Full-width smollm-360m from paged bf16 pages through the paged_gqa
+    kernel under the priority, sjf and edf policies, preemption and fork;
+    then the static baseline against the engine."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.serve import build_engine, generate
+    from repro_torch.models import build_model
+
+    cfg = get_config("smollm-360m")
+    model = _sharpen(torch, build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    rng = np.random.default_rng(1)
+    low = [rng.integers(0, cfg.vocab, size=p)
+           for p in (128, 160, 192, 224, 256, 144)]
+    high = [rng.integers(0, cfg.vocab, size=p) for p in (176, 208)]
+    worst = -(-(256 + SCHED_GEN) // 16)            # pages of the longest
+    tight = 3 * worst
+
+    # the undisturbed run: FIFO, a pool big enough for every slot
+    ref_eng, ref, ref_dt = _sched_run(torch, model, "fifo", low, high,
+                                      num_pages=0)
+    if ref_eng.n_preemptions:
+        fail("sched: the fifo run preempted")
+    want = [list(r.tokens) for r in ref]
+    n_gen = len(ref) * SCHED_GEN
+    print(f"sched: {cfg.name} x32-sharpened, 6 priority-0 + 2 priority-1 "
+          f"requests (prompts 128-256, {SCHED_GEN} new tokens), 4 slots, page "
+          f"16; fifo with {ref_eng.pool.num_pages} pages: {ref_dt:.3f} s "
+          f"({n_gen / ref_dt:.1f} generated tok/s incl. prefill); distinct "
+          f"tokens per stream {[len(set(w)) for w in want]}", flush=True)
+
+    out = {}
+    for policy, dls in (("priority", None), ("sjf", None),
+                        ("edf", (30.0, 31.0))):
+        pa_ops.paged_gqa_kernel.launches = 0
+        eng, reqs, dt = _sched_run(torch, model, policy, low, high,
+                                   num_pages=tight, deadlines=dls)
+        launches = pa_ops.paged_gqa_kernel.launches
+        got = [list(r.tokens) for r in reqs]
+        if got != want:
+            bad = [r.uid for r, g, w in zip(reqs, got, want) if g != w]
+            fail(f"sched {policy}: streams of requests {bad} differ from the "
+                 "undisturbed fifo run's")
+        tel = eng.telemetry.registry.counters
+        print(f"sched {policy} ({tight} pages = 3 worst-case reservations): "
+              f"{dt:.3f} s ({n_gen / dt:.1f} generated tok/s incl. prefill), "
+              f"preemptions {eng.n_preemptions}, resumes "
+              f"{tel.get('resumes', 0)}, host bytes snapshotted "
+              f"{eng.n_snapshot_bytes} ({eng.n_snapshot_bytes / 2**20:.2f} "
+              f"MiB), paged_gqa launches {launches}; every stream bitwise the "
+              "fifo run's; (uid, preemptions, distinct tokens) of the "
+              f"preempted: {_victims(reqs, got)}", flush=True)
+        if policy != "sjf" and not eng.n_preemptions:
+            fail(f"sched {policy}: the urgent pair preempted nothing")
+        if launches == 0 or pa_ops.paged_gqa_q8_kernel.launches:
+            fail(f"sched {policy}: paged_gqa launches {launches}")
+        out[policy] = launches
+
+    # the control: the priority run again with each victim restored with
+    # its last page zeroed; the bitwise check must see the fault
+    eng, reqs, _dt = _sched_run(
+        torch, model, "priority", low, high, num_pages=tight,
+        fault=lambda e: _zero_last_restored_page(torch, e))
+    got = [list(r.tokens) for r in reqs]
+    changed = [r.uid for r, g, w in zip(reqs, got, want)
+               if r.n_preemptions and g != w]
+    print(f"sched planted fault (each restore zeroes the chain's last page): "
+          f"preempted {_victims(reqs, got)}, streams changed {changed}",
+          flush=True)
+    if not changed:
+        fail("sched: a restore that zeroes a page left every preempted "
+             "stream bitwise the fifo run's (the check cannot see it)")
+
+    # fork: the first request into 2 greedy children, copy-on-write
+    eng = build_engine(model, ServeConfig(slots=4, max_len=256 + SCHED_GEN,
+                                          kv_layout="paged", page_size=16))
+    parent = eng.submit(low[0], max_new_tokens=SCHED_GEN)
+    eng.submit(low[1], max_new_tokens=SCHED_GEN)
+    for _ in range(3):
+        eng.step()
+    kids = eng.fork(parent, 2)
+    eng.run()
+    if any(list(k.tokens) != list(parent.tokens) for k in kids) or \
+            list(parent.tokens) != want[0]:
+        fail("sched fork: a child's stream differs from its parent's")
+    if eng.n_cow_copies < 1:
+        fail("sched fork: no page was copied on write")
+    _check_drained(eng, "fork")
+    print(f"sched fork: 2 greedy children of request 0 bitwise its stream, "
+          f"{eng.n_cow_copies} COW page copies", flush=True)
+
+    # the static baseline (per-token prefill, lock-step decode, dense)
+    # against the engine's dense greedy streams
+    prompts = [rng.integers(0, cfg.vocab, size=128) for _ in range(4)]
+    gen = 32
+    generate(model, np.stack(prompts)[:, :8], max_len=160, gen_tokens=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = generate(model, np.stack(prompts), max_len=160, gen_tokens=gen)
+    torch.cuda.synchronize()
+    base_dt = time.perf_counter() - t0
+    eng = build_engine(model, ServeConfig(slots=4, max_len=160))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=gen) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    eng_dt = time.perf_counter() - t0
+    print(f"sched baseline: static batch 4 x (128 + {gen}) in {base_dt:.3f} s "
+          f"({4 * gen / base_dt:.1f} generated tok/s, "
+          f"{4 * (128 + gen) / base_dt:.1f} incl. prompt), engine (dense, 4 "
+          f"slots, chunked prefill) {eng_dt:.3f} s ({4 * gen / eng_dt:.1f} "
+          f"generated tok/s)", flush=True)
+    _margin_rule(torch, "sched baseline vs engine", eng.sm, cfg.vocab,
+                 prompts, base.cpu().numpy(), [r.tokens for r in reqs])
+    del model
+    torch.cuda.empty_cache()
+    return {"paged_gqa": out["priority"]}
+
+
+class OracleDrafter:
+    """A drafter double with DraftStepModel's interface that proposes the
+    next tokens of known target-only streams (``streams[uid]``), so every
+    draft is accepted; ``corrupt(position)`` picks drafts to replace with
+    another token.  Lives here, not in the package: with random weights the
+    real drafter is almost never accepted, and this drives the verifier's
+    accept and reject paths on the card (here and in
+    tests/test_torch_cuda.py).  Set ``.eng`` to the engine it serves."""
+
+    def __init__(self, torch, k, vocab, streams, corrupt=None):
+        self.torch, self.k, self.vocab = torch, k, vocab
+        self.streams, self.corrupt = streams, corrupt
+        self.eng = None
+        self.telemetry = None
+
+    def init_store(self, slots):
+        return None
+
+    def propose(self, store, sel, tok, active):
+        import numpy as np
+        st = self.eng.st
+        toks = np.zeros((len(tok), self.k), np.int64)
+        toks[:, 0] = tok
+        for s in np.flatnonzero(active):
+            req, p = st.slot_req[s], int(st.pos[s])
+            stream = self.streams[req.uid]
+            for m in range(1, self.k):
+                j = p + m - len(req.prompt)      # output j sits at plen + j
+                t = int(stream[j]) if j < len(stream) else 0
+                if self.corrupt is not None and self.corrupt(p + m):
+                    t = (t + 1) % self.vocab
+                toks[s, m] = t
+        return self.torch.as_tensor(toks, device=self.eng.sm.device), store
+
+    def prefill(self, xs):
+        return None
+
+    def install(self, store, carry, slots):
+        return store
+
+    def snapshot_slot(self, store, slot):
+        return None
+
+    def restore_slot(self, store, snap, slot):
+        return store
+
+    def copy_slot(self, store, src, dst):
+        return store
+
+
+def _expected_accepts(plens, gen, k, corrupt):
+    """Drafts a greedy engine accepts when every draft is the true token
+    except at positions where ``corrupt`` holds (the wave arithmetic of
+    ServeEngine._spec_step with heterogeneous_k)."""
+    total = 0
+    for plen in plens:
+        pos, remaining = plen, gen - 1
+        while remaining > 0:
+            kk = min(k, remaining)
+            a = 0
+            while a < kk - 1 and not corrupt(pos + a + 1):
+                a += 1
+            total += a
+            pos += a + 1
+            remaining -= a + 1
+    return total
+
+
+SPEC_K, SPEC_GEN = 4, 32
+
+
+def _engine_step_ms(torch, eng, prompts, gen, n=5):
+    """ServeEngine.step once every request runs: admit ``prompts`` with
+    ``gen`` new tokens each, warm up 2 steps, then time ``n``
+    steps by the host clock and ``n`` more under the profiler (device
+    time of kernels and copies).  Returns (wall ms a step, device busy ms
+    a step, tokens a slot a step, the 5 kernels with the most device time
+    as (ms a step, name)); drains the engine."""
+    import collections
+
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new_tokens=gen)
+    while eng.waiting:
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    d0 = eng.n_emitted
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    toks = (eng.n_emitted - d0) / n / len(prompts)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            by_name[e.name] += e.device_time_total / 1e3 / n
+    busy = sum(by_name.values())
+    if busy <= 0:
+        fail("engine step: the profiler saw no device time")
+    eng.run()
+    _check_drained(eng, "engine step timing")
+    return wall, busy, toks, [(ms, name) for name, ms in
+                              by_name.most_common(5)]
+
+
+def phase_spec(torch, dev):
+    """Full-width smollm-360m target from paged bf16 pages with the
+    minimalist-lm-360m drafter at spec_k 4, plus drafter doubles."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine, Telemetry
+
+    cfg = get_config("smollm-360m")
+    model = _sharpen(torch, build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    gmodel = build_model(dataclasses.replace(cfg, paged_impl="gather"),
+                         device=dev)
+    gmodel.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(2)
+    plens = [64, 96, 128, 160, 192, 80, 112, 176]
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in plens]
+
+    def serve(m, drafter=None, double=None, tag=""):
+        kw = dict(drafter="minimalist-lm-360m", spec_k=SPEC_K) if drafter \
+            else {}
+        conf = ServeConfig(slots=4, max_len=192 + SPEC_GEN + SPEC_K,
+                           kv_layout="paged", page_size=16, **kw)
+        if double is not None:
+            sm = build_engine(m, conf).sm
+            eng = ServeEngine(sm, slots=4, drafter=double, spec_k=SPEC_K,
+                              telemetry=Telemetry())
+            double.eng = eng
+        else:
+            eng = build_engine(m, conf, telemetry=Telemetry())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=SPEC_GEN) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for r in reqs:
+            if not r.finished or len(r.tokens) != SPEC_GEN:
+                fail(f"spec {tag}: request {r.uid} finished={r.finished} with "
+                     f"{len(r.tokens)} tokens")
+        _check_drained(eng, f"spec {tag}")
+        n = len(reqs) * SPEC_GEN
+        print(f"spec {tag}: {dt:.3f} s ({n / dt:.1f} generated tok/s incl. "
+              f"prefill), {eng.n_steps} waves, drafts accepted "
+              f"{eng.n_drafts_accepted}/{eng.n_drafts_proposed} (accept rate "
+              f"{eng.stats().accept_rate:.3f})", flush=True)
+        return eng, [list(r.tokens) for r in reqs]
+
+    serve(gmodel, tag="warm-up")
+    # (a) the gather read: spec bitwise target-only
+    _e, plain_g = serve(gmodel, tag="target-only gather")
+    _e, spec_g = serve(gmodel, drafter=True, tag="minimalist-lm-360m gather")
+    if spec_g != plain_g:
+        fail("spec (a): greedy spec streams differ from the target-only "
+             "gather streams")
+    # (b) the kernel read, target-only, against the spec streams (whose
+    # verify reads through the gather view) under the margin rule
+    scan_ops.linear_scan_kernel.launches = 0
+    pa_ops.paged_gqa_kernel.launches = 0
+    plain_eng, plain_k = serve(model, tag="target-only kernel")
+    spec_eng, spec_k = serve(model, drafter=True, tag="minimalist-lm-360m "
+                             "kernel")
+    draft_scans = scan_ops.linear_scan_kernel.launches
+    gqa = pa_ops.paged_gqa_kernel.launches
+    if draft_scans == 0 or gqa == 0:
+        fail(f"spec (b): drafter linear_scan launches {draft_scans}, target "
+             f"paged_gqa launches {gqa}")
+    print(f"spec (b): drafter prefill linear_scan launches {draft_scans}, "
+          f"target paged_gqa launches {gqa} (target-only run)", flush=True)
+    if spec_k != spec_g:
+        fail("spec (b): spec streams under the kernel read differ from the "
+             "gather read's (every spec wave verifies through the gather "
+             "view)")
+    _margin_rule(torch, "spec (b) spec vs target-only kernel", plain_eng.sm,
+                 cfg.vocab, prompts, spec_k, plain_k)
+    # (c) a double proposing the target-only stream: all accepted
+    streams = dict(enumerate(plain_g))
+    eng_c, got_c = serve(gmodel, double=OracleDrafter(
+        torch, SPEC_K, cfg.vocab, streams), tag="all-accepting double")
+    if eng_c.n_drafts_accepted != eng_c.n_drafts_proposed or got_c != plain_g:
+        fail(f"spec (c): accepted {eng_c.n_drafts_accepted} of "
+             f"{eng_c.n_drafts_proposed}, streams equal {got_c == plain_g}")
+    # (d) every third draft position corrupted
+    def corrupt(p):
+        return p % 3 == 0
+    eng_d, got_d = serve(gmodel, double=OracleDrafter(
+        torch, SPEC_K, cfg.vocab, streams, corrupt), tag="corrupting double")
+    want_d = _expected_accepts(plens, SPEC_GEN, SPEC_K, corrupt)
+    if eng_d.n_drafts_accepted != want_d or got_d != plain_g:
+        fail(f"spec (d): accepted {eng_d.n_drafts_accepted}, expected "
+             f"{want_d}; streams equal {got_d == plain_g}")
+    print(f"spec (c)/(d): all {eng_c.n_drafts_proposed} drafts accepted; "
+          f"corrupting every third position: {eng_d.n_drafts_accepted} "
+          f"accepted = the count worked out; streams bitwise", flush=True)
+
+    # the engine's own waves, 4 slots at prompt 160: ServeEngine.step with
+    # the drafter (propose, verify, commit, the host's bookkeeping)
+    # against its plain step, both on the kernel read
+    long = [rng.integers(0, cfg.vocab, size=160) for _ in range(4)]
+    for name, kw in (("plain step", {}), ("spec wave", dict(
+            drafter="minimalist-lm-360m", spec_k=SPEC_K))):
+        eng = build_engine(model, ServeConfig(
+            slots=4, max_len=160 + 64 + SPEC_K, kv_layout="paged",
+            page_size=16, **kw))
+        wall, busy, toks, top = _engine_step_ms(torch, eng, long, 64)
+        print(f"spec: engine {name} (4 slots, prompt 160): wall {wall:.3f} "
+              f"ms, device busy {busy:.3f} ms -> card idle "
+              f"{1 - busy / wall:.1%}; {toks:.2f} tokens a slot a step, "
+              f"{wall / toks:.3f} ms a token a slot; most device time: "
+              + "; ".join(f"{ms:.3f} ms {nm[:60]}" for ms, nm in top),
+              flush=True)
+    del model, gmodel, spec_eng, plain_eng, eng
+    torch.cuda.empty_cache()
+    return {"linear_scan": draft_scans, "paged_gqa": gqa}
+
+
+MAMBA_SERVE_LAYERS = 64
+
+
+def phase_mamba_serve(torch, dev):
+    """Full-width falcon-mamba-7b (all 64 layers, fp32 weights) served
+    dense through build_engine, ssm_impl fused then xla."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+
+    gc.collect()                   # engines of earlier phases (see below)
+    base = dataclasses.replace(get_config("falcon-mamba-7b"),
+                               n_layers=MAMBA_SERVE_LAYERS)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, base.vocab, size=p)
+               for p in (256, 512, 768, 1024)]
+    gen = 16
+    runs = {}
+    for impl in ("fused", "xla"):
+        cfg = dataclasses.replace(base, ssm_impl=impl)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"mamba_serve: {cfg.name} ssm_impl={impl} ({cfg.n_layers} "
+              f"layers, {n_params / 1e9:.2f} B fp32 params, d "
+              f"{cfg.d_model}) built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        conf = ServeConfig(slots=2, max_len=1024 + gen)
+        eng = build_engine(model, conf)            # warm-up
+        eng.submit(prompts[0][:64], max_new_tokens=2)
+        eng.run()
+        ssm_ops.fused_ssm_fwd_kernel.launches = 0
+        scan_ops.linear_scan_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng = build_engine(model, conf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=gen) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fused, scans = (ssm_ops.fused_ssm_fwd_kernel.launches,
+                        scan_ops.linear_scan_kernel.launches)
+        for r in reqs:
+            toks = r.tokens
+            if not r.finished or len(toks) != gen or not (
+                    (toks >= 0) & (toks < cfg.vocab)).all():
+                fail(f"mamba_serve {impl}: request {r.uid} finished="
+                     f"{r.finished}, tokens {toks}")
+        chunks = eng.sm.n_prefill_chunks
+        want = (chunks * cfg.n_layers, 0) if impl == "fused" else \
+            (0, chunks * cfg.n_layers)
+        if (fused, scans) != want:
+            fail(f"mamba_serve {impl}: (fused_ssm_fwd, linear_scan) launches "
+                 f"{(fused, scans)} != {want} ({chunks} prefill chunks x "
+                 f"{cfg.n_layers} layers)")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"mamba_serve {impl}: 4 requests (prompts 256-1024, {gen} new "
+              f"tokens), 2 slots, {dt:.3f} s ({4 * gen / dt:.1f} generated "
+              f"tok/s incl. prefill, {sum(len(p) for p in prompts) / dt:.0f} "
+              f"prompt tok/s), {chunks} prefill chunks, fused_ssm_fwd "
+              f"launches {fused}, linear_scan launches {scans}, peak memory "
+              f"{peak:.1f} GiB; distinct tokens per stream "
+              f"{[len(set(r.tokens.tolist())) for r in reqs]}", flush=True)
+        # keep the xla engine's step model for the margin rule; drop the
+        # fused model first (two 29 GB models do not fit beside the xla
+        # prefill's activations).  An engine sits in a reference cycle
+        # (its slot table holds a bound method of it), so only the cycle
+        # collector frees the model it holds
+        runs[impl] = (eng.sm if impl == "xla" else None,
+                      [r.tokens for r in reqs], fused, scans)
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    _margin_rule(torch, "mamba_serve fused vs xla", runs["xla"][0],
+                 base.vocab, prompts, runs["fused"][1], runs["xla"][1])
+    launches = {"fused_ssm_fwd": runs["fused"][2],
+                "linear_scan": runs["xla"][3]}
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_imc(torch, dev):
     """The paper's IMC projection through its entry point on the card, at
     the kernel rows' shapes and with leading dimensions, and Eq. 6's
@@ -2353,6 +3005,10 @@ def main():
     launches.update(phase_attn_train(torch, dev))
     launches.update(phase_mamba_train(torch, dev))
     launches.update(phase_mla_paged(torch, dev))
+    # the serving phases drive kernels of earlier phases: counts add up
+    for phase in (phase_sched, phase_spec, phase_mamba_serve):
+        for name, n in phase(torch, dev).items():
+            launches[name] += n
     launches["imc_mvm"] = phase_imc(torch, dev)
 
     meta = {

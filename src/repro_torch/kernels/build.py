@@ -71,7 +71,7 @@ SIGNATURES = {
         "flash_bwd_dkv_bf16_tc": [_P] * 10 + [_L] + [_I] * 7 + [_P],
     },
     "fused_ssm_fwd": {
-        "fused_ssm_fwd_f32": [_P] * 7 + [_I] * 5 + [_P],
+        "fused_ssm_fwd_f32": [_P] * 9 + [_I] * 5 + [_P],
         "fused_ssm_fwd_info": [_I, _P],
     },
     "fused_ssm_bwd": {

@@ -1,5 +1,7 @@
 // Fused selective scan, forward: y and the chunk-entry states, without
 // ever writing the (B, T, di, n) discretized terms or states to memory.
+// Optionally from a given state h0 and with the state after the last step
+// written out (h_last): the carry in and out of a serving prefill chunk.
 //
 // Replaces the TPU kernel fused_ssm_fwd
 // (src/repro/kernels/fused_ssm/fused_ssm.py:113, _fwd_kernel at :32),
@@ -53,9 +55,10 @@ template <int S, int NL, int CB>
 __global__ void __launch_bounds__(CB * NL, 1)
     fwd_kernel(const float* __restrict__ dt, const float* __restrict__ x,
                const float* __restrict__ Bm, const float* __restrict__ Cm,
-               const float* __restrict__ A, float* __restrict__ y,
-               float* __restrict__ h_entries, int T, int di, int n,
-               bool vec_d, bool vec_n) {
+               const float* __restrict__ A, const float* __restrict__ h0,
+               float* __restrict__ y, float* __restrict__ h_entries,
+               float* __restrict__ h_last, int T, int di, int n, bool vec_d,
+               bool vec_n) {
   constexpr int THREADS = CB * NL, NP = S * NL;
   extern __shared__ __align__(16) float smem[];
   const int c = threadIdx.x / NL, sub = threadIdx.x % NL;
@@ -66,13 +69,13 @@ __global__ void __launch_bounds__(CB * NL, 1)
   const int vcols = min(CB, di - d0);
   const bool store = sub == 0 && d < di;
 
+  const int64_t state0 = (static_cast<int64_t>(b) * di + d) * n + s0;
   float a2[S], h[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    a2[s] = (d < di && s0 + s < n)
-                ? A[static_cast<int64_t>(d) * n + s0 + s] * kLog2e
-                : 0.0f;
-    h[s] = 0.0f;
+    const bool live = d < di && s0 + s < n;
+    a2[s] = live ? A[static_cast<int64_t>(d) * n + s0 + s] * kLog2e : 0.0f;
+    h[s] = (live && h0 != nullptr) ? h0[state0 + s] : 0.0f;
   }
 
   auto issue = [&](int i) {
@@ -129,21 +132,26 @@ __global__ void __launch_bounds__(CB * NL, 1)
       if (store && k < vrows) y_row[k * di] = acc;
     }
   }
+  // the tail stage's steps past T run on zero-filled dt, so the state
+  // is the one after step T - 1
+  if (h_last != nullptr && d < di)
+    store_states<S>(h_last + state0, h, n - s0, vec_n);
 }
 
 template <int S, int NL, int CB>
 int launch_fwd(const float* dt, const float* x, const float* Bm,
-               const float* Cm, const float* A, float* y, float* h_entries,
-               int B, int T, int di, int n, cudaStream_t stream) {
+               const float* Cm, const float* A, const float* h0, float* y,
+               float* h_entries, float* h_last, int B, int T, int di, int n,
+               cudaStream_t stream) {
   constexpr int smem = fwd_smem<S, NL, CB>();
   const cudaError_t err = allow_smem<fwd_kernel<S, NL, CB>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec_d = di % 4 == 0 && aligned16(dt) && aligned16(x);
   const bool vec_n = n % 4 == 0 && aligned16(Bm) && aligned16(Cm) &&
-                     aligned16(h_entries);
+                     aligned16(h_entries) && aligned16(h_last);
   const dim3 grid((di + CB - 1) / CB, B);
   fwd_kernel<S, NL, CB><<<grid, CB * NL, smem, stream>>>(
-      dt, x, Bm, Cm, A, y, h_entries, T, di, n, vec_d, vec_n);
+      dt, x, Bm, Cm, A, h0, y, h_entries, h_last, T, di, n, vec_d, vec_n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,17 +165,20 @@ int info_fwd(int* out) {
 
 // chunk must be ssm::kChunk (the caller sizes h_entries with it) and
 // 1 <= n <= 32; anything else returns cudaErrorInvalidValue unlaunched.
+// h0 (B, di, n) may be null (a zero state); h_last (B, di, n) may be null
+// (not written).
 extern "C" int fused_ssm_fwd_f32(const void* dt, const void* x,
                                  const void* Bm, const void* Cm,
-                                 const void* A, void* y, void* h_entries,
-                                 int B, int T, int di, int n, int chunk,
-                                 void* stream) {
+                                 const void* A, const void* h0, void* y,
+                                 void* h_entries, void* h_last, int B, int T,
+                                 int di, int n, int chunk, void* stream) {
   if (chunk != ssm::kChunk) return static_cast<int>(cudaErrorInvalidValue);
   SSM_DISPATCH(n, ssm::launch_fwd, static_cast<const float*>(dt),
                static_cast<const float*>(x), static_cast<const float*>(Bm),
                static_cast<const float*>(Cm), static_cast<const float*>(A),
-               static_cast<float*>(y), static_cast<float*>(h_entries), B, T,
-               di, n, static_cast<cudaStream_t>(stream))
+               static_cast<const float*>(h0), static_cast<float*>(y),
+               static_cast<float*>(h_entries), static_cast<float*>(h_last), B,
+               T, di, n, static_cast<cudaStream_t>(stream))
 }
 
 // The build's registers, local bytes, shared bytes, resident blocks an SM,

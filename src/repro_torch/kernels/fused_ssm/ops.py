@@ -99,25 +99,37 @@ def _check(what, dt, x, Bm, Cm, A, extra=()):
                          "launch")
 
 
-def fused_ssm_fwd_kernel(dt, x, Bm, Cm, A):
+def fused_ssm_fwd_kernel(dt, x, Bm, Cm, A, h0=None, h_last=None):
     """dt, x: (B, T, di); Bm, Cm: (B, T, n); A: (di, n), all fp32 ->
     (y (B, T, di), h_entries (B, ceil(T / CHUNK), di, n)): the output and
-    the state before every CHUNK-th step."""
-    if on_cpu(dt, x, Bm, Cm, A):
-        return ref.fused_ssm_fwd_ref(dt, x, Bm, Cm, A, CHUNK)
-    _check("fused_ssm_fwd_kernel", dt, x, Bm, Cm, A)
+    the state before every CHUNK-th step.  ``h0`` (B, di, n) fp32 is the
+    state before step 0 (None: zeros); ``h_last`` (B, di, n) fp32, if
+    given, is overwritten with the state after the last step — the carry
+    in and out of a serving prefill chunk."""
+    carry = [t for t in (h0, h_last) if t is not None]
+    if on_cpu(dt, x, Bm, Cm, A, *carry):
+        return ref.fused_ssm_fwd_ref(dt, x, Bm, Cm, A, CHUNK, h0=h0,
+                                     h_last=h_last)
+    _check("fused_ssm_fwd_kernel", dt, x, Bm, Cm, A, carry)
     B, T, di = x.shape
     n = A.shape[1]
+    for t in carry:
+        if t.shape != (B, di, n):
+            raise ValueError(f"fused_ssm_fwd_kernel: carry {tuple(t.shape)} "
+                             f"is not (B, di, n) = {(B, di, n)}")
     y = torch.empty_like(x)
     h_entries = torch.empty(B, n_chunks(T), di, n, dtype=torch.float32,
                             device=x.device)
     if y.numel() == 0:
+        if h_last is not None:
+            h_last.copy_(h0 if h0 is not None else torch.zeros_like(h_last))
         return y, h_entries.zero_()
     lib = build.load("fused_ssm_fwd")
     err = lib.fused_ssm_fwd_f32(
         dt.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        A.data_ptr(), y.data_ptr(), h_entries.data_ptr(), B, T, di, n,
-        CHUNK, torch.cuda.current_stream(x.device).cuda_stream)
+        A.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+        h_entries.data_ptr(), None if h_last is None else h_last.data_ptr(),
+        B, T, di, n, CHUNK, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fused_ssm_fwd")
     fused_ssm_fwd_kernel.launches += 1
     return y, h_entries

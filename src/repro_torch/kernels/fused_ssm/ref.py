@@ -34,10 +34,11 @@ def selective_scan_ref(dt, x, Bm, Cm, A):
     return torch.einsum("btdn,btn->btd", hs, Cm)
 
 
-def fused_ssm_fwd_ref(dt, x, Bm, Cm, A, chunk):
+def fused_ssm_fwd_ref(dt, x, Bm, Cm, A, chunk, h0=None, h_last=None):
     """The forward kernel's plain version: (y (B, T, di) in x's dtype,
     h_entries (B, ceil(T / chunk), di, n) fp32), h_entries[:, c] being the
-    state before step c·chunk.  Computes in fp32."""
+    state before step c·chunk.  Computes in fp32, from the state ``h0``
+    (None: zeros); ``h_last``, if given, receives the final state."""
     B, T, di = x.shape
     n = A.shape[1]
     out_dtype = x.dtype
@@ -46,13 +47,16 @@ def fused_ssm_fwd_ref(dt, x, Bm, Cm, A, chunk):
     y = torch.empty(B, T, di, dtype=torch.float32, device=x.device)
     entries = torch.empty(B, -(-T // chunk), di, n, dtype=torch.float32,
                           device=x.device)
-    h = torch.zeros(B, di, n, dtype=torch.float32, device=x.device)
+    h = torch.zeros(B, di, n, dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
     for t in range(T):
         if t % chunk == 0:
             entries[:, t // chunk] = h
         a = torch.exp(dt[:, t, :, None] * A)
         h = a * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
         y[:, t] = (h * Cm[:, t, None, :]).sum(-1)
+    if h_last is not None:
+        h_last.copy_(h)
     return y.to(out_dtype), entries
 
 

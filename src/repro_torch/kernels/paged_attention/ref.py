@@ -94,21 +94,26 @@ def paged_gqa_ref(q, pool_k, pool_v, block_tables, pos, *, length,
 
 
 def paged_mla_ref(q_abs, q_rope, pool_ckv, pool_krope, block_tables, pos, *,
-                  length, scale, ckv_scale=None, krope_scale=None):
+                  length, scale, ckv_scale=None, krope_scale=None,
+                  acc=torch.float32):
     """Weight-absorbed MLA decode over latent pages.  q_abs: (B, H, r)
     absorbed queries; q_rope: (B, H, dr); pool_ckv: (P, page, r);
     pool_krope: (P, page, dr) -> latent output (B, H, r) in q_abs's dtype
-    (the caller up-projects through W^{UV}).  fp32 scores and softmax;
-    with int8 latent pools pass ``ckv_scale``/``krope_scale`` (P,) and
-    the pools are dequantized up front."""
+    (the caller up-projects through W^{UV}).  Scores, softmax and sums
+    are taken in ``acc``: fp32 is what the kernels compute; fp64 gives
+    the exact function of the same operands (the card's fp32 check of
+    the simt route), with ``scale`` rounded to fp32 as the kernels take
+    it.  With int8 latent pools pass ``ckv_scale``/``krope_scale`` (P,)
+    and the pools are dequantized up front."""
     if ckv_scale is not None:
         pool_ckv = quant.dequantize(pool_ckv, ckv_scale)
         pool_krope = quant.dequantize(pool_krope, krope_scale)
-    ccd = gather_pages(pool_ckv, block_tables, length).float()   # (B,L,r)
-    crd = gather_pages(pool_krope, block_tables, length).float()  # (B,L,dr)
+    ccd = gather_pages(pool_ckv, block_tables, length).to(acc)   # (B,L,r)
+    crd = gather_pages(pool_krope, block_tables, length).to(acc)  # (B,L,dr)
     _k_pos, valid = paged_positions(pos, length, None)
-    scores = (torch.einsum("bhr,blr->bhl", q_abs.float(), ccd)
-              + torch.einsum("bhk,blk->bhl", q_rope.float(), crd)) * scale
+    scale = float(torch.tensor(scale, dtype=torch.float32))
+    scores = (torch.einsum("bhr,blr->bhl", q_abs.to(acc), ccd)
+              + torch.einsum("bhk,blk->bhl", q_rope.to(acc), crd)) * scale
     scores = torch.where(valid[:, None, :], scores,
                          torch.full((), NEG_INF, device=scores.device))
     w = torch.softmax(scores, dim=-1)

@@ -18,12 +18,17 @@ default)
 or the dense-gather oracle (``--paged-impl gather``); ``--kv-dtype int8``
 stores the pages as int8 codes with per-page scales; ``--prefix-cache``
 lets requests sharing a prompt prefix attach to its pages.
-``--temperature/--top-k/--top-p`` turn on per-request sampling.  The
-flags of features the port does not have yet (mesh, preemptive policies,
-speculative decoding, forking, MoE dispatch, the static-batch baseline)
-are accepted by the parser and refused with an error naming them; an arch
-with MoE layers (``deepseek-v3-671b`` and its smoke variant) reaches the
-model, which refuses them with its own message.
+``--temperature/--top-k/--top-p`` turn on per-request sampling.
+``--policy priority|sjf|edf`` reorders admission (priority and edf may
+preempt under the paged layout); ``--fork N`` forks the first request
+into N copy-on-write streams after one step; ``--drafter ARCH --spec-k K``
+turns on speculative decoding with a pure-recurrent drafter (paged
+layout); ``--baseline`` runs the static-batch loop (:func:`generate`)
+instead of the engine.  The flags of features the port does not have yet
+(``--mesh``, ``--moe-dispatch``) are accepted by the parser and refused
+with an error naming them; an arch with MoE layers (``deepseek-v3-671b``
+and its smoke variant) reaches the model, which refuses them with its
+own message.
 """
 from __future__ import annotations
 
@@ -40,15 +45,52 @@ from repro_torch.configs import SamplingParams, ServeConfig, get_config
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, PAGED_IMPLS,
                                       SCAN_BACKENDS)
 from repro_torch.models import build_model
-from repro_torch.serve import (DecoderStepModel, PagedConfig, ServeEngine,
-                               Telemetry)
+from repro_torch.serve.scheduler import POLICIES
+from repro_torch.serve import (DecoderStepModel, DraftStepModel, PagedConfig,
+                               ServeEngine, Telemetry)
+
+
+def generate(model, prompts, *, max_len, gen_tokens):
+    """Static-batch baseline: per-token prefill, then lock-step greedy
+    decode through ``DecoderLM.decode_step`` (dense cache).  prompts: (B,
+    P) ints.  Returns (B, gen_tokens) int64 on the model's device.  Every
+    sequence holds its batch row for all P + gen_tokens steps — the
+    reference the continuous-batching engine is measured against."""
+    dev = model.device
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                              device=dev)
+    B, P = prompts.shape
+    vocab = model.cfg.vocab
+    with torch.inference_mode():
+        cache = model.init_cache(B, max_len)
+
+        def step(tok, cache, t):
+            logits, cache = model.decode_step(tok, cache, t)
+            return torch.argmax(logits[:, -1, :vocab], -1), cache
+        tok = None
+        for t in range(P):
+            tok, cache = step(prompts[:, t:t + 1], cache, t)
+        out = []
+        for t in range(gen_tokens):
+            out.append(tok)
+            tok, cache = step(tok[:, None], cache, P + t)
+        return torch.stack(out, 1)
 
 
 def build_engine(model, serve: ServeConfig = ServeConfig(), telemetry=None):
     """ServeEngine over ``model`` as ``serve`` configures it (dense or
-    paged KV layout, optional prefix cache; FIFO only)."""
+    paged KV layout, prefix cache, policy, and the drafter
+    ``serve.drafter`` on the target's device, weights from seed 1 as the
+    reference's)."""
+    kw = {}
     if serve.drafter:
-        raise NotImplementedError("speculative decoding is not ported yet")
+        dev = model.device
+        dmodel = build_model(get_config(serve.drafter), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1))
+        kw = dict(drafter=DraftStepModel(dmodel, spec_k=serve.spec_k,
+                                         prefill_chunk=serve.prefill_chunk),
+                  spec_k=serve.spec_k)
     paged = None
     if serve.kv_layout == "paged":
         paged = PagedConfig(page_size=serve.page_size,
@@ -57,19 +99,15 @@ def build_engine(model, serve: ServeConfig = ServeConfig(), telemetry=None):
                           prefill_chunk=serve.prefill_chunk,
                           kv_layout=serve.kv_layout, paged=paged)
     return ServeEngine(sm, slots=serve.slots, policy=serve.policy,
-                       prefix_cache=serve.prefix_cache, telemetry=telemetry)
+                       prefix_cache=serve.prefix_cache, telemetry=telemetry,
+                       **kw)
 
 
 def _not_ported(args, ap):
     """Refuse every flag of a feature the port does not have yet."""
     refused = {
         "--mesh": bool(args.mesh),
-        f"--policy {args.policy}": args.policy != "fifo",
-        "--drafter": bool(args.drafter),
-        "--spec-k": args.spec_k != 1,
-        "--fork": args.fork != 0,
         "--moe-dispatch": args.moe_dispatch is not None,
-        "--baseline": args.baseline,
     }
     bad = [flag for flag, used in refused.items() if used]
     if bad:
@@ -120,16 +158,26 @@ def main(argv=None):
                     help="paged decode read (default: the arch's, kernel)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="attach requests to cached prompt-prefix pages")
+    ap.add_argument("--policy", default="fifo", choices=POLICIES,
+                    help="admission policy: fifo, priority (may preempt "
+                         "under the paged layout), sjf (shortest prefill "
+                         "first with aging) or edf (earliest deadline; may "
+                         "preempt)")
+    ap.add_argument("--drafter", default="",
+                    help="speculative decoding: arch of a pure O(1)-state "
+                         "draft model (e.g. minimalist-lm-360m); needs "
+                         "--kv-layout paged and the target's vocab")
+    ap.add_argument("--spec-k", type=int, default=1,
+                    help="tokens decided per wave per slot (1 = off)")
+    ap.add_argument("--fork", type=int, default=0,
+                    help="fork the first admitted request into N more "
+                         "copy-on-write streams after one step (paged)")
+    ap.add_argument("--baseline", action="store_true",
+                    help="run the static-batch loop instead of the engine")
     # features of the reference not ported yet (refused by _not_ported)
     ap.add_argument("--mesh", default="")
-    ap.add_argument("--policy", default="fifo",
-                    choices=["fifo", "priority", "sjf", "edf"])
-    ap.add_argument("--drafter", default="")
-    ap.add_argument("--spec-k", type=int, default=1)
-    ap.add_argument("--fork", type=int, default=0)
     ap.add_argument("--moe-dispatch", default=None,
                     choices=[None, "pooled", "per_request", "auto"])
-    ap.add_argument("--baseline", action="store_true")
     args = ap.parse_args(argv)
     if min(args.requests, args.gen, args.prompt_len, args.slots) < 1:
         ap.error("--requests, --gen, --prompt-len and --slots must all "
@@ -146,6 +194,15 @@ def main(argv=None):
                  f"{cfg.name} keeps O(1) state per slot (serve it dense)")
     if args.prefix_cache and args.kv_layout != "paged":
         ap.error("--prefix-cache needs --kv-layout paged")
+    if args.fork and args.kv_layout != "paged":
+        ap.error("--fork needs --kv-layout paged")
+    drafter = args.drafter and (
+        args.drafter + ("-smoke" if args.smoke
+                        and not args.drafter.endswith("-smoke") else ""))
+    if drafter and args.kv_layout != "paged":
+        ap.error("--drafter needs --kv-layout paged")
+    if args.spec_k > 1 and not drafter:
+        ap.error("--spec-k > 1 needs --drafter")
     if args.kv_dtype:
         cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
     if args.paged_impl:
@@ -161,22 +218,54 @@ def main(argv=None):
     prompts = [rng.integers(0, cfg.vocab, size=p, dtype=np.int64)
                for p in plens]
     max_len = args.max_len or int(plens.max() + glens.max() + 1)
+
+    if args.baseline:
+        # static batch: every prompt resized to the longest, the worst case
+        P, G = int(plens.max()), int(glens.max())
+        batch = np.stack([np.resize(p, P) for p in prompts])
+        t0 = time.time()
+        out = generate(model, batch, max_len=max(max_len, P + G),
+                       gen_tokens=G)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.time() - t0
+        print(f"baseline ({device}): {tuple(out.shape)} in {dt:.2f}s "
+              f"({args.requests * (P + G) / dt:.1f} tok/s incl. prefill)")
+        return out
+
     telemetry = None
     if args.trace or args.metrics:
         telemetry = Telemetry(trace=bool(args.trace))
     eng = build_engine(model, ServeConfig(
         slots=args.slots, max_len=max_len, prefill_chunk=args.prefill_chunk,
         kv_layout=args.kv_layout, page_size=args.page_size,
-        num_pages=args.num_pages, prefix_cache=args.prefix_cache),
+        num_pages=args.num_pages, prefix_cache=args.prefix_cache,
+        policy=args.policy, spec_k=args.spec_k, drafter=drafter),
         telemetry=telemetry)
+    if eng.drafter is not None:
+        print(f"speculative decoding: drafter {drafter}, k={args.spec_k}")
     t0 = time.time()
+    first = None
     for i, (p, g) in enumerate(zip(prompts, glens)):
         sampling = None
         if args.temperature > 0:
             sampling = SamplingParams(temperature=args.temperature,
                                       top_k=args.top_k, top_p=args.top_p,
                                       seed=args.seed + i)
-        eng.submit(p, max_new_tokens=int(g), sampling=sampling)
+        r = eng.submit(p, max_new_tokens=int(g), sampling=sampling)
+        first = first or r
+    if args.fork:
+        eng.step()                       # admit + one decode step
+        room = int(args.slots - eng.active.sum())
+        if first.finished or not room:
+            print(f"fork skipped: request uid={first.uid} "
+                  + ("already finished" if first.finished
+                     else "no free slot (raise --slots above the request "
+                          "count to fork)"))
+        else:
+            kids = eng.fork(first, min(args.fork, room))
+            print(f"forked request uid={first.uid} into {len(kids)} COW "
+                  "streams")
     done = eng.run(verbose=args.verbose)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -185,7 +274,13 @@ def main(argv=None):
     stats = eng.stats()
     print(f"engine ({device}): {len(done)} requests, {eng.n_emitted} tokens "
           f"in {dt:.2f}s ({total/dt:.1f} tok/s incl. prefill), slot "
-          f"utilization {stats.utilization:.2f}, policy {stats.policy}")
+          f"utilization {stats.utilization:.2f}, policy {stats.policy}, "
+          f"{stats.n_preemptions} preemption(s)")
+    if eng.drafter is not None:
+        print(f"spec decode: accept rate {stats.accept_rate:.2f}, "
+              f"{eng._n_decoded / max(eng.n_steps, 1):.2f} tokens/wave")
+    if eng.n_forks or eng.n_cow_copies:
+        print(f"forks: {eng.n_forks}, COW page copies: {eng.n_cow_copies}")
     if args.trace:
         eng.telemetry.save_trace(args.trace)
         print(f"trace: {len(eng.telemetry.trace)} events -> {args.trace}")

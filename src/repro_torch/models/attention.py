@@ -22,8 +22,15 @@ flash-attention op (``"flash"``: the CUDA forward and backward kernels on
 the card, their plain versions on the CPU).  Parameter shapes are the
 reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd,
 d), so the bridge maps them by path; :class:`MLAAttention` keeps the
-reference's MLA leaves and layouts as well.  Speculative verify/commit
-are not ported yet.
+reference's MLA leaves and layouts as well.
+
+Speculative verify (``verify_paged``) scores K tokens against the pool
+WITHOUT writing it: the projections run once over all K tokens, and
+query i attends through the gathered pool snapshot with the in-flight
+K/V of tokens m <= i overlaid at their native in-cache indices — the
+view a sequential ``decode_paged`` at ``pos+i`` would read — in the S=1
+attention of the gather decode.  ``commit_paged`` then writes only the
+accepted prefix.
 
 JAX drops out-of-bounds scatter writes and clamps out-of-bounds gathers,
 and the reference leans on both (inactive slots write to page ``P``,
@@ -103,6 +110,60 @@ def _decode_mask(pos, L, window=None):
     _k_pos, valid = paged_positions(pos, L, window)
     return torch.where(valid, torch.zeros((), device=pos.device),
                        _neg_inf(pos))[:, None, None, :]
+
+
+def _refuse_q8(cfg):
+    if cfg.kv_dtype == "int8":
+        raise NotImplementedError(
+            "speculative verify requires bf16 pools (int8 page rescale "
+            "is not replayable per accepted prefix)")
+
+
+def _verify_slots(p, L, window):
+    """In-cache index of absolute positions ``p``: the ring slot of a
+    window layer, else ``p`` clamped into the cache (only queries past a
+    slot's verify width reach the clamp, and their results are
+    discarded)."""
+    return torch.remainder(p, L) if window else p.clamp(max=L - 1)
+
+
+def _verify_overlays(view, block, positions, window, attend):
+    """The per-query loop of a verify wave: for i < K, overlay token i's
+    cache-dtype ``block`` entries (B, K, ...) into the gathered ``view``
+    {leaf: (B, L, ...)} in place at its in-cache index, then
+    ``attend(i, view, mask)`` as the gather decode at ``positions[:, i]``.
+    Returns the K outputs concatenated on axis 1."""
+    L = next(iter(view.values())).shape[1]
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    outs = []
+    for i in range(positions.shape[1]):
+        p = positions[:, i]
+        slot = _verify_slots(p, L, window)
+        for key, val in block.items():
+            view[key][rows, slot] = val[:, i]
+        outs.append(attend(i, view, _decode_mask(p, L, window)))
+    return torch.cat(outs, 1)
+
+
+def _commit(cache, block, pos, bt, sel, L, window):
+    """Write the selected (row, j) entries of a verify block into the
+    pools in place: ``sel`` (n, 2) = the accepted (slot, token) pairs."""
+    b, j = sel[:, 0], sel[:, 1]
+    ps = next(iter(cache.values())).shape[1]
+    p = pos.long()[b] + j
+    slot = torch.remainder(p, L) if window else p
+    wpage = bt[b, slot // ps].long()
+    for key, val in block.items():
+        cache[key][wpage, slot % ps] = val[b, j]
+    return cache
+
+
+def commit_select(n_commit, active, K):
+    """(n, 2) indices of the (slot, token) pairs a commit writes: the
+    first ``n_commit[b]`` of each active slot's K."""
+    j = torch.arange(K, device=n_commit.device)
+    ok = (j[None, :] < n_commit.long()[:, None]) & active[:, None]
+    return torch.nonzero(ok)
 
 
 def _paged_write_q8(pool, scale, wpage, in_page, fresh, tok):
@@ -342,6 +403,42 @@ class GQAAttention(nn.Module):
                 vd = gather_pages(cv, bt, L).to(q.dtype)
             out = _sdpa(q, kd, vd, self._decode_mask(pos, L))
         return self._out(out, x), cache
+
+    # --- speculative k-token verify (read-only; commit is separate) ---
+    def verify_paged(self, x, cache, pos, bt, active, length):
+        """Score K speculative tokens x (B, K, D) at positions ``pos ..
+        pos+K-1`` against the pool without writing it: Q/K/V and ``wo``
+        over all K tokens at once, the S=1 gather-read attention of
+        :meth:`decode_paged` once per query.  Returns (y (B, K, D), block
+        {"k", "v"} (B, K, KV, hd) in the pool dtype for
+        :meth:`commit_paged`).  K must not exceed the ring length (the
+        engine checks spec_k); int8 pools are refused."""
+        del active
+        _refuse_q8(self.cfg)
+        K = x.shape[1]
+        positions = pos.long()[:, None] + torch.arange(K, device=x.device)
+        q, k, v = self._qkv(x, positions)
+        L = self.ring_length(length)
+        view = {"k": gather_pages(cache["k"], bt, L),
+                "v": gather_pages(cache["v"], bt, L)}
+        block = {"k": k.to(view["k"].dtype), "v": v.to(view["v"].dtype)}
+
+        def attend(i, view, mask):
+            return _sdpa(q[:, i:i + 1].contiguous(), view["k"].to(q.dtype),
+                         view["v"].to(q.dtype), mask)
+        out = _verify_overlays(view, block, positions, self.window, attend)
+        return self._out(out, x), block
+
+    def commit_paged(self, cache, block, pos, bt, n_commit, active, length,
+                     sel=None):
+        """Write the first ``n_commit[b]`` tokens of ``block`` of each
+        active slot into the pool at ``pos[b] ..``, in place; rejected
+        tokens are never written.  ``sel`` = :func:`commit_select`'s
+        indices when the caller has them."""
+        if sel is None:
+            sel = commit_select(n_commit, active, block["k"].shape[1])
+        return _commit(cache, block, pos, bt, sel, self.ring_length(length),
+                       self.window)
 
 
 class MLAAttention(nn.Module):
@@ -587,3 +684,36 @@ class MLAAttention(nn.Module):
             o_latent = self._latent_attend(q_abs, q_rope, ccd, crd,
                                            _decode_mask(pos, length))
         return self._up(o_latent, x), cache
+
+    # --- speculative k-token verify (read-only; commit is separate) ---
+    def verify_paged(self, x, cache, pos, bt, active, length):
+        """MLA k-token verify (the contract of
+        :meth:`GQAAttention.verify_paged`, on the latents): projections,
+        absorption and up-projection over all K tokens, the gather read's
+        weight-absorbed attention once per query."""
+        del active
+        _refuse_q8(self.cfg)
+        K = x.shape[1]
+        positions = pos.long()[:, None] + torch.arange(K, device=x.device)
+        q_nope, q_rope, ckv, k_rope = self._latents(x, positions)
+        view = {"ckv": gather_pages(cache["ckv"], bt, length),
+                "krope": gather_pages(cache["krope"], bt, length)}
+        block = {"ckv": ckv.to(view["ckv"].dtype),
+                 "krope": k_rope.to(view["krope"].dtype)}
+        q_abs = self._absorb(q_nope, x.dtype)
+
+        def attend(i, view, mask):
+            return self._latent_attend(
+                q_abs[:, i:i + 1].contiguous(),
+                q_rope[:, i:i + 1].contiguous(), view["ckv"].to(x.dtype),
+                view["krope"].to(x.dtype), mask)
+        o_latent = _verify_overlays(view, block, positions, None, attend)
+        return self._up(o_latent, x), block
+
+    def commit_paged(self, cache, block, pos, bt, n_commit, active, length,
+                     sel=None):
+        """Commit the first ``n_commit[b]`` verified latents (see
+        :meth:`GQAAttention.commit_paged`)."""
+        if sel is None:
+            sel = commit_select(n_commit, active, block["ckv"].shape[1])
+        return _commit(cache, block, pos, bt, sel, length, None)

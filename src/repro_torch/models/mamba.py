@@ -10,7 +10,11 @@ Execution regimes, as in the reference:
     their plain versions on the CPU), which never builds a (B, T,
     d_inner, d_state) tensor
   * ``prefill`` — one chunk against the O(1) carry {"ssm": (B, di, n),
-    "conv": (B, d_conv - 1, di)}
+    "conv": (B, d_conv - 1, di)}: ``"xla"`` scans the chunk's
+    discretized terms with the linear scan, as the reference does under
+    both impls; ``"fused"`` runs the fused selective-scan kernel from the
+    carried state and takes the new state from it (fp32 throughout; the
+    reference's fused kernel has no carry in or out)
   * ``decode``  — one token against the carry
 
 Dtypes are the reference's: with fp32 parameters and bf16 activations,
@@ -29,7 +33,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import sigmoid
-from repro_torch.kernels.fused_ssm.ops import selective_scan
+from repro_torch.kernels.fused_ssm.ops import (fused_ssm_fwd_kernel,
+                                              selective_scan)
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.models.module import fan_in_init
 
@@ -167,6 +172,13 @@ class MambaBlock(nn.Module):
         xr, z = self._in(x)
         pre, hist = self._conv(xr, cache["conv"])
         xc = _silu(pre)
+        # JAX's clamped gathers: the state after token length-1, the
+        # d_conv-1 inputs before `length`
+        last = T - 1 if length is None else min(max(int(length) - 1, 0),
+                                                T - 1)
+        s = T if length is None else min(max(int(length), 0), T)
+        if self.cfg.ssm_impl == "fused":
+            return self._prefill_fused(x, xc, z, hist, cache, last, s)
         a_bar, b_bar, Cm = self._ssm_terms(xc)
         h = linear_scan(a_bar.reshape(B, T, di * n).to(x.dtype),
                         b_bar.reshape(B, T, di * n).to(x.dtype),
@@ -175,20 +187,35 @@ class MambaBlock(nn.Module):
         y = torch.einsum("btdn,btn->btd",
                          *_promoted(h.reshape(B, T, di, n), Cm))
         y = self._out(y, xc, z, x)
-        if length is None:
-            # hist keeps the last d_conv-1 rows from index T, so d_conv 1
-            # gives an empty slice
-            ssm_c, conv_c = h[:, -1], hist[:, T:]
-        else:
-            # JAX's clamped gathers: the state after token length-1, the
-            # d_conv-1 inputs before `length`
-            i = min(max(int(length) - 1, 0), T - 1)
-            s = min(max(int(length), 0), T)
-            ssm_c, conv_c = h[:, i], hist[:, s:s + K - 1]
-        # contiguous carries: the next chunk's scan kernel reads ssm flat
-        return y, {"ssm": ssm_c.reshape(B, di, n).to(
-                       cache["ssm"].dtype).contiguous(),
-                   "conv": conv_c.to(cache["conv"].dtype).contiguous()}
+        # hist keeps the d_conv-1 rows from index s (d_conv 1: empty)
+        return y, self._carry(h[:, last], hist[:, s:s + K - 1], cache)
+
+    def _carry(self, ssm, conv, cache):
+        """Contiguous carries in the cache's dtypes (the next chunk's scan
+        reads ssm flat)."""
+        return {"ssm": ssm.reshape(cache["ssm"].shape).to(
+                    cache["ssm"].dtype).contiguous(),
+                "conv": conv.to(cache["conv"].dtype).contiguous()}
+
+    def _prefill_fused(self, x, xc, z, hist, cache, last, s):
+        """The fused kernel over the chunk's tokens up to ``last`` from the
+        carried state: y of those tokens (the rest, grid padding, is left
+        zero — causal, it reaches no valid token) and the state after
+        ``last`` as the new carry."""
+        B, T, _ = x.shape
+        dt, Bm, Cm, A = self._ssm_raw(xc)
+        v = last + 1
+        ins = [t[:, :v].float().contiguous() for t in (dt, xc, Bm, Cm)]
+        h_last = torch.empty(B, self.d_inner, self.mc.d_state,
+                             dtype=torch.float32, device=x.device)
+        y_v, _ = fused_ssm_fwd_kernel(*ins, A.contiguous(),
+                                      h0=cache["ssm"].float().contiguous(),
+                                      h_last=h_last)
+        y = y_v.new_zeros(B, T, self.d_inner)
+        y[:, :v] = y_v
+        y = self._out(y.to(xc.dtype), xc, z, x)
+        return y, self._carry(h_last, hist[:, s:s + self.mc.d_conv - 1],
+                              cache)
 
     # --- decode: O(1) state ---
     def init_cache(self, batch, length=0, dtype=torch.float32):

@@ -38,7 +38,8 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU, MLA,
                                       LayerSpec, ModelConfig)
 from repro_torch.core.mingru import MinGRUBlock
 from repro_torch.core.quant import QuantConfig
-from repro_torch.models.attention import GQAAttention, MLAAttention
+from repro_torch.models.attention import (GQAAttention, MLAAttention,
+                                          commit_select)
 from repro_torch.models.mamba import MambaBlock
 from repro_torch.models.module import Embedding, RMSNorm
 from repro_torch.models.moe import DenseMLP
@@ -158,6 +159,13 @@ class DecoderLayer(nn.Module):
         h, cache = self.mixer.decode_paged(self.norm1(x), cache, pos, bt,
                                            active, length, rows=rows)
         return self._mlp_tail(x + h), cache
+
+    def verify_paged(self, x, cache, pos, bt, active, length):
+        """K speculative tokens x (B, K, D) through this attention layer
+        without writing its pool: (y, the mixer's verify block)."""
+        h, block = self.mixer.verify_paged(self.norm1(x), cache, pos, bt,
+                                           active, length)
+        return self._mlp_tail(x + h), block
 
 
 class DecoderLM(nn.Module):
@@ -310,3 +318,34 @@ class DecoderLM(nn.Module):
             x, new_cache[j] = layer.decode_paged(x, cache[j], pos, bt,
                                                  active, length, rows=rows)
         return self._head(x), new_cache
+
+    def verify_step_paged(self, tokens, cache, pos, bt, active, length):
+        """Score K speculative tokens per slot against the page pools
+        WITHOUT writing them (the reference's ``scan_layers=False``
+        branch).  tokens: (B, K) — the current token plus K-1 drafts at
+        positions ``pos .. pos+K-1``.  Returns (logits (B, K, V_pad),
+        blocks): row j of the logits is the next-token distribution for
+        stream position ``pos+1+j``, and ``blocks[layer]`` holds the K
+        tokens' cache-dtype K/V (or latents) for
+        :meth:`commit_step_paged`.
+
+        The token-wise ops (embedding, projections, MLPs, head) run once
+        over all K tokens; only each layer's attention runs per query."""
+        x = self.embed(tokens).to(self.compute_dtype)
+        blocks = []
+        for layer, sub in zip(self.layers, cache):
+            x, block = layer.verify_paged(x, sub, pos, bt, active, length)
+            blocks.append(block)
+        return self._head(x), blocks
+
+    def commit_step_paged(self, cache, blocks, pos, bt, n_commit, active,
+                          length):
+        """Write the first ``n_commit[b]`` verified tokens of every
+        layer's block into its pool, in place (one index computation for
+        all layers).  Returns the cache."""
+        K = next(iter(blocks[0].values())).shape[1]
+        sel = commit_select(n_commit, active, K)
+        for layer, sub, block in zip(self.layers, cache, blocks):
+            layer.mixer.commit_paged(sub, block, pos, bt, n_commit, active,
+                                     length, sel=sel)
+        return cache

@@ -1,6 +1,6 @@
 """Fixed-capacity continuous-batching engine (port of
-``repro.serve.engine``: dense and paged KV layouts, prefix caching, FIFO
-policy).
+``repro.serve.engine``: dense and paged KV layouts, prefix caching, the
+four scheduling policies with preemption, fork and speculative decoding).
 
 Layers, as in the reference: STATE (:mod:`repro_torch.serve.state`),
 SCHEDULER (:mod:`repro_torch.serve.scheduler`) and this EXECUTOR, which
@@ -12,6 +12,7 @@ Request lifecycle::
 
     submit() -> WAITING -> [admit: chunked prefill -> state write] ->
     RUNNING (slot-batch decode) -> retire -> FINISHED
+       -> preempt -> WAITING (snapshot held) -> resume -> RUNNING
 
   * autoregressive (DecoderLM): the prompt is prefilled in chunks at
     admission (same-length prompts share one padded wave); emitted tokens
@@ -29,7 +30,18 @@ retires or is cancelled.  With ``prefix_cache=True`` admission runs
 singleton waves: a request whose page-aligned prompt prefix is cached
 attaches to those pages and prefills only its tail.
 
-Preemption, forking and speculative decoding are not ported yet.
+Preemption (paged layout only): when the policy's head is blocked it may
+name a running victim; the engine copies exactly the victim's page chain
+and per-slot carry to host memory, releases its pages and re-queues it.
+Re-admission re-reserves what the slot held, re-seeds FRESH pages with
+the saved bytes and resumes mid-stream with no prefill.  Reads go through
+the block table and sampling is counter-based on (seed, uid, pos), so the
+resumed stream is bitwise the undisturbed one.
+
+``fork`` splits a running request into streams sharing its page chain
+copy-on-write.  With a ``drafter`` (:mod:`repro_torch.serve.spec`) every
+decode step is a propose/verify wave of up to ``spec_k`` tokens a slot;
+greedy streams stay bitwise the target-only ones on the gather read.
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ from repro_torch.kernels.paged_attention.ops import (paged_gqa_kernel,
 from repro_torch.serve.paged import PagePool, PrefixCache
 from repro_torch.serve.sampling import KNOB_DTYPES
 from repro_torch.serve.scheduler import make_policy
+from repro_torch.serve.spec import heterogeneous_k
 from repro_torch.serve.state import Request, SlotTable, _knob_values
 from repro_torch.serve.telemetry import (NULL_TELEMETRY, PercentileWindow,
                                          RateWindow, StatsSink)
@@ -76,9 +89,13 @@ class EngineStats:
     pages_in_use: int = 0      # paged KV layout only (else 0)
     pages_free: int = 0
     pages_reserved: int = 0
+    n_preemptions: int = 0
+    # requests finished after their deadline on the engine's step clock
+    deadline_misses: int = 0
     tokens_per_s: float = 0.0
     queue_wait_p50_ms: float = 0.0
     queue_wait_p99_ms: float = 0.0
+    accept_rate: float = 0.0   # accepted / proposed drafts (0: no drafter)
 
     def line(self) -> str:
         return (f"[{self.policy} step {self.n_steps}] "
@@ -86,20 +103,26 @@ class EngineStats:
                 f"queue {self.queue_depth} "
                 f"pages {self.pages_in_use} used / {self.pages_free} "
                 f"free / {self.pages_reserved} reserved "
+                f"preempt {self.n_preemptions} "
                 f"util {self.utilization:.2f} "
                 f"tok/s {self.tokens_per_s:.0f} "
                 f"qwait {self.queue_wait_p50_ms:.1f}/"
-                f"{self.queue_wait_p99_ms:.1f}ms")
+                f"{self.queue_wait_p99_ms:.1f}ms "
+                f"accept {self.accept_rate:.2f}")
 
 
 class ServeEngine:
     """Continuous-batching engine over any StepModel (the model owns its
-    parameters).  ``policy`` is "fifo" or a SchedulingPolicy instance;
-    ``prefix_cache=True`` (paged layout only) pins finished prompts' pages
-    for later requests to attach to."""
+    parameters).  ``policy`` is a name of
+    :data:`~repro_torch.serve.scheduler.POLICIES` or a SchedulingPolicy
+    instance; ``prefix_cache=True`` (paged layout only) pins finished
+    prompts' pages for later requests to attach to; ``drafter`` (a
+    :class:`~repro_torch.serve.spec.DraftStepModel` built for ``spec_k``)
+    turns every decode step into a speculative wave."""
 
     def __init__(self, step_model, *, slots: int = 8, policy="fifo",
-                 prefix_cache: bool = False, telemetry=None):
+                 prefix_cache: bool = False, drafter=None, spec_k: int = 1,
+                 telemetry=None):
         self.sm = step_model
         self.slots = int(slots)
         if self.slots < 1:
@@ -108,6 +131,15 @@ class ServeEngine:
             else NULL_TELEMETRY
         self.policy = make_policy(policy)
         self.policy.telemetry = self.telemetry
+        self.spec_k = int(spec_k)
+        self.drafter = drafter
+        if drafter is None:
+            if self.spec_k != 1:
+                raise ValueError(
+                    f"spec_k={spec_k} needs a drafter (spec_k == 1 is "
+                    "plain decode)")
+        else:
+            self._check_spec_compat(step_model, drafter, prefix_cache)
         # paged KV layout: the engine owns the page allocator — block
         # tables, free list and per-slot chains live here on the host;
         # only the page POOLS are device state (inside self.state)
@@ -130,17 +162,78 @@ class ServeEngine:
             self.prefix_cache.telemetry = self.telemetry
         self.state = step_model.init_state(self.slots)
         self.st = SlotTable(self.slots, pool=self.pool,
+                            pages_for_req=self._pages_for_req,
                             telemetry=self.telemetry)
         self._uid = 0
+        # speculative decoding: the drafter's stacked-carry store, each
+        # slot's resume index into its K axis, and each slot's width
+        if self.drafter is not None:
+            self.draft_store = self.drafter.init_store(self.slots)
+            self.drafter.telemetry = self.telemetry
+            self._draft_sel = np.zeros(self.slots, np.int32)
+            self._req_k = np.ones(self.slots, np.int32)
         self.n_steps = 0
         self.n_emitted = 0          # all tokens, incl. admission prefill
         self._n_decoded = 0         # tokens emitted by slot-batch steps
         self.n_prefix_hits = 0      # admissions that attached to cache
         self.n_prefix_tokens = 0    # prompt positions skipped by attaches
         self.n_cow_copies = 0       # device page copies (decode COW)
+        self.n_forks = 0
+        self.n_preemptions = 0      # victims evicted by the policy
+        self.n_snapshot_bytes = 0   # host bytes of every preemption copy
+        self.n_drafts_proposed = 0  # drafter tokens offered to verify
+        self.n_drafts_accepted = 0  # ... that the target accepted
+        self.n_deadline_misses = 0  # finished past deadline (step clock)
         self._rate = RateWindow(maxlen=256)
         self._queue_wait = PercentileWindow(maxlen=512)
         self._verbose_sink: Optional[StatsSink] = None
+
+    def _check_spec_compat(self, step_model, drafter, prefix_cache):
+        """Everything speculative decoding requires of the target, checked
+        at construction (the reference's errors)."""
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if getattr(drafter, "k", None) != self.spec_k:
+            raise ValueError(
+                f"drafter was built for spec_k={getattr(drafter, 'k', None)}"
+                f" but the engine asks {self.spec_k} — the stacked-carry "
+                "store and the verify program share one K")
+        if not getattr(step_model, "autoregressive", False):
+            raise ValueError("speculative decoding applies to "
+                             "autoregressive LM targets only")
+        if getattr(step_model, "kv_layout", "dense") != "paged":
+            raise ValueError(
+                "speculative decoding needs kv_layout='paged': rejection "
+                "rollback = not committing pages (the dense layout writes "
+                "in-place during decode)")
+        if prefix_cache:
+            raise ValueError("speculative decoding and prefix_cache are "
+                             "mutually exclusive (singleton admission "
+                             "waves; lift when needed)")
+        if step_model.model.cfg.kv_dtype != "bf16":
+            raise ValueError(
+                f"speculative verify does not support kv_dtype="
+                f"{step_model.model.cfg.kv_dtype!r}: the k-token snapshot "
+                "overlay reads raw pool rows (quantized pools would need "
+                "an in-graph dequant overlay)")
+        o1 = sorted(set(range(len(step_model.model.layers)))
+                    - step_model.model.paged_layer_names())
+        if o1:
+            raise ValueError(
+                f"speculative targets must be attention-only stacks: "
+                f"layers {o1} carry O(1) mixer state whose carry cannot "
+                "be rolled back to an accepted prefix")
+        if drafter.vocab != step_model.vocab:
+            raise ValueError(
+                f"drafter vocab ({drafter.vocab}) != target vocab "
+                f"({step_model.vocab}): draft token ids must BE target "
+                "token ids")
+        rings = getattr(step_model, "_ring_lens", [])
+        if rings and self.spec_k > min(rings):
+            raise ValueError(
+                f"spec_k={self.spec_k} exceeds the shortest sliding-"
+                f"window ring ({min(rings)}): two speculative tokens "
+                "would alias one ring slot in the verify overlay")
 
     # views onto the SlotTable (tests and callers address state here)
     @property
@@ -160,10 +253,15 @@ class ServeEngine:
         return self.st.finished
 
     def _pages_for_req(self, req: Request) -> int:
-        """Worst-case reservation of a fresh request: prompt + full
-        budget (0 when unpaged)."""
+        """Worst-case reservation: prompt + full budget for a fresh
+        request; for a preempted one, exactly the reservation its slot
+        held at eviction (a fork child's budget counts from the fork point
+        while its chain covers every earlier position, so prompt + budget
+        would under-reserve it)."""
         if self.pool is None:
             return 0
+        if req.snapshot is not None:
+            return req.snapshot["reserve"]
         return self.sm.pages_for(len(req.prompt) + req.max_new_tokens)
 
     # ------------------------------------------------------------------
@@ -171,8 +269,22 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 0,
                eos_id: Optional[int] = None,
-               sampling: Optional[SamplingParams] = None) -> Request:
+               sampling: Optional[SamplingParams] = None, *,
+               priority: int = 0, deadline: Optional[float] = None,
+               spec_k: Optional[int] = None) -> Request:
         prompt = np.asarray(prompt)
+        # a per-request verify width may only shrink the engine's K
+        if spec_k is not None:
+            if isinstance(spec_k, bool) or not isinstance(
+                    spec_k, (int, np.integer)):
+                raise ValueError(f"spec_k must be an int, got {spec_k!r}")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if spec_k > self.spec_k:
+                raise ValueError(
+                    f"spec_k={spec_k} exceeds the engine's verify width "
+                    f"({self.spec_k}) — per-request widths may only "
+                    "shrink the compiled K, never grow it")
         if prompt.ndim < 1 or prompt.size < 1:
             raise ValueError("empty prompt")
         if sampling is None:
@@ -204,7 +316,9 @@ class ServeEngine:
                         f"({max_new_tokens}) = {need} cache positions, "
                         f"but the engine was built with "
                         f"max_len={self.sm.max_len}")
-        req = Request(self._uid, prompt, max_new_tokens, eos_id, sampling)
+        req = Request(self._uid, prompt, max_new_tokens, eos_id, sampling,
+                      priority=priority, deadline=deadline, spec_k=spec_k)
+        req.validate_scheduling()          # raises BEFORE the uid burns
         self._uid += 1
         req.submit_t = time.monotonic()
         req.created_t = req.submit_t
@@ -214,7 +328,8 @@ class ServeEngine:
             tel.inc("requests_submitted")
             tel.gauge("queue_depth", self.st.queue_depth)
             tel.request_instant(req, "submit", prompt=len(prompt),
-                                max_new_tokens=int(max_new_tokens))
+                                max_new_tokens=int(max_new_tokens),
+                                priority=req.priority)
             tel.request_begin(req, "queued")
         return req
 
@@ -237,15 +352,24 @@ class ServeEngine:
 
     def admit(self):
         """Move waiting requests into free slots until no further progress
-        is possible (a slot freed mid-wave refills in the same call)."""
+        is possible (a slot freed mid-wave refills in the same call).
+        When admission stalls, the policy may name a running victim to
+        preempt; its eviction frees a slot and pages and admission
+        retries.  Each pass admits a request or shrinks the running set,
+        and ``select_victim`` returning None ends the round."""
         self.policy.begin_round(self.st)
-        while self._admit_once():
-            pass
+        while True:
+            if self._admit_once():
+                continue
+            victim = self.policy.select_victim(self.st)
+            if victim is None:
+                break
+            self._preempt(victim)
 
     def _admit_once(self) -> bool:
         """One admission wave: same-length prompts prefill as one batched
         chunked call and land in one slot write.  Returns True iff at least
-        one request was admitted.
+        one request was admitted (or a preempted one resumed).
 
         Paged KV: admission RESERVES the request's worst-case page chain
         (the full worst case even when a prefix attach will share pages),
@@ -255,6 +379,7 @@ class ServeEngine:
         prompt's pages before the next request's lookup."""
         st = self.st
         admitted = []
+        resumed = False
         while st.waiting and st.free_mask:
             req = self.policy.admit_order(st.waiting, st)[0]
             if self.pool is not None and not self.pool.can_admit(
@@ -269,6 +394,10 @@ class ServeEngine:
             if self.pool is not None:
                 self.pool.reserve(slot, self._pages_for_req(req))
             st.slot_req[slot] = req
+            if req.snapshot is not None:
+                self._resume(req, slot)    # no prefill: pages re-seed
+                resumed = True
+                continue
             st.active[slot] = True
             if self.telemetry.enabled:
                 self.telemetry.request_begin(req, "running", slot=slot)
@@ -279,7 +408,7 @@ class ServeEngine:
             if self.prefix_cache is not None:
                 break                      # singleton waves (see above)
         if not admitted:
-            return False
+            return resumed
         if not self.sm.autoregressive:
             # streaming: blank state reset for the whole wave in one write
             pad = self._pad_slots([s for _r, s in admitted])
@@ -373,6 +502,15 @@ class ServeEngine:
                     self.prefix_cache.insert(
                         r.prompt, self.pool.block_tables[s],
                         self.sm.chunk_for(plen))
+        if self.drafter is not None:
+            # the drafter tracks the same stream: its own prefill over the
+            # wave's prompts, tiled K-wide (resume index 0); it consumes
+            # tok0 as ``cur`` in the first propose wave
+            prompts = [r.prompt for r, _s in group]
+            prompts += [prompts[-1]] * (len(pad) - len(group))
+            self.draft_store = self.drafter.install(
+                self.draft_store, self.drafter.prefill(np.stack(prompts)),
+                pad)
         tok0 = self.sm.sample(last, self._wave_sampling(group, len(pad)),
                               np.full(len(pad), plen, np.int64))
         tok0 = tok0.cpu().numpy()
@@ -385,8 +523,88 @@ class ServeEngine:
             st.remaining[slot] = req.max_new_tokens - 1
             st.cur[slot] = t
             st.set_sampling(slot, req)
+            if self.drafter is not None:
+                self._draft_sel[slot] = 0
+                self._req_k[slot] = (req.spec_k if req.spec_k is not None
+                                     else self.spec_k)
             if st.remaining[slot] <= 0 or t == req.eos_id:
                 self._retire(slot)
+
+    # ------------------------------------------------------------------
+    # preemption (policy-driven victim swap-out / swap-in)
+    # ------------------------------------------------------------------
+    def _preempt(self, slot: int):
+        """Evict running ``slot``: copy exactly its page chain and per-slot
+        carry to host memory, release its pages and reservation, and put
+        the request back on the queue holding the snapshot."""
+        st = self.st
+        req = st.slot_req[slot]
+        if req is None or not st.active[slot]:
+            raise ValueError(f"slot {slot} is not running (cannot "
+                             "preempt)")
+        if self.pool is None:
+            raise ValueError("preemption needs kv_layout='paged' (page "
+                             "swap is what makes eviction cheap)")
+        n = int(self.pool.chain_len[slot])
+        pages = self.pool.block_tables[slot, :n].copy()
+        tel = self.telemetry
+        with tel.span("preempt", uid=req.uid, slot=int(slot), pages=n):
+            state = self.sm.snapshot_slot(self.state, slot, pages)
+            self.n_snapshot_bytes += sum(
+                t.numel() * t.element_size() for sub in state
+                for t in sub.values())
+            req.snapshot = {
+                "n_pages": n,
+                # re-admission reserves exactly this (_pages_for_req)
+                "reserve": self.pool.reserved_for(slot),
+                "state": state,
+                "pos": int(st.pos[slot]),
+                "remaining": int(st.remaining[slot]),
+                "cur": np.copy(st.cur[slot]),
+            }
+            if self.drafter is not None:
+                req.snapshot["draft"] = self.drafter.snapshot_slot(
+                    self.draft_store, slot)
+                req.snapshot["draft_sel"] = int(self._draft_sel[slot])
+            req.submit_t = time.monotonic()  # queue wait restarts here
+            req.n_preemptions += 1
+            self.n_preemptions += 1
+            st.free_slot(slot)             # pages + reservation go back
+        if tel.enabled:
+            tel.inc("preemptions")
+            tel.request_begin(req, "preempted", slot=int(slot), pages=n)
+        # a policy that keeps arrival order retries the victim first
+        st.waiting.appendleft(req)
+
+    def _resume(self, req: Request, slot: int):
+        """Re-admit a preempted request (the caller holds the slot and its
+        reservation): grow a FRESH chain, re-seed its pages from the
+        snapshot, restore the per-slot carry and counters.  No prefill,
+        no first-token draw."""
+        st = self.st
+        snap = req.snapshot
+        tel = self.telemetry
+        with tel.span("resume", uid=req.uid, slot=int(slot),
+                      pages=snap["n_pages"]):
+            self.pool.grow(slot, snap["n_pages"])
+            pages = self.pool.block_tables[slot, :snap["n_pages"]]
+            self.state = self.sm.restore_slot(self.state, snap["state"],
+                                              slot, pages)
+            st.pos[slot] = snap["pos"]
+            st.remaining[slot] = snap["remaining"]
+            st.cur[slot] = snap["cur"]
+            st.set_sampling(slot, req)
+            st.active[slot] = True
+            if self.drafter is not None:
+                self.draft_store = self.drafter.restore_slot(
+                    self.draft_store, snap["draft"], slot)
+                self._draft_sel[slot] = snap["draft_sel"]
+                self._req_k[slot] = (req.spec_k if req.spec_k is not None
+                                     else self.spec_k)
+        if tel.enabled:
+            tel.inc("resumes")
+            tel.request_begin(req, "running", slot=int(slot), resumed=True)
+        req.snapshot = None                # drop the host bytes
 
     # ------------------------------------------------------------------
     # decode
@@ -403,11 +621,19 @@ class ServeEngine:
     def _retire(self, slot: int) -> Request:
         """The ONE finish path, so telemetry sees every completion."""
         req = self.st.retire(slot)
+        # deadlines live on the engine's step clock
+        miss = req.deadline is not None and self.n_steps > req.deadline
+        if miss:
+            self.n_deadline_misses += 1
         tel = self.telemetry
         if tel.enabled:
             tel.inc("requests_finished")
-            tel.request_end(req, tokens=len(req.outputs))
-            tel.request_instant(req, "finish", tokens=len(req.outputs))
+            if miss:
+                tel.inc("deadline_misses")
+            tel.request_end(req, tokens=len(req.outputs),
+                            preemptions=req.n_preemptions)
+            tel.request_instant(req, "finish", tokens=len(req.outputs),
+                                deadline_miss=miss)
             if req.created_t is not None and req.finish_t is not None:
                 tel.observe("e2e_ms",
                             (req.finish_t - req.created_t) * 1000.0)
@@ -418,7 +644,8 @@ class ServeEngine:
         pages), a running one frees its slot — and, under the paged
         layout, its pages and reservation — before the next step.  Tokens
         already emitted stay on the request, which is marked
-        finished+cancelled and never joins ``finished``."""
+        finished+cancelled and never joins ``finished``.  A preempted
+        request waiting in the queue drops its host snapshot."""
         if req.finished:
             return
         if not self.st.discard_waiting(req):
@@ -428,6 +655,7 @@ class ServeEngine:
                     break
             else:
                 raise ValueError("request is not known to this engine")
+        req.snapshot = None
         req.finished = True
         req.cancelled = True
         if self.telemetry.enabled:
@@ -436,7 +664,8 @@ class ServeEngine:
             self.telemetry.request_instant(req, "cancel")
 
     def step(self):
-        """Admit what fits, then run ONE slot-batched decode step."""
+        """Admit what fits, then run ONE slot-batched decode step (a
+        propose/verify wave when a drafter is configured)."""
         tel = self.telemetry
         with tel.span("admit", queue_depth=self.st.queue_depth):
             self.admit()
@@ -444,12 +673,18 @@ class ServeEngine:
         if not st.active.any():
             return
         t0 = time.monotonic()
-        d0 = self._n_decoded
-        with tel.span("decode_wave", active_slots=st.n_active,
+        d0, a0 = self._n_decoded, self.n_drafts_accepted
+        spec = self.drafter is not None
+        with tel.span("spec_wave" if spec else "decode_wave",
+                      active_slots=st.n_active,
                       queue_depth=st.queue_depth,
                       pages_in_use=(self.pool.pages_in_use
                                     if self.pool else 0)) as sp:
-            self._plain_step()
+            if spec:
+                self._spec_step()
+                sp.set(accepted_drafts=self.n_drafts_accepted - a0)
+            else:
+                self._plain_step()
             sp.set(tokens=self._n_decoded - d0)
         now = time.monotonic()
         self._rate.push(now, self._n_decoded - d0)
@@ -518,6 +753,152 @@ class ServeEngine:
             if done:
                 self._retire(slot)
 
+    def _spec_step(self):
+        """One propose/verify wave: the drafter rolls ``spec_k`` greedy
+        steps per slot, the target scores them in one ``verify`` call that
+        also commits exactly the accepted prefix's K/V, and each slot
+        advances by its accepted tokens plus one correction."""
+        st = self.st
+        # per-slot widths, clamped by the remaining budget so commits never
+        # pass pos + remaining (the reservation and max_len stop there)
+        k_slot = heterogeneous_k(self._req_k, st.remaining, self.spec_k)
+        # a wave writes K/V at pos .. pos+k_slot-1: grow and COW the whole
+        # span first (the same reservation-backed guarantee as one step)
+        cow_src, cow_dst = [], []
+        for slot in np.flatnonzero(st.active):
+            p0, kk = int(st.pos[slot]), int(k_slot[slot])
+            self.pool.grow(slot, self.sm.pages_for(p0 + kk))
+            touched = set()
+            for p in range(p0, p0 + kk):
+                touched.update(self.sm.write_page_indices(p))
+            for ci in sorted(touched):
+                pair = self.pool.cow(slot, ci)
+                if pair is not None:
+                    cow_src.append(pair[0])
+                    cow_dst.append(pair[1])
+        if cow_src:
+            self.state = self.sm.copy_pages(self.state, cow_src, cow_dst)
+            self.n_cow_copies += len(cow_src)
+        tel = self.telemetry
+        with tel.span("propose", k=int(k_slot.max())):
+            toks, self.draft_store = self.drafter.propose(
+                self.draft_store, self._draft_sel, st.cur, st.active)
+        with tel.span("verify"):
+            emitted, n_emit, self.state = self.sm.verify(
+                toks, self.state, st.pos, st.active, k_slot,
+                dict(st.knobs), bt=self.pool.block_tables)
+        self.n_steps += 1
+        for slot in np.flatnonzero(st.active):
+            req = st.slot_req[slot]
+            n = int(n_emit[slot])
+            self.n_drafts_proposed += int(k_slot[slot]) - 1
+            self.n_drafts_accepted += n - 1
+            done = False
+            n_take = n
+            for j in range(n):
+                t = int(emitted[slot, j])
+                req.outputs.append(emitted[slot, j].copy())
+                self.n_emitted += 1
+                self._n_decoded += 1
+                self._first_token(req)
+                if t == req.eos_id:
+                    # tokens past an eos are discarded (their K/V commits
+                    # die with the freed pages)
+                    n_take = j + 1
+                    done = True
+                    break
+            st.pos[slot] += n_take
+            st.remaining[slot] -= n_take
+            if st.remaining[slot] <= 0:
+                done = True
+            if done:
+                self._retire(slot)
+            else:
+                st.cur[slot] = emitted[slot, n_take - 1]
+                # the drafter state after consuming the stream through
+                # pos-1 is the wave's (n_take-1)-th feed
+                self._draft_sel[slot] = n_take - 1
+
+    def fork(self, req: Request, n: int = 1, *,
+             max_new_tokens: Optional[int] = None,
+             sampling: Optional[SamplingParams] = None) -> List[Request]:
+        """Split a RUNNING request into ``n`` more streams that share its
+        page chain copy-on-write (best-of-n pays the parent's prefill
+        once).  Each child copies the parent's block-table row, per-slot
+        state, outputs so far, position and input token, and gets a FRESH
+        uid: sampled children draw independent streams, greedy children
+        reproduce the parent bitwise.  ``max_new_tokens=None`` inherits
+        the parent's remaining budget.  Children need a free slot and a
+        full worst-case reservation now: fork raises rather than
+        queueing."""
+        st = self.st
+        if self.pool is None:
+            raise ValueError("fork() needs kv_layout='paged' (page "
+                             "sharing is what makes a fork O(1))")
+        if not self.sm.autoregressive:
+            raise ValueError("fork() applies to LM requests only")
+        parent = next((s for s, r in enumerate(st.slot_req) if r is req),
+                      None)
+        if parent is None:
+            raise ValueError(
+                "fork parent must be RUNNING (admitted, not finished) — "
+                "fork after admit()/step() has placed it in a slot")
+        if sampling is not None:
+            sampling.validate()
+        children: List[Request] = []
+        for _ in range(int(n)):
+            pos = int(st.pos[parent])
+            budget = (int(st.remaining[parent])
+                      if max_new_tokens is None else int(max_new_tokens))
+            if budget < 1:
+                raise ValueError(f"fork needs a generation budget >= 1, "
+                                 f"got {budget}")
+            if pos + budget > self.sm.max_len:
+                raise ValueError(
+                    f"fork at position {pos} + {budget} new tokens "
+                    f"exceeds max_len={self.sm.max_len}")
+            if not st.free_mask:
+                raise RuntimeError("no free slot to fork into")
+            need = self.sm.pages_for(pos + budget)
+            if not self.pool.can_admit(need):
+                raise RuntimeError(
+                    f"cannot fork: child needs a reservation of {need} "
+                    f"pages but only {self.pool.available} are "
+                    "unreserved (shared pages don't count — "
+                    "reservations stay worst-case under sharing)")
+            slot = st.alloc_slot()
+            self.pool.reserve(slot, need)
+            nchain = int(self.pool.chain_len[parent])
+            self.pool.share(slot, self.pool.block_tables[parent, :nchain])
+            samp = dataclasses.replace(sampling if sampling is not None
+                                       else req.sampling)
+            child = Request(self._uid, req.prompt, budget, req.eos_id, samp,
+                            priority=req.priority, deadline=req.deadline,
+                            spec_k=req.spec_k)
+            self._uid += 1
+            child.outputs = list(req.outputs)
+            st.slot_req[slot] = child
+            st.active[slot] = True
+            st.pos[slot] = st.pos[parent]
+            st.remaining[slot] = budget
+            st.cur[slot] = st.cur[parent]
+            st.set_sampling(slot, child)
+            self.state = self.sm.copy_slot(self.state, parent, slot)
+            if self.drafter is not None:
+                self.draft_store = self.drafter.copy_slot(
+                    self.draft_store, parent, slot)
+                self._draft_sel[slot] = self._draft_sel[parent]
+                self._req_k[slot] = self._req_k[parent]
+            self.n_forks += 1
+            if self.telemetry.enabled:
+                self.telemetry.inc("forks")
+                self.telemetry.instant("fork", parent_uid=req.uid,
+                                       child_uid=child.uid, slot=int(slot))
+                self.telemetry.request_begin(child, "running",
+                                             slot=int(slot), forked=True)
+            children.append(child)
+        return children
+
     def run(self, max_steps: Optional[int] = None, *,
             verbose: bool = False) -> List[Request]:
         """Drive until every submitted request finishes; returns them in
@@ -570,10 +951,14 @@ class ServeEngine:
             pages_free=(len(self.pool._free) if self.pool else 0),
             pages_reserved=(self.pool.reserved_total if self.pool
                             else 0),
+            n_preemptions=self.n_preemptions,
             utilization=self._n_decoded / paid if paid else 0.0,
+            deadline_misses=self.n_deadline_misses,
             tokens_per_s=self._rate.per_s(),
             queue_wait_p50_ms=p50,
-            queue_wait_p99_ms=p99)
+            queue_wait_p99_ms=p99,
+            accept_rate=(self.n_drafts_accepted / self.n_drafts_proposed
+                         if self.n_drafts_proposed else 0.0))
 
     def metrics(self) -> Dict[str, Any]:
         """Machine-readable engine metrics.  ``kernels`` holds each kernel
@@ -587,9 +972,15 @@ class ServeEngine:
                 "tokens_decoded": self._n_decoded,
                 "requests_finished": len(self.st.finished),
                 "prefill_chunks": getattr(self.sm, "n_prefill_chunks", 0),
+                "preemptions": self.n_preemptions,
+                "snapshot_bytes": self.n_snapshot_bytes,
+                "forks": self.n_forks,
                 "cow_copies": self.n_cow_copies,
                 "prefix_hits": self.n_prefix_hits,
                 "prefix_tokens_skipped": self.n_prefix_tokens,
+                "drafts_proposed": self.n_drafts_proposed,
+                "drafts_accepted": self.n_drafts_accepted,
+                "deadline_misses": self.n_deadline_misses,
             },
             "gauges": {
                 "slots": float(self.slots),
@@ -607,6 +998,7 @@ class ServeEngine:
                 "tokens_per_s": s.tokens_per_s,
                 "queue_wait_p50_ms": s.queue_wait_p50_ms,
                 "queue_wait_p99_ms": s.queue_wait_p99_ms,
+                "accept_rate": s.accept_rate,
             },
             "kernels": {f"{name}_launches": fn.launches
                         for name, fn in KERNEL_WRAPPERS.items()},

@@ -17,8 +17,10 @@ recurrent state:
                                             page rows and prompt length)
 
 The port's modules own their parameters, so no ``params`` argument
-travels through these calls.  The mesh, verify, fork and preemption
-parts of the reference are not ported yet.
+travels through these calls.  Paged decoder stacks also offer the
+preemption and fork operations (``snapshot_slot``, ``restore_slot``,
+``copy_slot``) and the speculative ``verify``.  The mesh part of the
+reference is not ported yet.
 
   * :class:`DecoderStepModel` — a ``DecoderLM`` of minGRU, GQA or MLA
     layers, with a dense or (attention stacks) a paged KV layout (see the
@@ -41,7 +43,7 @@ from repro_torch.kernels.paged_attention.ref import (gather_dequant,
 from repro_torch.serve.paged import PagedConfig
 from repro_torch.serve.prefill import chunked_prefill
 from repro_torch.serve.sampling import (greedy_arrays, knobs_to_device,
-                                        sample_tokens)
+                                        sample_tokens, verify_tokens)
 
 
 def _data_keys(pool):
@@ -233,6 +235,43 @@ class DecoderStepModel(StepModel):
                     leaf[dst] = leaf[src]
         return state
 
+    # -- preemption and fork ---------------------------------------------
+    # A paged stack of the port is all attention: everything a slot owns
+    # lives in its page chain, which the engine's block table names.
+    def copy_slot(self, state, src: int, dst: int):
+        """Fork: the child shares the parent's page chain through the
+        block tables, and a paged stack holds no per-slot leaf to copy."""
+        del src, dst
+        return state
+
+    def snapshot_slot(self, state, slot, pages):
+        """Host copy of what slot ``slot`` owns: the rows ``pages`` (its
+        chain's physical ids) of every pool leaf — int8 codes AND their
+        scales."""
+        del slot
+        if self.kv_layout != "paged":
+            raise ValueError("preemption snapshots need kv_layout='paged' "
+                             "(page swap is what makes them cheap)")
+        pg = torch.as_tensor(np.asarray(pages), dtype=torch.int64,
+                             device=self.device)
+        with torch.inference_mode():
+            return [{k: v[pg].cpu() for k, v in sub.items()} for sub in state]
+
+    def restore_slot(self, state, snap, slot, pages):
+        """Inverse of :meth:`snapshot_slot`, in place, under a FRESH page
+        chain ``pages``: reads go through the block table, so the resumed
+        stream sees identical bytes at identical positions."""
+        del slot
+        if self.kv_layout != "paged":
+            raise ValueError("preemption restores need kv_layout='paged'")
+        pg = torch.as_tensor(np.asarray(pages), dtype=torch.int64,
+                             device=self.device)
+        with torch.inference_mode():
+            for sub, saved in zip(state, snap):
+                for k, v in sub.items():
+                    v[pg] = saved[k].to(self.device)
+        return state
+
     def seed_cache(self, state, bt_row):
         """Prefix attach: the dense (B=1) prefill cache that ``bt_row``'s
         page chain holds, ready to resume ``prefill(cache0=...,
@@ -327,6 +366,51 @@ class DecoderStepModel(StepModel):
             out = self._sample(logits[:, -1, :], sampling,
                                np.asarray(pos, np.int64) + 1)
         return out, merged
+
+    def verify(self, toks, state, pos, active, k_slot, sampling=None,
+               bt=None):
+        """k-token speculative verify.  ``toks``: (slots, K) — per slot
+        the current token (emitted, not yet in the cache) and K-1 greedy
+        drafts, fed at positions ``pos .. pos+K-1``; ``k_slot``: (slots,)
+        verify widths 1..K.  Scores the K tokens through the gather read,
+        runs the verifier on the real-vocab fp32 logits, then commits the
+        accepted prefix's K/V.  Returns (emitted (slots, K) and n_emit
+        (slots,) as host arrays, state): ``emitted[b, :n_emit[b]]`` are
+        the tokens of positions ``pos[b]+1 ..``; inactive slots emit 0."""
+        if self.kv_layout != "paged":
+            raise ValueError("speculative verify needs kv_layout='paged' "
+                             "(rollback = uncommitted pages)")
+        if bt is None:
+            raise ValueError("paged verify needs block tables "
+                             "(the engine passes pool.block_tables)")
+        n = int(np.shape(toks)[0])
+        if sampling is None:
+            sampling = greedy_arrays(n)
+        dev = self.device
+        with torch.inference_mode():
+            # the drafter's proposals may already sit on the device
+            toks_t = toks.to(dev, torch.int64) if torch.is_tensor(toks) \
+                else torch.as_tensor(np.asarray(toks), dtype=torch.int64,
+                                     device=dev)
+            pos_t = torch.as_tensor(np.asarray(pos), dtype=torch.int32,
+                                    device=dev)
+            act = torch.as_tensor(np.asarray(active), device=dev)
+            bt_t = torch.as_tensor(np.asarray(bt), dtype=torch.int32,
+                                   device=dev)
+            logits, blocks = self.model.verify_step_paged(
+                toks_t, state, pos_t, bt_t, act, self.max_len)
+            knobs = knobs_to_device(sampling, dev)
+            emitted, n_emit = verify_tokens(
+                logits[..., :self.vocab].float(), toks_t,
+                torch.as_tensor(np.asarray(k_slot), device=dev),
+                knobs["seed"], knobs["uid"], knobs["uid_hi"], pos_t,
+                knobs["temperature"], knobs["top_k"], knobs["top_p"],
+                greedy_only=not (np.asarray(sampling["temperature"])
+                                 > 0).any())
+            n_emit = torch.where(act, n_emit, torch.zeros_like(n_emit))
+            state = self.model.commit_step_paged(
+                state, blocks, pos_t, bt_t, n_emit, act, self.max_len)
+            return emitted.cpu().numpy(), n_emit.cpu().numpy(), state
 
     def sample(self, logits, sampling, pos):
         """Draw one token per row of ``logits`` (admission-wave shape)."""

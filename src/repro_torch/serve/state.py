@@ -6,14 +6,18 @@ per-slot position / budget / active / sampling-knob arrays behind small
 explicit mutators (:meth:`alloc_slot` / :meth:`free_slot` /
 :meth:`retire`).  Under the paged KV layout it also holds the page pool
 and releases a slot's pages and reservation when the slot is freed.
-Preemption snapshots of the reference are not ported yet.
+Scheduling policies (:mod:`repro_torch.serve.scheduler`) see exactly this
+object: the ``state`` of ``admit_order(queue, state)`` and
+``select_victim(state)``.  A preempted request holds its page bytes and
+carry on the host (``Request.snapshot``) until it resumes.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 
@@ -43,6 +47,13 @@ class Request:
     eos_id: Optional[int] = None
     sampling: SamplingParams = dataclasses.field(
         default_factory=SamplingParams)
+    # scheduling knobs: higher priority admits first under "priority";
+    # deadline is the admission key under "edf" (earliest first)
+    priority: int = 0
+    deadline: Optional[float] = None
+    # speculative decoding: per-request verify width (None = the engine's)
+    spec_k: Optional[int] = None
+    # set by submit() and reset on preemption: what queue waits measure
     submit_t: Optional[float] = dataclasses.field(default=None, repr=False)
     # lifecycle timestamps (time.monotonic), set once each: submission,
     # first emitted token, retirement — what ttft_ms / e2e_ms read
@@ -53,11 +64,35 @@ class Request:
     outputs: List[Any] = dataclasses.field(default_factory=list)
     finished: bool = False
     cancelled: bool = False
+    # preemption: the victim's page bytes and carry live here (host
+    # memory) between eviction and re-admission
+    snapshot: Optional[Any] = dataclasses.field(default=None, repr=False)
+    n_preemptions: int = 0
 
     @property
     def tokens(self) -> np.ndarray:
         """Generated token ids (LM) / per-frame outputs (streaming)."""
         return np.asarray(self.outputs)
+
+    def validate_scheduling(self):
+        """Bounds of the scheduler-facing knobs, checked at submit()."""
+        if isinstance(self.priority, bool) or not isinstance(
+                self.priority, (int, np.integer)):
+            raise ValueError(
+                f"priority must be an int, got {self.priority!r}")
+        if not -2**31 <= int(self.priority) < 2**31:
+            raise ValueError(
+                f"priority must fit int32, got {self.priority}")
+        if self.deadline is not None:
+            d = self.deadline
+            if isinstance(d, bool) or not isinstance(
+                    d, (int, float, np.integer, np.floating)):
+                raise ValueError(f"deadline must be a number or None, "
+                                 f"got {d!r}")
+            if not (math.isfinite(d) and d > 0):
+                raise ValueError(
+                    f"deadline must be positive and finite, got {d}")
+        return self
 
 
 class SlotTable:
@@ -65,14 +100,19 @@ class SlotTable:
 
     ``pool`` (optional) is the paged-KV
     :class:`~repro_torch.serve.paged.PagePool`; freeing a slot releases
-    its pages and reservation.
+    its pages and reservation.  ``pages_for_req`` maps a request to its
+    worst-case page reservation (injected by the engine, so policies stay
+    model-agnostic).
     """
 
-    def __init__(self, slots: int, pool=None, telemetry=None):
+    def __init__(self, slots: int, pool=None,
+                 pages_for_req: Optional[Callable[[Request], int]] = None,
+                 telemetry=None):
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError("slots must be >= 1")
         self.pool = pool
+        self._pages_for_req = pages_for_req
         self.telemetry = telemetry if telemetry is not None \
             else NULL_TELEMETRY
         self.free_mask = (1 << self.slots) - 1     # bit i set = slot i free
@@ -97,6 +137,18 @@ class SlotTable:
     @property
     def queue_depth(self) -> int:
         return len(self.waiting)
+
+    def pages_needed(self, req: Request) -> int:
+        """Worst-case page reservation ``req`` needs to admit (0 when
+        the engine is unpaged)."""
+        if self.pool is None or self._pages_for_req is None:
+            return 0
+        return self._pages_for_req(req)
+
+    def running(self):
+        """(slot, request) pairs currently active, ascending slot."""
+        return [(s, r) for s, r in enumerate(self.slot_req)
+                if r is not None and self.active[s]]
 
     def alloc_slot(self) -> int:
         bit = int(self.free_mask & -self.free_mask)

@@ -1594,3 +1594,229 @@ def test_minimalist_step_five_layer_chain_in_a_cuda_graph(cuda):
     for a, b, c in zip(captured, eager, plain):
         assert torch.equal(a, b)
         assert torch.equal(a, c)
+
+
+# ---------------------------------------------------------------------------
+# the rest of serving on the card: preemption on the kernel read, spec
+# decoding with an all-accepting drafter, Mamba serving fused vs xla, the
+# fused forward's carry, and the MLA simt route against fp64 sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSM_CASES, ids=str)
+def test_fused_ssm_fwd_kernel_carry_matches_plain(cuda, case):
+    """From a state h0, with the final state written out: y, the entry
+    states and h_last within the forward's 2e-5 of the plain version, and
+    two chained halves equal to one pass within the same bound."""
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.fused_ssm import ref as ssm_ref
+
+    dt, x, Bm, Cm, A, _ = _ssm_inputs(cuda, *case, seed=5)
+    B, T, di = x.shape
+    n = A.shape[1]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    h0 = torch.randn(B, di, n, device=cuda, generator=g)
+    h_last, want_last = (torch.empty_like(h0) for _ in range(2))
+    y, entries = ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A, h0=h0,
+                                              h_last=h_last)
+    want, want_entries = ssm_ref.fused_ssm_fwd_ref(
+        dt, x, Bm, Cm, A, ssm_ops.CHUNK, h0=h0, h_last=want_last)
+    torch.cuda.synchronize()
+    _ssm_check(y, want, 2e-5, 2e-5)
+    _ssm_check(entries, want_entries, 2e-5, 2e-5)
+    _ssm_check(h_last, want_last, 2e-5, 2e-5)
+    if T > 1:
+        c = T // 2
+        mid, end = torch.empty_like(h0), torch.empty_like(h0)
+        parts = [(dt, x, Bm, Cm)[i][:, a:b].contiguous() for a, b in
+                 ((0, c), (c, T)) for i in range(4)]
+        y1, _ = ssm_ops.fused_ssm_fwd_kernel(*parts[:4], A, h0=h0,
+                                             h_last=mid)
+        y2, _ = ssm_ops.fused_ssm_fwd_kernel(*parts[4:], A, h0=mid,
+                                             h_last=end)
+        torch.cuda.synchronize()
+        _ssm_check(torch.cat([y1, y2], 1), y, 2e-5, 2e-5)
+        _ssm_check(end, h_last, 2e-5, 2e-5)
+    with pytest.raises(ValueError, match="carry"):
+        ssm_ops.fused_ssm_fwd_kernel(dt, x, Bm, Cm, A,
+                                     h0=h0[:, :, :-1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+def test_paged_mla_simt_f32_within_fp64_sums(cuda, q8):
+    """chip_smoke's MLA inputs at deepseek-v3's scale (kv_lora 512, rope
+    64, page 16, softmax scale 1/sqrt(192)), path and odd rows, fp32
+    queries (the simt route): within 2e-6 of the function evaluated in
+    fp64 from the same operands."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.launch.mla_shapes import MLA_SHAPES, mla_inputs
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    kern = pa_ops.paged_mla_q8_kernel if q8 else pa_ops.paged_mla_kernel
+    for _label, B, H, length, pos in MLA_SHAPES[:2]:
+        qa, qr, pc, pr, sc, bt, pos_t = mla_inputs(cuda, g, B, H, length,
+                                                   pos, q8)
+        qa, qr = qa.float(), qr.float()
+        if not q8:
+            pc, pr = pc.float(), pr.float()
+        kw = dict(length=length, scale=1.0 / (128 + 64) ** 0.5)
+        n0, tc0 = kern.launches, kern.launches_tc
+        got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+        assert (kern.launches - n0, kern.launches_tc - tc0) == (1, 0)
+        want = pa_ref.paged_mla_ref(
+            qa, qr, pc, pr, bt, pos_t, acc=torch.float64, **kw,
+            **dict(zip(("ckv_scale", "krope_scale"), sc)))
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 2e-6
+
+
+def _smollm_sharp(cuda, **cfg_kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("smollm-360m-smoke"), **cfg_kw)
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.mixer.wo.mul_(4.0)
+            layer.mlp.w_down.mul_(4.0)
+    return model
+
+
+def _paged_engine(model, slots=2, **kw):
+    from repro_torch.serve import DecoderStepModel, PagedConfig, ServeEngine
+
+    return ServeEngine(DecoderStepModel(
+        model, max_len=64, prefill_chunk=8, kv_layout="paged",
+        paged=PagedConfig(page_size=4)), slots=slots, **kw)
+
+
+SERVE_LENS = [(7, 12), (13, 9), (5, 14), (9, 10)]
+
+
+def _serve_streams(eng, disturb=None):
+    from repro_torch.configs import SamplingParams
+
+    rng = np.random.default_rng(3)
+    reqs = [eng.submit(rng.integers(0, eng.sm.vocab, p), max_new_tokens=g,
+                       sampling=None if i % 2 == 0 else SamplingParams(
+                           temperature=0.8, top_k=9, seed=5))
+            for i, (p, g) in enumerate(SERVE_LENS)]
+    if disturb is not None:
+        disturb(eng)
+    eng.run()
+    assert eng.pool.pages_in_use == 0 and eng.pool.reserved_total == 0
+    return [list(map(int, r.tokens)) for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_preempt_resume_bitwise_on_the_kernel_read(cuda, kv_dtype):
+    """Every active slot evicted mid-stream and resumed into other slots
+    and fresh pages, decoding through paged_gqa / paged_gqa_q8: greedy and
+    sampled streams bitwise the undisturbed run's (the kernels give a
+    request the same bits whatever its slot and batch)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    model = _smollm_sharp(cuda, kv_dtype=kv_dtype)
+    kern = pa_ops.paged_gqa_q8_kernel if kv_dtype == "int8" \
+        else pa_ops.paged_gqa_kernel
+    ref = _serve_streams(_paged_engine(model, slots=3))
+
+    def disturb(eng):
+        for _ in range(3):
+            eng.step()
+        for s in np.flatnonzero(eng.active):
+            eng._preempt(int(s))
+    n0 = kern.launches
+    eng = _paged_engine(model, slots=3)
+    got = _serve_streams(eng, disturb)
+    assert kern.launches > n0 and eng.n_preemptions >= 2
+    assert got == ref
+
+
+def _oracle_drafter(*args, **kw):
+    """chip_smoke.py's drafter double (it proposes known streams)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import OracleDrafter
+
+    return OracleDrafter(torch, *args, **kw)
+
+
+@pytest.mark.cuda
+def test_spec_all_accepting_drafter_bitwise_on_the_gather_read(cuda):
+    """Greedy spec waves at k 4 with a drafter that proposes the
+    target-only streams: every draft accepted, streams bitwise."""
+    from repro_torch.configs import get_config
+
+    model = _smollm_sharp(cuda, paged_impl="gather")
+    lens = [(7, 12), (13, 9), (5, 14), (9, 10)]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, model.cfg.vocab, p) for p, _g in lens]
+
+    def run(drafter=None):
+        kw = {} if drafter is None else dict(drafter=drafter, spec_k=4)
+        eng = _paged_engine(model, slots=2, **kw)
+        if drafter is not None:
+            drafter.eng = eng
+        reqs = [eng.submit(p, max_new_tokens=g)
+                for p, (_p, g) in zip(prompts, lens)]
+        eng.run()
+        return [list(map(int, r.tokens)) for r in reqs], eng
+
+    ref, _ = run()
+    got, eng = run(_oracle_drafter(4, get_config("smollm-360m-smoke").vocab,
+                                   dict(enumerate(ref))))
+    assert got == ref
+    assert eng.n_drafts_accepted == eng.n_drafts_proposed > 0
+
+
+@pytest.mark.cuda
+def test_mamba_serve_fused_against_xla(cuda):
+    """falcon-mamba-7b at full width cut to 2 layers, served dense: the
+    fused run's prefill launches fused_ssm_fwd (never linear_scan), the
+    xla run's linear_scan, once a chunk and layer; greedy tokens equal
+    up to the first top-2 margin <= 0.1 of the xla model."""
+    import dataclasses
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import build_model
+
+    base = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, base.vocab, p) for p in (70, 300)]
+    out = {}
+    for impl in ("fused", "xla"):
+        cfg = dataclasses.replace(base, ssm_impl=impl)
+        model = build_model(cfg, device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(0))
+        eng = build_engine(model, ServeConfig(slots=2, max_len=320,
+                                              prefill_chunk=128))
+        f0 = ssm_ops.fused_ssm_fwd_kernel.launches
+        s0 = scan_ops.linear_scan_kernel.launches
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run()
+        launched = (ssm_ops.fused_ssm_fwd_kernel.launches - f0,
+                    scan_ops.linear_scan_kernel.launches - s0)
+        n = eng.sm.n_prefill_chunks * cfg.n_layers
+        assert launched == ((n, 0) if impl == "fused" else (0, n))
+        out[impl] = ([r.tokens for r in reqs], eng.sm)
+    sm = out["xla"][1]
+    for prompt, a, b in zip(prompts, out["fused"][0], out["xla"][0]):
+        diff = np.flatnonzero(a != b)
+        if len(diff):
+            ctx = np.concatenate([prompt, b[:diff[0]]])[None]
+            last, _ = sm.prefill(ctx)
+            top2 = torch.topk(last[0, :base.vocab].float(), 2).values
+            assert (top2[0] - top2[1]).item() <= 0.1

@@ -217,3 +217,29 @@ def test_incremental_q8_write_bitwise(fresh, layout):
     assert ts.shape == scale.shape
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["fp32", "int8"])
+def test_plain_fp64_accumulation(q8):
+    """``acc=torch.float64`` evaluates the same function of the same fp32
+    operands in fp64 (the card's fp32 check of the simt route): within
+    2e-6 of the fp32 plain version at deepseek-v3's scale 1/sqrt(192),
+    fp32 out, and the default stays the fp32 evaluation bit for bit."""
+    rng = np.random.default_rng(11)
+    qa, qr, pc, pr, bt, pos = _t(*_setup_mla(rng, H=8, r=64, dr=16, L=40,
+                                             ps=8, num_pages=40))
+    sk = {}
+    if q8:
+        sc = quant.page_abs_scale(pc, page_axis=1)
+        sr = quant.page_abs_scale(pr, page_axis=1)
+        pc, pr = quant.quantize(pc, sc, page_axis=1), quant.quantize(
+            pr, sr, page_axis=1)
+        sk = dict(ckv_scale=sc, krope_scale=sr)
+    kw = dict(length=40, scale=1.0 / math.sqrt(192), **sk)
+    f32 = ref.paged_mla_ref(qa, qr, pc, pr, bt, pos, **kw)
+    f64 = ref.paged_mla_ref(qa, qr, pc, pr, bt, pos, acc=torch.float64,
+                            **kw)
+    assert f64.dtype == torch.float32
+    assert torch.equal(f32, ref.paged_mla_ref(qa, qr, pc, pr, bt, pos,
+                                              acc=torch.float32, **kw))
+    np.testing.assert_allclose(f64.numpy(), f32.numpy(), atol=2e-6, rtol=0)

@@ -210,8 +210,10 @@ def test_eos_cancel_and_validation(lm):
         eng.submit([], max_new_tokens=1)
     with pytest.raises(ValueError):
         eng.submit([1, 2], max_new_tokens=0)
-    with pytest.raises(NotImplementedError):
-        ServeEngine(DecoderStepModel(model), policy="sjf")
+    assert ServeEngine(DecoderStepModel(model),
+                       policy="sjf").policy.name == "sjf"
+    with pytest.raises(ValueError, match="policy must be one of"):
+        ServeEngine(DecoderStepModel(model), policy="lifo")
 
 
 def test_telemetry_trace_is_valid_and_inert(lm):
