@@ -69,16 +69,16 @@ Phases, each fatal on failure:
                alone; then 3 steps at batch 1 x 2048 from the
                same seed with the fused scan and with the materializing
                "xla" path, losses and grad norms compared.
- 10. mla_paged — serve full-width deepseek-v3-671b (its 3 dense MLA layers
-               of 61: the other 58 are MoE, not ported yet; random weights
-               from a seed) from paged latent pools through build_engine: 8
-               greedy requests with 256-1024-token prompts, 4 slots, page
-               16, every decode step through the paged_mla kernel (bf16
-               pages) on its tensor-core (tc) route; the gather read
-               (margin rule), int8 pages through paged_mla_q8 (tc route
-               too), the kernel against the gather read on a copy with the
-               output projections x32, and a shared 512-token prefix with
-               and without the prefix cache (streams equal).
+ 10. mla_paged — serve full-width deepseek-v3-671b (its 3 dense MLA layers of
+               61: one of the other 58, MoE, is 45 GB in fp32; random
+               weights from a seed) from paged latent pools through
+               build_engine: 8 greedy requests with 256-1024-token prompts,
+               4 slots, page 16, every decode step through the paged_mla
+               kernel (bf16 pages) on its tensor-core (tc) route; the
+               gather read (margin rule), int8 pages through paged_mla_q8
+               (tc route too), the kernel against the gather read on a copy
+               with the output projections x32, and a shared 512-token
+               prefix with and without the prefix cache (streams equal).
  11. sched   — full-width smollm-360m (output projections x32, so greedy
                streams vary) from paged bf16 pages, page 16, 4 slots, every
                decode step through paged_gqa: 6 priority-0 requests
@@ -109,7 +109,24 @@ Phases, each fatal on failure:
                ssm_impl="fused" (prefill through fused_ssm_fwd, carrying
                the state in and out) and "xla" (through linear_scan),
                tokens compared under the margin rule.
- 14. imc     — the paper's IMC projection (Eq. 6) through its entry point
+ 14. moe_serve — full-width qwen3-moe-30b-a3b (16 of its 48 layers: all
+               48 in fp32 would need 122 GB; seeded weights, output
+               projections and expert w_down stacks x32) through
+               build_engine with dispatch "auto" (per-request prefill,
+               gather-GEMM decode): 8 greedy requests (prompts 64-512, 32
+               new tokens), 4 slots, chunk 256, page 16: (a) bf16 pages
+               through paged_gqa, (b) the gather read, (c) int8 pages
+               through paged_gqa_q8, (d) the dense layout; (a) against (b)
+               and (d) under the margin rule, (c) against (a) printed; a
+               target request alone against it beside 3 others and at
+               chunk 64 (margin rule, bitwise printed); one decode step
+               eager against graph replay (idle share) and its device time
+               split between the MoE MLPs, attention and the rest (one
+               profiler window).  Then jamba-1.5-large-398b-smoke (labelled
+               smoke: Mamba layers through fused_ssm_fwd beside paged
+               attention) dense, paged gather (streams bitwise the dense
+               ones) and paged kernel (margin rule).
+ 15. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
                against its plain version, and Eq. 6's all-ones and
@@ -520,13 +537,15 @@ def _paged_case(torch, dev, g, *, B, H, KV, hd, ps, length, pos, window,
 # the paged phase's decode shape (4 slots, smollm-360m's 15/5 heads of 64,
 # page 16, cache 256; the JSON row) and its 128-entry window ring, a long
 # context (64 slots x 2048 positions, all full: the pages exceed the 50 MB
-# L2, so bytes decide) and gemma3-4b's local layers (8/4 heads of 256 on
-# 1024-entry rings, three of four wrapped)
+# L2, so bytes decide), gemma3-4b's local layers (8/4 heads of 256 on
+# 1024-entry rings, three of four wrapped) and qwen3-moe-30b-a3b's decode
+# in phase moe_serve (32/4 heads of 128, cache 512; rows 5d/6d)
 PAGED_ROWS = [
     ("path", 4, 15, 5, 64, 256, None, [255, 255, 255, 255]),
     ("ring", 4, 15, 5, 64, 128, 128, [255, 200, 130, 64]),
     ("long", 64, 15, 5, 64, 2048, None, [2047] * 64),
     ("gemma", 4, 8, 4, 256, 1024, 1024, [4095, 3000, 1500, 1023]),
+    ("qwen3", 4, 32, 4, 128, 512, None, [511, 511, 511, 511]),
 ]
 
 
@@ -610,8 +629,11 @@ def _kernel_rows_paged(torch, dev, g):
                     bound_by=by, library_ms=library_ms)
             elif label != "ring":
                 rows[name].update({f"{label}_ms": ms,
+                                   f"{label}_eager_ms": call_ms,
+                                   f"{label}_plain_ms": plain_ms,
                                    f"{label}_bound_ms": b_ms,
-                                   f"{label}_library_ms": library_ms})
+                                   f"{label}_library_ms": library_ms,
+                                   f"{label}_max_abs_err": err})
             del q, pk, pv, sc, bt, pos_t, got, want
     return rows
 
@@ -2404,11 +2426,18 @@ def _sharpen(torch, model, factor=32.0):
     """Every layer's output projections x ``factor``, in place: random
     weights give one-token greedy streams (the tied head reads each
     input's own embedding off the residual); x32 makes them vary at
-    smollm-360m's width (phase_paged)."""
+    smollm-360m's width (phase_paged).  An attention layer's ``wo``, a
+    Mamba layer's ``w_out``, a dense MLP's ``w_down``, an MoE MLP's
+    expert ``w_down`` stack and its shared expert's ``w_down``."""
     with torch.no_grad():
         for layer in model.layers:
-            layer.mixer.wo.mul_(factor)
-            layer.mlp.w_down.mul_(factor)
+            for name in ("wo", "w_out"):
+                if hasattr(layer.mixer, name):
+                    getattr(layer.mixer, name).mul_(factor)
+            if layer.mlp is not None:
+                layer.mlp.w_down.mul_(factor)
+                if getattr(layer.mlp, "shared", None) is not None:
+                    layer.mlp.shared.w_down.mul_(factor)
     return model
 
 
@@ -2919,6 +2948,433 @@ def phase_mamba_serve(torch, dev):
     return launches
 
 
+# full-width qwen3-moe-30b-a3b cut in depth: 16 of its 48 layers (one fp32
+# layer is 623 M parameters, 2.49 GB; 48 would need 122 GB with the 2.49 GB
+# untied embedding and head), and the hybrid smoke stack
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 16
+MOE_HYBRID = "jamba-1.5-large-398b-smoke"
+
+
+def _serve_moe(torch, model, prompts, gen_tokens, *, max_len,
+               kv_layout="paged", prefill_chunk=256):
+    """One run of the MoE serving path through build_engine (4 slots, page
+    16, dispatch as configured: "auto")."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serve import Telemetry
+
+    eng = build_engine(model, ServeConfig(
+        slots=4, max_len=max_len, prefill_chunk=prefill_chunk,
+        kv_layout=kv_layout, page_size=16), telemetry=Telemetry())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=gen_tokens) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def _reconfigure(model, **kw):
+    """The same weights read under another ``paged_impl`` / ``kv_dtype``,
+    in place: every module that holds the config gets the new one (a
+    second copy of a 42 GB model would not fit beside the first)."""
+    cfg = dataclasses.replace(model.cfg, **kw)
+    for module in model.modules():
+        if hasattr(module, "cfg"):
+            module.cfg = cfg
+    return model
+
+
+def _device_split(torch, fn, iters, ranges):
+    """Run ``fn`` ``iters`` times under the profiler with each method in
+    ``ranges`` ({tag: (class, method name)}) wrapped in a
+    ``record_function(tag)`` range; each kernel's device time goes to the
+    innermost tagged range of the op that launched it.  Returns ({tag or
+    "other": device ms an iteration}, profiled wall ms an iteration)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = {}
+    for tag, (cls, name) in ranges.items():
+        orig = getattr(cls, name)
+        saved[tag] = (cls, name, orig)
+
+        def wrapped(self, *a, _orig=orig, _tag=tag, **k):
+            with record_function(_tag):
+                return _orig(self, *a, **k)
+        setattr(cls, name, wrapped)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+    finally:
+        for cls, name, orig in saved.values():
+            setattr(cls, name, orig)
+    split = collections.Counter()
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None) or []
+        if not kernels:
+            continue
+        tag, node = "other", e
+        while node is not None:
+            if node.name in ranges:
+                tag = node.name
+                break
+            node = node.cpu_parent
+        split[tag] += sum(k.duration for k in kernels) / 1e3 / iters
+    return dict(split), wall
+
+
+def _routing_replay(torch, model, prompt, toks, *, max_len, kv_layout,
+                    prefill_chunk=256, **cfg_kw):
+    """Teacher-forced replay of one request through a one-slot step model
+    of ``model`` read under ``cfg_kw`` (``paged_impl``, ``kv_dtype``) and
+    ``kv_layout``: the prompt's prefill, then one decode step for each of
+    ``toks``.  Returns (each decode-step MoE routing in execution order
+    as (step, call, expert ids (k,), router logits (E,) fp32), the real-
+    vocab logits that decide each token: the prefill's, then each
+    step's)."""
+    import numpy as np
+
+    from repro_torch.models.moe import MoEMLP
+    from repro_torch.serve import DecoderStepModel, PagedConfig
+
+    _reconfigure(model, **cfg_kw)
+    paged = dict(kv_layout="paged", paged=PagedConfig(page_size=16)) \
+        if kv_layout == "paged" else {}
+    sm = DecoderStepModel(model, max_len=max_len,
+                          prefill_chunk=prefill_chunk, **paged)
+    state = sm.init_state(1)
+    last, carry = sm.prefill(np.asarray(prompt)[None, :])
+    decided = [last[0, :sm.vocab].float().cpu()]
+    bt = None
+    if kv_layout == "paged":
+        bt = np.arange(sm.max_pages, dtype=np.int32)[None, :]
+        state = sm.write_slots(state, carry, np.zeros(1, np.int64), pages=bt,
+                               plen=len(prompt))
+    else:
+        state = sm.write_slots(state, carry, np.zeros(1, np.int64))
+    record, step = [], [0]
+    route, sample = MoEMLP._route, sm._sample
+
+    def recording(self, xt):
+        out = route(self, xt)
+        logits = (xt @ self.router.to(xt.dtype)).float()
+        record.append((step[0], len(record), out[1][0].cpu(),
+                       logits[0].cpu()))
+        return out
+
+    def keeping(logits, samp, pos):
+        decided.append(logits[0, :sm.vocab].float().cpu())
+        return sample(logits, samp, pos)
+    MoEMLP._route, sm._sample = recording, keeping
+    try:
+        for t, tok in enumerate(toks):
+            step[0] = t
+            _out, state = sm.step(np.asarray([tok]), state,
+                                  np.asarray([len(prompt) + t]),
+                                  np.ones(1, bool), bt=bt)
+    finally:
+        MoEMLP._route = route
+    return record, decided
+
+
+def _moe_margin_rule(torch, tag, model, vocab, prompts, got, want, *,
+                     got_cfg, want_cfg, max_len, prefill_chunk=256):
+    """The margin rule for MoE stacks, from a teacher-forced replay of
+    ``want``'s tokens through both configurations (``*_cfg``: kv_layout,
+    paged_impl, kv_dtype; one slot, the decode path).  ``got`` equals
+    ``want`` per stream up to the first token i where either (1) the want
+    side's top-2 margin in the logits that decide token i (its prefill's
+    for i = 0, else its decode step i - 1's) is <= 0.1, or (2) a routing
+    decision parts the two sides: the first MoE routing whose expert ids
+    differ comes at or before decode step i - 1, the want side's
+    router-logit margin at it (the k-th largest logit minus the (k+1)-th)
+    is <= 0.1, and the two sides' router logits differ by at most 0.1 at
+    it and at every routing before it.  A rounding difference in the
+    attention read moves the router's input a little, and a near-tie
+    among the experts then flips, which changes the token stream by more
+    than any token margin; a wrong read moves the router's logits by much
+    more than 0.1."""
+    n_same = 0
+    for prompt, a, b in zip(prompts, got, want):
+        i = _first_divergence(a, b)
+        if i is None:
+            n_same += 1
+            continue
+        (rec_w, dec_w), (rec_g, _dec_g) = [
+            _routing_replay(torch, model, prompt, b[:i], max_len=max_len,
+                            prefill_chunk=prefill_chunk, **cfg)
+            for cfg in (want_cfg, got_cfg)]
+        top2 = torch.topk(dec_w[i], 2).values
+        margin = (top2[0] - top2[1]).item()
+        if margin <= 0.1:
+            print(f"{tag}: a stream parts at token {i} (top-2 margin "
+                  f"{margin:.4f} <= 0.1)", flush=True)
+            continue
+        drift, flip = 0.0, None
+        for (s, c, ids_w, lg_w), (_s, _c, ids_g, lg_g) in zip(rec_w, rec_g):
+            drift = max(drift, (lg_w - lg_g).abs().max().item())
+            if set(ids_w.tolist()) != set(ids_g.tolist()):
+                k = len(ids_w)
+                srt = torch.sort(lg_w, descending=True).values
+                flip = (s, c, (srt[k - 1] - srt[k]).item())
+                break
+        if flip is None or flip[2] > 0.1 or drift > 0.1:
+            found = "no expert flip" if flip is None else (
+                f"a flip at decode step {flip[0]} with router margin "
+                f"{flip[2]:.4f}")
+            fail(f"{tag}: a stream diverges at token {i} where the top-2 "
+                 f"margin is {margin:.3f} > 0.1, and the routing replay "
+                 f"finds {found} (router logits apart by up to "
+                 f"{drift:.4f})")
+        print(f"{tag}: a stream parts at token {i} (top-2 margin "
+              f"{margin:.4f}) after an expert flip at decode step {flip[0]}, "
+              f"routing {flip[1]}: router margin {flip[2]:.4f} <= 0.1, router "
+              f"logits apart by up to {drift:.4f} <= 0.1", flush=True)
+    print(f"{tag}: {n_same}/{len(got)} streams equal end to end", flush=True)
+
+
+def phase_moe_serve(torch, dev):
+    """Full-width qwen3-moe-30b-a3b (16 of 48 layers) served from bf16 and
+    int8 KV pages through the paged_gqa kernels, the gather read and the
+    dense layout; then the hybrid jamba smoke stack, paged against
+    dense."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import GQAAttention
+    from repro_torch.models.moe import MoEMLP
+
+    gc.collect()                   # engines of earlier phases
+    torch.cuda.empty_cache()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    e = cfg.moe
+    t0 = time.perf_counter()
+    model = _sharpen(torch, build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"moe_serve: {cfg.name} at full width, depth cut to {cfg.n_layers} "
+          f"of its {full.n_layers} layers (fp32 weights of all "
+          f"{full.n_layers}: {full.param_count() * 4 / 1e9:.1f} GB), "
+          f"{n_params / 1e9:.2f} B fp32 params = {n_params * 4 / 1e9:.1f} "
+          f"GB, d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.head_dim}, {e.n_experts} experts top-{e.top_k} of width "
+          f"{e.d_ff_expert}, vocab {cfg.vocab}, dispatch {e.dispatch}; "
+          f"output projections x32; built in {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    rng = np.random.default_rng(4)
+    plens = [512, 448, 384, 320, 256, 192, 128, 64]
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in plens]
+    gen = 32
+    max_len = max(plens) + gen                   # 544: 34 pages of 16
+    kernels = (pa_ops.paged_gqa_kernel, pa_ops.paged_gqa_q8_kernel)
+    _serve_moe(torch, model, [p[:40] for p in prompts[:4]], 2,
+               max_len=max_len)                  # warm-up (cuBLAS etc.)
+
+    def measured(tag, kv_layout="paged", the_prompts=prompts, **kw):
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels:
+            k.launches = 0
+        eng, reqs, dt = _serve_moe(torch, model, the_prompts, gen,
+                                   max_len=max_len, kv_layout=kv_layout,
+                                   **kw)
+        launches = tuple(k.launches for k in kernels)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for r in reqs:
+            toks = r.tokens
+            if not r.finished or len(toks) != gen or not (
+                    (toks >= 0) & (toks < cfg.vocab)).all():
+                fail(f"moe_serve {tag}: request {r.uid} finished="
+                     f"{r.finished}, {len(toks)} tokens {toks}")
+        if eng.pool is not None:
+            _check_drained(eng, f"moe_serve {tag}")
+        ttft = sorted((r.first_token_t - r.created_t) * 1e3 for r in reqs)
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        n_gen = sum(len(r.tokens) for r in reqs)
+        print(f"moe_serve {tag}: {len(reqs)} requests, {n_gen} tokens in "
+              f"{dt:.3f} s ({n_gen / dt:.1f} generated tok/s incl. "
+              f"prefill), TTFT p50 {ttft[len(ttft) // 2]:.1f} ms max "
+              f"{ttft[-1]:.1f} ms, {eng.n_steps} decode steps p50 "
+              f"{stp['p50']:.2f} ms, peak memory {peak:.2f} GiB, "
+              f"(paged_gqa, paged_gqa_q8) launches {launches}; distinct "
+              f"tokens per stream "
+              f"{[len(set(r.tokens.tolist())) for r in reqs]}", flush=True)
+        return eng, [list(r.tokens) for r in reqs], launches
+
+    # (a) bf16 pages through the paged_gqa kernel
+    eng_a, streams_a, (n_a, q_a) = measured("(a) bf16 kernel")
+    if q_a or n_a == 0 or n_a != cfg.n_layers * eng_a.n_steps:
+        fail(f"moe_serve (a): (paged_gqa, paged_gqa_q8) launches "
+             f"{(n_a, q_a)} != ({cfg.n_layers} layers x {eng_a.n_steps} "
+             "decode steps, 0)")
+    print(f"moe_serve: paged_gqa launches {n_a} = {cfg.n_layers} layers x "
+          f"{eng_a.n_steps} decode steps", flush=True)
+    del eng_a
+
+    # (b) the same traffic through the gather read
+    _reconfigure(model, paged_impl="gather")
+    eng_b, streams_b, launched = measured("(b) bf16 gather")
+    if any(launched):
+        fail(f"moe_serve (b): paged kernel launches {launched}")
+    kernel_bf16 = dict(kv_layout="paged", paged_impl="kernel",
+                       kv_dtype="bf16")
+    _moe_margin_rule(torch, "moe_serve (a) kernel vs (b) gather", model,
+                     cfg.vocab, prompts, streams_a, streams_b,
+                     got_cfg=kernel_bf16,
+                     want_cfg=dict(kernel_bf16, paged_impl="gather"),
+                     max_len=max_len)
+    del eng_b
+
+    # (c) int8 pages through paged_gqa_q8
+    _reconfigure(model, paged_impl="kernel", kv_dtype="int8")
+    eng_c, streams_c, (n_c, q_c) = measured("(c) int8 kernel")
+    if n_c or q_c == 0 or q_c != cfg.n_layers * eng_c.n_steps:
+        fail(f"moe_serve (c): (paged_gqa, paged_gqa_q8) launches "
+             f"{(n_c, q_c)} != (0, {cfg.n_layers} layers x "
+             f"{eng_c.n_steps} decode steps)")
+    same = sum(int(np.sum(np.asarray(a) == np.asarray(b)))
+               for a, b in zip(streams_a, streams_c))
+    print(f"moe_serve: int8 greedy tokens equal bf16's (a) at {same}/"
+          f"{len(prompts) * gen} positions; first divergence per request "
+          f"{[_first_divergence(a, b) for a, b in zip(streams_a, streams_c)]}"
+          f"; paged_gqa_q8 launches {q_c}", flush=True)
+    del eng_c
+
+    # (d) the dense layout
+    _reconfigure(model, kv_dtype="bf16")
+    eng_d, streams_d, launched = measured("(d) dense", kv_layout="dense")
+    if any(launched):
+        fail(f"moe_serve (d): paged kernel launches {launched}")
+    _moe_margin_rule(torch, "moe_serve (a) kernel vs (d) dense", model,
+                     cfg.vocab, prompts, streams_a, streams_d,
+                     got_cfg=kernel_bf16,
+                     want_cfg=dict(kernel_bf16, kv_layout="dense"),
+                     max_len=max_len)
+    del eng_d
+    _reconfigure(model, paged_impl="kernel", kv_dtype="bf16")
+
+    # batch invariance on the card: the target alone against the same
+    # request beside 3 others, and at chunk 64 against chunk 256
+    target = prompts[1]
+    alone_eng, alone, _ = measured("target alone", the_prompts=[target])
+    _e, mixed, _ = measured("target with 3 others",
+                            the_prompts=[target] + prompts[5:8])
+    _e, chunked, _ = measured("target at chunk 64", the_prompts=[target],
+                              prefill_chunk=64)
+    del _e
+    for tag, other in (("co-batched", mixed[0]), ("chunk 64", chunked[0])):
+        _margin_rule(torch, f"moe_serve target {tag} vs alone",
+                     alone_eng.sm, cfg.vocab, [target], [other], alone)
+        print(f"moe_serve: target {tag} bitwise the lone run's: "
+              f"{other == alone[0]}", flush=True)
+    del alone_eng
+
+    # one 4-slot decode step at position 543 (the longest chains): eager
+    # against its kernels replayed from a CUDA graph, then the device time
+    # split between the MoE MLPs (routing, gather, expert GEMMs, combine),
+    # the attention layers (projections, rope, pool write, paged_gqa) and
+    # everything else (norms, residuals, embedding, head)
+    n_chain = max_len // 16
+    num_pages = 4 * n_chain
+    state = model.init_paged_cache(num_pages, 16, batch=4)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), max_len - 1, dtype=torch.int32, device=dev)
+    bt = torch.arange(num_pages, dtype=torch.int32,
+                      device=dev).reshape(4, n_chain)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    rows = torch.arange(4, device=dev)
+
+    def step():
+        model.decode_step_paged(tok, state, pos, bt, act, max_len, rows=rows)
+    with torch.inference_mode():
+        step_eager = eager_ms(torch, step, 10)
+        step_dev = device_ms(torch, step, 10)
+        print(f"moe_serve: decode_step_paged (4 slots, pos {max_len - 1}): "
+              f"eager {step_eager:.2f} ms, device {step_dev:.2f} ms -> card "
+              f"idle {1 - step_dev / step_eager:.1%} of an eager step",
+              flush=True)
+        split, wall = _device_split(torch, step, 5, {
+            "moe": (MoEMLP, "forward"),
+            "attention": (GQAAttention, "decode_paged")})
+    busy = sum(split.values())
+    if busy <= 0:
+        print("moe_serve: decode step device split: not measured (the "
+              "profiler saw no device time)", flush=True)
+    else:
+        print(f"moe_serve: decode step device split (profiler, 5 steps): "
+              f"busy {busy:.3f} ms of {wall:.2f} ms wall a step; "
+              + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in
+                          sorted(split.items())), flush=True)
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the hybrid path at smoke size: Mamba layers (fused_ssm_fwd prefill
+    # from the carried state) beside paged attention layers
+    hcfg = dataclasses.replace(get_config(MOE_HYBRID), ssm_impl="fused")
+    hmodel = _sharpen(torch, build_model(
+        hcfg, device=dev, generator=torch.Generator(device=dev)
+        .manual_seed(0)), 4.0)
+    hprompts = [rng.integers(0, hcfg.vocab, size=p)
+                for p in (40, 17, 64, 9, 33, 50)]
+    n_attn = len(hmodel.paged_layer_names())
+    n_mamba = hcfg.n_layers - n_attn
+    hruns = {}
+    for tag, layout, impl in (("dense", "dense", "kernel"),
+                              ("paged gather", "paged", "gather"),
+                              ("paged kernel", "paged", "kernel")):
+        _reconfigure(hmodel, paged_impl=impl)
+        pa_ops.paged_gqa_kernel.launches = 0
+        ssm_ops.fused_ssm_fwd_kernel.launches = 0
+        heng, hreqs, hdt = _serve_moe(torch, hmodel, hprompts, 16,
+                                      max_len=96, kv_layout=layout,
+                                      prefill_chunk=32)
+        fused, paged = (ssm_ops.fused_ssm_fwd_kernel.launches,
+                        pa_ops.paged_gqa_kernel.launches)
+        want_fused = heng.sm.n_prefill_chunks * n_mamba
+        want_paged = n_attn * heng.n_steps if tag == "paged kernel" else 0
+        if (fused, paged) != (want_fused, want_paged):
+            fail(f"moe_serve {MOE_HYBRID} {tag}: (fused_ssm_fwd, paged_gqa) "
+                 f"launches {(fused, paged)} != {(want_fused, want_paged)}")
+        if heng.pool is not None:
+            _check_drained(heng, f"moe_serve {MOE_HYBRID} {tag}")
+        hruns[tag] = (heng.sm, [list(r.tokens) for r in hreqs], fused, paged)
+        print(f"moe_serve {MOE_HYBRID} (smoke) {tag}: {len(hreqs)} requests "
+              f"in {hdt:.3f} s, fused_ssm_fwd launches {fused}, paged_gqa "
+              f"launches {paged}; distinct tokens per stream "
+              f"{[len(set(r.tokens.tolist())) for r in hreqs]}", flush=True)
+    if hruns["paged gather"][1] != hruns["dense"][1]:
+        fail(f"moe_serve {MOE_HYBRID}: paged gather streams differ from the "
+             "dense layout's")
+    print(f"moe_serve {MOE_HYBRID}: paged gather streams bitwise the dense "
+          "layout's", flush=True)
+    _moe_margin_rule(torch, f"moe_serve {MOE_HYBRID} paged kernel vs dense",
+                     hmodel, hcfg.vocab, hprompts, hruns["paged kernel"][1],
+                     hruns["dense"][1],
+                     got_cfg=dict(kv_layout="paged", paged_impl="kernel"),
+                     want_cfg=dict(kv_layout="dense", paged_impl="kernel"),
+                     max_len=96, prefill_chunk=32)
+    launches = {"paged_gqa": n_a + hruns["paged kernel"][3],
+                "paged_gqa_q8": q_c,
+                "fused_ssm_fwd": sum(r[2] for r in hruns.values())}
+    del hmodel, hruns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_imc(torch, dev):
     """The paper's IMC projection through its entry point on the card, at
     the kernel rows' shapes and with leading dimensions, and Eq. 6's
@@ -2996,20 +3452,28 @@ def main():
             if "registers" in line or "spill" in line or "entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    rows = phase_kernels(torch, dev)
-    launches = {"linear_scan": phase_lm(torch, dev),
-                "minimalist_step": phase_stream(torch, dev),
-                "linear_scan_bwd": phase_train(torch, dev),
-                "minimalist_block": phase_system(torch, dev)}
-    launches.update(phase_paged(torch, dev))
-    launches.update(phase_attn_train(torch, dev))
-    launches.update(phase_mamba_train(torch, dev))
-    launches.update(phase_mla_paged(torch, dev))
+    def timed(phase):
+        t = time.perf_counter()
+        out = phase(torch, dev)
+        print(f"{phase.__name__}: {time.perf_counter() - t:.1f} s (script "
+              f"at {time.perf_counter() - t0:.1f} s)", flush=True)
+        return out
+
+    rows = timed(phase_kernels)
+    launches = {"linear_scan": timed(phase_lm),
+                "minimalist_step": timed(phase_stream),
+                "linear_scan_bwd": timed(phase_train),
+                "minimalist_block": timed(phase_system)}
+    launches.update(timed(phase_paged))
+    launches.update(timed(phase_attn_train))
+    launches.update(timed(phase_mamba_train))
+    launches.update(timed(phase_mla_paged))
     # the serving phases drive kernels of earlier phases: counts add up
-    for phase in (phase_sched, phase_spec, phase_mamba_serve):
-        for name, n in phase(torch, dev).items():
+    for phase in (phase_sched, phase_spec, phase_mamba_serve,
+                  phase_moe_serve):
+        for name, n in timed(phase).items():
             launches[name] += n
-    launches["imc_mvm"] = phase_imc(torch, dev)
+    launches["imc_mvm"] = timed(phase_imc)
 
     meta = {
         "linear_scan": ("src/repro_torch/kernels/csrc/linear_scan.cu",

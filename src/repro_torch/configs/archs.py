@@ -1,8 +1,9 @@
 """The architectures of the port so far (port of ``repro.configs.archs``):
-SmolLM-360M (global GQA), Gemma-3-4B (5:1 sliding-window:global GQA),
-DeepSeek-V3-671B (MLA; its MoE layers are not ported yet, so only a
-depth cut to its three dense head layers builds),
-Falcon-Mamba-7B (attention-free Mamba-1), the paper's technique at LM
+Qwen3-MoE-30B-A3B (GQA with 128 routed experts top-8), DeepSeek-V3-671B
+(MLA, 3 dense head layers then MoE with a shared expert), SmolLM-360M
+(global GQA), Gemma-3-4B (5:1 sliding-window:global GQA),
+Falcon-Mamba-7B (attention-free Mamba-1), Jamba-1.5-Large-398B (Mamba
+and attention 7:1, MoE every other layer), the paper's technique at LM
 scale, its hardware-mode twin, the paper's sMNIST network dims,
 ``reduced()`` and ``get_config``.  Values are the reference's own."""
 from __future__ import annotations
@@ -12,6 +13,16 @@ import dataclasses
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU, MLA,
                                       LayerSpec, MambaConfig, MLAConfig,
                                       ModelConfig, MoEConfig)
+
+QWEN3_MOE_30B = ModelConfig(
+    # [hf:Qwen/Qwen3-30B-A3B; hf]
+    name="qwen3-moe-30b-a3b",
+    n_layers=48, d_model=2048, n_heads=32, n_kv_heads=4, head_dim=128,
+    d_ff=768, vocab=151936,
+    pattern=(LayerSpec(ATTN, moe=True),),
+    moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=768),
+    rope_theta=1e6, tie_embeddings=False,
+)
 
 DEEPSEEK_V3_671B = ModelConfig(
     # [arXiv:2412.19437; hf] — MLA, 1 shared + 256 routed top-8, MTP,
@@ -55,6 +66,23 @@ FALCON_MAMBA_7B = ModelConfig(
     tie_embeddings=False,
 )
 
+# Jamba block: 8 layers, attention at position 4, Mamba elsewhere (1:7);
+# MoE every other layer (16 experts top-2). [arXiv:2403.19887; hf]
+_JAMBA_UNIT = tuple(
+    LayerSpec(ATTN if i == 4 else MAMBA, moe=(i % 2 == 1))
+    for i in range(8)
+)
+
+JAMBA_15_LARGE_398B = ModelConfig(
+    name="jamba-1.5-large-398b",
+    n_layers=72, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=24576, vocab=65536,
+    pattern=_JAMBA_UNIT,
+    moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=24576),
+    mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
+    tie_embeddings=False,
+)
+
 # sMNIST network of paper Fig. 5: dims 1-64-64-64-64-10
 MINIMALIST_SMNIST_DIMS = (1, 64, 64, 64, 64, 10)
 
@@ -69,9 +97,9 @@ MINIMALIST_LM_360M = dataclasses.replace(
 MINIMALIST_LM_HW = dataclasses.replace(
     MINIMALIST_LM_360M, name="minimalist-lm-360m-hw", mingru_quant="hardware")
 
-ARCHS = {c.name: c for c in [DEEPSEEK_V3_671B, SMOLLM_360M, GEMMA3_4B,
-                             FALCON_MAMBA_7B, MINIMALIST_LM_360M,
-                             MINIMALIST_LM_HW]}
+ARCHS = {c.name: c for c in [QWEN3_MOE_30B, DEEPSEEK_V3_671B, SMOLLM_360M,
+                             GEMMA3_4B, FALCON_MAMBA_7B, JAMBA_15_LARGE_398B,
+                             MINIMALIST_LM_360M, MINIMALIST_LM_HW]}
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -71,7 +71,13 @@ class MoEConfig:
     n_shared: int = 0
     capacity_factor: float = 1.25
     router_noise: float = 0.0
+    # dispatch groups of the pooled path (the reference's DP degree);
+    # groups=1 is one pool over every token of a call
     groups: int = 1
+    # how tokens reach their experts (models.moe.resolve_dispatch):
+    # "pooled" (capacity-limited, batch-dependent: the training path),
+    # "per_request" (drop-free per batch row) or "auto" (pooled for
+    # training, per_request prefill and gather-GEMM decode for serving)
     dispatch: str = "auto"
 
     def __post_init__(self):
@@ -192,6 +198,58 @@ class ModelConfig:
         """Vocab rounded up to a multiple of 512 (logits masked past
         ``vocab``)."""
         return (self.vocab + 511) // 512 * 512
+
+    def param_count(self) -> int:
+        """Analytical parameter count (``ModelConfig.param_count``)."""
+        d = self.d_model
+        total = self.vocab_padded * d                       # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_padded * d
+        for spec in self.layer_specs():
+            if spec.kind in (ATTN, ATTN_LOCAL):
+                total += d * self.n_heads * self.head_dim          # q
+                total += 2 * d * self.n_kv_heads * self.head_dim   # k, v
+                total += self.n_heads * self.head_dim * d          # o
+            elif spec.kind == MLA:
+                m = self.mla
+                qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+                total += d * m.q_lora_rank \
+                    + m.q_lora_rank * self.n_heads * qk_head
+                total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                total += m.kv_lora_rank * self.n_heads * (
+                    m.qk_nope_head_dim + m.v_head_dim)
+                total += self.n_heads * m.v_head_dim * d
+            elif spec.kind == MAMBA:
+                mc = self.mamba
+                di = mc.d_inner(d)
+                total += d * 2 * di                  # in_proj
+                total += di * mc.d_conv              # conv
+                total += di * (2 * mc.d_state + 1)   # B, C, dt proj (approx)
+                total += di * mc.d_state + di        # A_log, D
+                total += di * d                      # out_proj
+            elif spec.kind == MINGRU:
+                total += 2 * (d * d + d)             # W^h, W^z + biases
+            # an MLP follows any mixer kind (jamba puts MoE after Mamba)
+            if spec.moe:
+                e = self.moe
+                total += d * e.n_experts              # router
+                total += e.n_experts * 3 * d * e.d_ff_expert
+                total += e.n_shared * 3 * d * e.d_ff_expert
+            else:
+                total += 3 * d * (spec.d_ff or self.d_ff)   # SwiGLU
+            total += 2 * d                            # norms
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters a token activates (MoE: top-k and shared experts
+        only; ``ModelConfig.active_param_count``)."""
+        if self.moe is None:
+            return self.param_count()
+        e, d = self.moe, self.d_model
+        n_moe = sum(1 for s in self.layer_specs() if s.moe)
+        per_expert = 3 * d * e.d_ff_expert
+        return int(self.param_count() - n_moe * e.n_experts * per_expert
+                   + n_moe * (e.top_k + e.n_shared) * per_expert)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,6 +8,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --device cpu --kv-layout paged --kv-dtype int8 --prefix-cache
 
+    # an MoE arch (qwen3-moe-30b-a3b, deepseek-v3-671b, jamba-1.5-large-398b)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --smoke --device cpu --kv-layout paged \
+        --moe-dispatch auto
+
 Prompts are consumed by the grid-padded chunked prefill (one linear scan
 per chunk and minGRU layer — the CUDA kernel on the card; one masked
 softmax per chunk and attention layer), decode is one slot-batch step per
@@ -24,11 +29,11 @@ preempt under the paged layout); ``--fork N`` forks the first request
 into N copy-on-write streams after one step; ``--drafter ARCH --spec-k K``
 turns on speculative decoding with a pure-recurrent drafter (paged
 layout); ``--baseline`` runs the static-batch loop (:func:`generate`)
-instead of the engine.  The flags of features the port does not have yet
-(``--mesh``, ``--moe-dispatch``) are accepted by the parser and refused
-with an error naming them; an arch with MoE layers (``deepseek-v3-671b``
-and its smoke variant) reaches the model, which refuses them with its
-own message.
+instead of the engine.  ``--moe-dispatch pooled|per_request|auto`` sets
+an MoE arch's dispatch (``auto``, the default, is batch-invariant; an
+arch without MoE layers refuses it).  ``--mesh`` (sharded serving) is
+accepted by the parser and refused with an error naming it: it is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -105,10 +110,7 @@ def build_engine(model, serve: ServeConfig = ServeConfig(), telemetry=None):
 
 def _not_ported(args, ap):
     """Refuse every flag of a feature the port does not have yet."""
-    refused = {
-        "--mesh": bool(args.mesh),
-        "--moe-dispatch": args.moe_dispatch is not None,
-    }
+    refused = {"--mesh": bool(args.mesh)}
     bad = [flag for flag, used in refused.items() if used]
     if bad:
         ap.error(f"not ported to the PyTorch package yet: {', '.join(bad)}")
@@ -174,10 +176,11 @@ def main(argv=None):
                          "copy-on-write streams after one step (paged)")
     ap.add_argument("--baseline", action="store_true",
                     help="run the static-batch loop instead of the engine")
-    # features of the reference not ported yet (refused by _not_ported)
-    ap.add_argument("--mesh", default="")
     ap.add_argument("--moe-dispatch", default=None,
-                    choices=[None, "pooled", "per_request", "auto"])
+                    choices=[None, "pooled", "per_request", "auto"],
+                    help="MoE routing mode (default: the arch's, auto)")
+    # a feature of the reference not ported yet (refused by _not_ported)
+    ap.add_argument("--mesh", default="")
     args = ap.parse_args(argv)
     if min(args.requests, args.gen, args.prompt_len, args.slots) < 1:
         ap.error("--requests, --gen, --prompt-len and --slots must all "
@@ -207,6 +210,12 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype)
     if args.paged_impl:
         cfg = dataclasses.replace(cfg, paged_impl=args.paged_impl)
+    if args.moe_dispatch:
+        if cfg.moe is None:
+            ap.error(f"--moe-dispatch given but {cfg.name} has no MoE "
+                     "layers")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=args.moe_dispatch))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(cfg, device=device, generator=gen)
 

@@ -1,12 +1,14 @@
-"""Decoder LM over minGRU, GQA, MLA and Mamba layers (port of the MINGRU,
-ATTN, ATTN_LOCAL, MLA and MAMBA layer kinds of
-``repro.models.transformer``).
+"""Decoder LM over minGRU, GQA, MLA and Mamba layers with dense or
+mixture-of-experts MLPs (port of ``repro.models.transformer``).
 
 The reference scans a stacked pattern unit with ``lax.scan``; here the
 layers are written out as an ``nn.ModuleList`` (``layers[j]`` is stack
 position j; :func:`repro_torch.bridge.load_jax_params` unstacks the
-reference's layer axis onto it).  MoE layers are not ported yet and
-raise (before anything is allocated).
+reference's layer axis onto it).  An MoE MLP takes the route of the call
+(``models.moe``): "train" in ``forward``/``loss``, "prefill" in
+``prefill``, "decode" in ``decode``, ``decode_paged`` and
+``verify_paged``; its aux loss is dropped in the layer, as the
+reference's, so ``loss`` stays the plain NLL.
 
 Dtypes mirror the reference: fp32 parameters, bf16 compute
 (``DecoderLM.compute_dtype``), fp32 RMSNorm internals, fp32 logits, and
@@ -24,8 +26,10 @@ a bf16 decode cache.  Cache layouts:
     rope)}`` latent entry per layer; paged, the latents are page pools
     (P, page, kv_lora) and (P, page, rope) (int8 pools add ``ckv_scale``
     and ``krope_scale`` (P,), one scale per page);
-  * a Mamba stack keeps a list with one ``{"ssm": (B, d_inner, d_state),
-    "conv": (B, d_conv - 1, d_inner)}`` carry per layer.
+  * a Mamba layer keeps one ``{"ssm": (B, d_inner, d_state),
+    "conv": (B, d_conv - 1, d_inner)}`` carry; under the paged layout a
+    hybrid stack (jamba: Mamba and attention) keeps these per-slot carries
+    beside its attention layers' page pools.
 
 Stacks that mix minGRU and attention layers are not ported yet.
 """
@@ -42,7 +46,7 @@ from repro_torch.models.attention import (GQAAttention, MLAAttention,
                                           commit_select)
 from repro_torch.models.mamba import MambaBlock
 from repro_torch.models.module import Embedding, RMSNorm
-from repro_torch.models.moe import DenseMLP
+from repro_torch.models.moe import DenseMLP, MoEMLP
 
 _QUANT_MODES = {
     "float": QuantConfig.float_baseline,
@@ -90,18 +94,17 @@ class MinGRUMixer(nn.Module):
 
 
 def check_ported(spec: LayerSpec):
-    """Raise for a layer the port cannot build yet (MoE MLPs)."""
-    if spec.kind not in (MINGRU, ATTN, ATTN_LOCAL, MLA, MAMBA) or spec.moe:
+    """Raise for a layer kind the port cannot build."""
+    if spec.kind not in (MINGRU, ATTN, ATTN_LOCAL, MLA, MAMBA):
         raise NotImplementedError(
-            f"layer kind {spec.kind!r} (moe={spec.moe}) is not ported yet: "
-            "the port runs minGRU, GQA, MLA and Mamba layers with dense "
-            "MLPs")
+            f"layer kind {spec.kind!r} is not ported yet: the port runs "
+            "minGRU, GQA, MLA and Mamba layers")
 
 
 class DecoderLayer(nn.Module):
-    """pre-norm mixer + residual, then pre-norm dense MLP + residual
-    (``transformer.DecoderLayer``); Mamba layers of a pure-SSM stack
-    (falcon-mamba) have no MLP (d_ff = 0)."""
+    """pre-norm mixer + residual, then pre-norm MLP (dense or MoE) +
+    residual (``transformer.DecoderLayer``); Mamba layers of a pure-SSM
+    stack (falcon-mamba) have no MLP (d_ff = 0)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *,
                  dtype=torch.float32, device=None):
@@ -119,18 +122,32 @@ class DecoderLayer(nn.Module):
                                       **kw)
         self.norm1 = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
         d_ff = spec.d_ff or cfg.d_ff
-        self.mlp = DenseMLP(cfg.d_model, d_ff, **kw) if d_ff else None
+        if spec.moe:
+            if cfg.moe is None:
+                raise ValueError(f"{cfg.name}: an moe=True layer needs "
+                                 "ModelConfig.moe")
+            self.mlp = MoEMLP(cfg.d_model, cfg.moe, **kw)
+        else:
+            self.mlp = DenseMLP(cfg.d_model, d_ff, **kw) if d_ff else None
         self.norm2 = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw) \
-            if d_ff else None
+            if self.mlp is not None else None
 
     def reset_parameters(self, generator=None):
         self.mixer.reset_parameters(generator)
         if self.mlp is not None:
             self.mlp.reset_parameters(generator)
 
-    def _mlp_tail(self, x):
+    def _mlp_tail(self, x, route="train"):
+        """Residual MLP tail; ``route`` picks an MoE MLP's dispatch path
+        (pooled for training, per-request prefill, gather-GEMM decode
+        under ``dispatch="auto"``) and its aux loss is dropped here."""
         if self.mlp is not None:
-            x = x + self.mlp(self.norm2(x))
+            h = self.norm2(x)
+            if isinstance(self.mlp, MoEMLP):
+                m, _aux = self.mlp(h, route=route)
+            else:
+                m = self.mlp(h)
+            x = x + m
         return x
 
     def forward(self, x, positions=None):
@@ -141,12 +158,12 @@ class DecoderLayer(nn.Module):
 
     def decode(self, x, cache, pos=None):
         out, cache = self.mixer.decode(self.norm1(x), cache, pos)
-        return self._mlp_tail(x + out), cache
+        return self._mlp_tail(x + out, "decode"), cache
 
     def prefill(self, x, cache, pos0=0, length=None):
         out, cache = self.mixer.prefill(self.norm1(x), cache, pos0,
                                         length=length)
-        return self._mlp_tail(x + out), cache
+        return self._mlp_tail(x + out, "prefill"), cache
 
     def paged(self) -> bool:
         """True when this layer's cache lives in a shared page pool under
@@ -155,17 +172,30 @@ class DecoderLayer(nn.Module):
         return isinstance(self.mixer, (GQAAttention, MLAAttention))
 
     def decode_paged(self, x, cache, pos, bt, active, length, rows=None):
-        """Slot-batched decode against this attention layer's page pool."""
-        h, cache = self.mixer.decode_paged(self.norm1(x), cache, pos, bt,
-                                           active, length, rows=rows)
-        return self._mlp_tail(x + h), cache
+        """Slot-batched decode: an attention layer reads and writes its
+        page pool (the active slots' K/V, in place); an O(1)-state mixer
+        takes its ordinary batched decode and returns every slot's new
+        carry (the caller keeps the inactive slots' old ones)."""
+        h = self.norm1(x)
+        if self.paged():
+            h, cache = self.mixer.decode_paged(h, cache, pos, bt, active,
+                                               length, rows=rows)
+        else:
+            h, cache = self.mixer.decode(h, cache, pos)
+        return self._mlp_tail(x + h, "decode"), cache
 
     def verify_paged(self, x, cache, pos, bt, active, length):
         """K speculative tokens x (B, K, D) through this attention layer
-        without writing its pool: (y, the mixer's verify block)."""
+        without writing its pool: (y, the mixer's verify block).  An
+        O(1)-state mixer's carry cannot be rolled back to an accepted
+        prefix, so only attention layers verify."""
+        if not self.paged():
+            raise NotImplementedError(
+                "speculative verify requires attention mixers; "
+                f"{type(self.mixer).__name__} keeps O(1) state")
         h, block = self.mixer.verify_paged(self.norm1(x), cache, pos, bt,
                                            active, length)
-        return self._mlp_tail(x + h), block
+        return self._mlp_tail(x + h, "decode"), block
 
 
 class DecoderLM(nn.Module):
@@ -288,18 +318,32 @@ class DecoderLM(nn.Module):
         """Stack positions whose cache lives in the page pool."""
         return {j for j, layer in enumerate(self.layers) if layer.paged()}
 
-    def paged_cache_spec(self, num_pages, page_size, dtype=torch.bfloat16):
-        """Per layer, {leaf: (shape, dtype)} of its shared page pool (no
-        slot axis: the engine hands out pages)."""
-        return [layer.mixer.paged_cache_spec(num_pages, page_size, dtype)
-                for layer in self.layers]
+    def paged_cache_spec(self, num_pages, page_size, dtype=torch.bfloat16,
+                         batch=None):
+        """Per layer, {leaf: (shape, dtype)}: an attention layer's shared
+        page pool (no slot axis: the engine hands out pages); an
+        O(1)-state layer of a hybrid stack keeps its per-slot carry of
+        ``batch`` slots, as in the dense layout."""
+        spec = []
+        for layer in self.layers:
+            if layer.paged():
+                spec.append(layer.mixer.paged_cache_spec(num_pages,
+                                                         page_size, dtype))
+                continue
+            if batch is None:
+                raise ValueError(f"{self.cfg.name}: the per-slot leaves of "
+                                 "its O(1)-state layers need batch")
+            spec.append({k: (tuple(v.shape), v.dtype) for k, v in
+                         layer.mixer.init_cache(batch, 0, dtype).items()})
+        return spec
 
-    def init_paged_cache(self, num_pages, page_size, dtype=torch.bfloat16):
-        """Zero pools of :meth:`paged_cache_spec`."""
+    def init_paged_cache(self, num_pages, page_size, dtype=torch.bfloat16,
+                         batch=None):
+        """Zero leaves of :meth:`paged_cache_spec`."""
         return [{k: torch.zeros(shape, dtype=dt, device=self.device)
                  for k, (shape, dt) in spec.items()}
                 for spec in self.paged_cache_spec(num_pages, page_size,
-                                                  dtype)]
+                                                  dtype, batch)]
 
     def decode_step_paged(self, tokens, cache, pos, bt, active, length,
                           rows=None):
@@ -308,8 +352,10 @@ class DecoderLM(nn.Module):
         tokens: (B, 1); pos: (B,); active: (B,) bool; bt: (B, max_pages)
         block table shared by every layer (each indexes its OWN pool with
         the same page ids); ``length`` = the engine max_len; ``rows`` = the
-        active slots' indices if the caller has them.  Each layer writes
-        only the active slots' K/V, in place.  Returns (logits, cache)."""
+        active slots' indices if the caller has them.  Each attention
+        layer writes only the active slots' K/V, in place; an O(1)-state
+        layer returns every slot's new carry, which the caller merges
+        under ``active``.  Returns (logits, cache)."""
         x = self.embed(tokens).to(self.compute_dtype)
         if rows is None:
             rows = torch.nonzero(active).flatten()

@@ -22,14 +22,17 @@ preemption and fork operations (``snapshot_slot``, ``restore_slot``,
 ``copy_slot``) and the speculative ``verify``.  The mesh part of the
 reference is not ported yet.
 
-  * :class:`DecoderStepModel` — a ``DecoderLM`` of minGRU, GQA or MLA
-    layers, with a dense or (attention stacks) a paged KV layout (see the
-    class).
+  * :class:`DecoderStepModel` — a ``DecoderLM`` of minGRU, GQA, MLA or
+    Mamba layers with dense or MoE MLPs, with a dense or (attention-
+    bearing stacks, hybrid Mamba/attention ones included) a paged KV
+    layout (see the class).
   * :class:`MinimalistStepModel` — the paper's ``MinimalistNetwork``
     streaming frames, optionally through the fused CUDA step kernel on
     exported 2 b codes.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -125,9 +128,15 @@ class DecoderStepModel(StepModel):
         install and the decode write requantizes incrementally.  The
         install and attach code is generic over each layer's leaves (GQA
         ``k``/``v``, MLA ``ckv``/``krope``) and their ``*_scale``
-        siblings.
+        siblings.  In a hybrid stack (jamba) only the attention layers
+        are paged: each O(1)-state (Mamba) layer keeps its per-slot carry
+        leaves, which the decode step merges under ``active``, a fork
+        copies, and a preemption snapshot carries beside the pages.
 
     Pool leaves are updated IN PLACE (the engine's own buffers).
+    ``moe_dispatch`` is None for a dense stack, else the config's MoE
+    dispatch ("auto" routes prefill per request and decode by gather-GEMM,
+    so streams do not depend on co-batched traffic; "pooled" warns).
     """
 
     autoregressive = True
@@ -147,12 +156,16 @@ class DecoderStepModel(StepModel):
                              f"got {kv_layout!r}")
         self.kv_layout = kv_layout
         self.paged = None
+        self._pool = frozenset()
         if kv_layout == "paged":
-            if len(model.paged_layer_names()) != len(model.layers):
+            if not self.positional:
                 raise ValueError(
                     f"{model.cfg.name}: kv_layout='paged' needs an "
-                    "attention stack — O(1)-state stacks have no KV cache "
-                    "to page (serve them dense)")
+                    "attention stack (or a hybrid one) — pure O(1)-state "
+                    "stacks have no KV cache to page (serve them dense)")
+            # stack positions whose cache is a page pool; the others (Mamba
+            # layers of a hybrid stack) keep per-slot carries
+            self._pool = frozenset(model.paged_layer_names())
             # the longest in-cache span any layer keeps: global layers
             # span max_len; a pure sliding-window stack is bounded by its
             # ring, so its page chains never exceed the window
@@ -167,8 +180,8 @@ class DecoderStepModel(StepModel):
             # position p touches — page p//ps for global layers, page
             # (p % L)//ps of each window ring of length L
             ring, has_global = set(), False
-            for layer in model.layers:
-                L = layer.mixer.ring_length(self.max_len)
+            for j in sorted(self._pool):
+                L = model.layers[j].mixer.ring_length(self.max_len)
                 if L < self.max_len:
                     ring.add(int(L))
                 else:
@@ -178,6 +191,16 @@ class DecoderStepModel(StepModel):
             self._has_window = bool(ring)
         self.n_prefill_chunks = 0      # chunks prefilled, for kernel audits
         self._greedy = {}
+        self.moe_dispatch = (model.cfg.moe.dispatch
+                             if any(s.moe for s in model.cfg.layer_specs())
+                             else None)
+        if self.moe_dispatch == "pooled":
+            warnings.warn(
+                f"{model.cfg.name}: dispatch='pooled' pools every token of "
+                "a call into one capacity-limited dispatch — serving "
+                "outputs will vary with concurrent traffic and prefill "
+                "chunking (use 'auto' or 'per_request' for batch-invariant "
+                "routing)", stacklevel=2)
 
     @property
     def device(self):
@@ -215,6 +238,12 @@ class DecoderStepModel(StepModel):
         pages — reject stacks where that is impossible."""
         if self.kv_layout != "paged":
             raise ValueError("prefix caching needs kv_layout='paged'")
+        o1 = sorted(set(range(len(self.model.layers))) - self._pool)
+        if o1:
+            raise ValueError(
+                f"prefix caching needs an all-attention stack: layers "
+                f"{o1} carry O(1) mixer state that does not live in "
+                "pages, so an attached request could not reconstruct it")
         if self._page_cap < self.max_len:
             raise ValueError(
                 "prefix caching needs page chains spanning max_len; a "
@@ -230,46 +259,59 @@ class DecoderStepModel(StepModel):
         src = torch.as_tensor(np.asarray(src), dtype=torch.int64, device=dev)
         dst = torch.as_tensor(np.asarray(dst), dtype=torch.int64, device=dev)
         with torch.inference_mode():
-            for pool in state:
-                for leaf in pool.values():
+            for j in self._pool:
+                for leaf in state[j].values():
                     leaf[dst] = leaf[src]
         return state
 
     # -- preemption and fork ---------------------------------------------
-    # A paged stack of the port is all attention: everything a slot owns
-    # lives in its page chain, which the engine's block table names.
+    # What a slot owns: its page chain in every pool (the engine's block
+    # table names it) and, in a hybrid stack, its row of every per-slot
+    # carry leaf of the O(1)-state layers.
     def copy_slot(self, state, src: int, dst: int):
-        """Fork: the child shares the parent's page chain through the
-        block tables, and a paged stack holds no per-slot leaf to copy."""
-        del src, dst
+        """Fork, in place: the child shares the parent's page chain
+        through the block tables; the per-slot carry rows of the
+        O(1)-state layers are copied from ``src`` to ``dst``."""
+        with torch.inference_mode():
+            for j, sub in enumerate(state):
+                if j not in self._pool:
+                    for leaf in sub.values():
+                        leaf[int(dst)] = leaf[int(src)]
         return state
 
     def snapshot_slot(self, state, slot, pages):
         """Host copy of what slot ``slot`` owns: the rows ``pages`` (its
         chain's physical ids) of every pool leaf — int8 codes AND their
-        scales."""
-        del slot
+        scales — and row ``slot`` of every per-slot carry leaf."""
         if self.kv_layout != "paged":
             raise ValueError("preemption snapshots need kv_layout='paged' "
                              "(page swap is what makes them cheap)")
         pg = torch.as_tensor(np.asarray(pages), dtype=torch.int64,
                              device=self.device)
         with torch.inference_mode():
-            return [{k: v[pg].cpu() for k, v in sub.items()} for sub in state]
+            # copy=True: on a CPU state a carry row would otherwise be a
+            # view that the slot's next occupant overwrites
+            return [{k: (v[pg] if j in self._pool else v[int(slot)]).to(
+                        "cpu", copy=True) for k, v in sub.items()}
+                    for j, sub in enumerate(state)]
 
     def restore_slot(self, state, snap, slot, pages):
         """Inverse of :meth:`snapshot_slot`, in place, under a FRESH page
-        chain ``pages``: reads go through the block table, so the resumed
-        stream sees identical bytes at identical positions."""
-        del slot
+        chain ``pages`` and into slot ``slot``: reads go through the block
+        table, so the resumed stream sees identical bytes at identical
+        positions, and the carries are the snapshot's, not the slot's last
+        occupant's."""
         if self.kv_layout != "paged":
             raise ValueError("preemption restores need kv_layout='paged'")
         pg = torch.as_tensor(np.asarray(pages), dtype=torch.int64,
                              device=self.device)
         with torch.inference_mode():
-            for sub, saved in zip(state, snap):
+            for j, (sub, saved) in enumerate(zip(state, snap)):
                 for k, v in sub.items():
-                    v[pg] = saved[k].to(self.device)
+                    if j in self._pool:
+                        v[pg] = saved[k].to(self.device)
+                    else:
+                        v[int(slot)] = saved[k].to(self.device)
         return state
 
     def seed_cache(self, state, bt_row):
@@ -296,7 +338,8 @@ class DecoderStepModel(StepModel):
     def init_state(self, batch):
         if self.kv_layout == "paged":
             return self.model.init_paged_cache(self.num_pages(batch),
-                                               self.paged.page_size)
+                                               self.paged.page_size,
+                                               batch=batch)
         return self.model.init_cache(batch, self.max_len)
 
     def chunk_for(self, plen: int) -> int:
@@ -353,10 +396,15 @@ class DecoderStepModel(StepModel):
                                        device=dev)
                 rows = torch.as_tensor(np.flatnonzero(active),
                                        dtype=torch.int64, device=dev)
-                # the pools are written in place for the active slots only
-                logits, merged = self.model.decode_step_paged(
+                # the pools are written in place for the active slots only;
+                # per-slot carries (hybrid stacks) take the masked merge
+                logits, new_state = self.model.decode_step_paged(
                     tok_t[:, None], state, pos_t, bt_t, act, self.max_len,
                     rows=rows)
+                merged = [new if j in self._pool
+                          else masked_update(old, new, act)
+                          for j, (old, new) in enumerate(zip(state,
+                                                             new_state))]
             else:
                 logits, new_state = self.model.decode_step(
                     tok_t[:, None], state, pos_t)
@@ -464,13 +512,16 @@ class DecoderStepModel(StepModel):
                                  "rows and its prompt length")
             # padding rows of the wave hold out-of-bounds page ids
             pages = np.asarray(pages)
-            n_pool = next(iter(state[0].values())).shape[0]
+            n_pool = next(iter(state[min(self._pool)].values())).shape[0]
             real = np.flatnonzero(pages[:, 0] < n_pool)
             dev = self.device
             rows = torch.as_tensor(real, dtype=torch.int64, device=dev)
             pg = torch.as_tensor(pages[real], dtype=torch.int64, device=dev)
-            for pool, wave in zip(state, batch_state):
-                self._write_pages(pool, wave, rows, pg, int(plen))
+            for j, (sub, wave) in enumerate(zip(state, batch_state)):
+                if j in self._pool:
+                    self._write_pages(sub, wave, rows, pg, int(plen))
+                else:                      # a hybrid stack's carries
+                    _scatter_slots(sub, wave, slots, 0)
             return state
 
 

@@ -466,7 +466,9 @@ def test_paged_gqa_wrappers_raise_instead_of_falling_back(cuda):
 # at the serving path's shape (positions at and around page edges), a
 # 2048-position chain (every cluster rank gets pages; then pos 0 and 17,
 # where most ranks are empty), gemma3-4b's heads of 256 on a wrapped ring
-# and on one not yet wrapped, and G 8 x hd 128 (two query-row tiles)
+# and on one not yet wrapped, G 8 x hd 128 (two query-row tiles), and
+# qwen3-moe-30b-a3b's decode shape (32 query heads over 4 KV heads of 128,
+# cache 512: chip_smoke's rows 5d/6d)
 PAGED_MODEL_CASES = [
     (4, 15, 5, 64, 16, 256, None, [0, 15, 16, 17]),
     (4, 15, 5, 64, 16, 256, None, [200, 255, 17, 0]),
@@ -475,6 +477,8 @@ PAGED_MODEL_CASES = [
     (4, 8, 4, 256, 16, 1024, 1024, [4095, 3000, 1500, 1023]),
     (4, 8, 4, 256, 16, 1024, 1024, [1022, 500, 17, 0]),
     (4, 16, 2, 128, 16, 256, None, [255, 100, 31, 0]),
+    (4, 32, 4, 128, 16, 512, None, [511, 511, 511, 511]),
+    (4, 32, 4, 128, 16, 512, None, [511, 300, 17, 0]),
 ]
 
 
@@ -1820,3 +1824,34 @@ def test_mamba_serve_fused_against_xla(cuda):
             last, _ = sm.prefill(ctx)
             top2 = torch.topk(last[0, :base.vocab].float(), 2).values
             assert (top2[0] - top2[1]).item() <= 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch,route", [
+    ("pooled", "train"), ("per_request", "prefill"), ("auto", "prefill"),
+    ("auto", "decode")])
+def test_moe_mlp_on_cuda_matches_its_cpu_run(cuda, dispatch, route):
+    """MoEMLP (fp32, drops at capacity 0.5 on the pooled path, a shared
+    expert) on the card against its own CPU run on the same weights and
+    inputs: expert routing and dropped_frac equal, outputs within the
+    reference's bounds (atol 1e-5, rtol 1e-4); no host sync is needed
+    for it (the dispatch selects with a spare row, not a boolean mask)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import MoEMLP
+
+    moe = MoEConfig(n_experts=16, top_k=4, d_ff_expert=64, n_shared=1,
+                    capacity_factor=0.5, dispatch=dispatch)
+    cpu = MoEMLP(128, moe)
+    torch.manual_seed(0)
+    cpu.reset_parameters()
+    dev = MoEMLP(128, moe, device=cuda)
+    dev.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 1 if route == "decode" else 40, 128)
+    with torch.no_grad():
+        want, wa = cpu(x, route=route)
+        got, ga = dev(x.to(cuda), route=route)
+        _g, ids, _p = dev._route(x.reshape(-1, 128).to(cuda))
+        _g, wids, _p = cpu._route(x.reshape(-1, 128))
+    assert torch.equal(ids.cpu(), wids)
+    assert ga["dropped_frac"].item() == wa["dropped_frac"].item()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)

@@ -4,9 +4,9 @@ against the reference's ``DecoderLM(cfg, scan_layers=False)`` run
 eagerly, on the same weights through the bridge.
 
 The LM is ``reduced(DEEPSEEK_V3_671B)`` with two dense MLA head layers
-and no pattern layers, built the same way in both packages: the
-reference's ``deepseek-v3-671b-smoke`` carries MoE layers, which the port
-does not have yet.
+and no pattern layers, built the same way in both packages, so the MLA
+comparison stands apart from the MoE layers of ``deepseek-v3-671b-smoke``
+(held in tests/test_torch_moe.py and tests/test_torch_serve_moe.py).
 
 Tolerances: the module in fp32 at 1e-5 (rope, einsums and softmax round
 differently in the two frameworks); the bf16 module steps and LMs at the
@@ -81,21 +81,36 @@ def test_config_is_the_reference_one():
 
 
 def test_moe_layers_are_refused_before_allocation():
-    """The full config keeps its MoE layers, which the port refuses with
-    its own message before it allocates anything (the full model would
-    need terabytes)."""
-    for name in ("deepseek-v3-671b", "deepseek-v3-671b-smoke"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(get_config(name), device="meta")
+    """(The name is kept from when the port refused MoE layers.)  The full
+    config now builds with its 58 MoE layers, on the meta device (the
+    real one needs terabytes): 671 B parameters; its smoke build has the
+    reference's layer specs, MoE layers included."""
+    from repro.configs import get_config as jget
+    from repro_torch.models.moe import MoEMLP
+    cfg = get_config("deepseek-v3-671b")
+    model = build_model(cfg, device="meta")
+    moe = [isinstance(layer.mlp, MoEMLP) for layer in model.layers]
+    assert moe == [False] * 3 + [True] * 58
+    assert round(sum(p.numel() for p in model.parameters()) / 1e9) == 671
+    assert model.layers[3].mlp.shared is not None
+    smoke = build_model(get_config("deepseek-v3-671b-smoke"), device="cpu")
+    want = jget("deepseek-v3-671b-smoke").layer_specs()
+    assert [(s.kind, s.moe, s.d_ff) for s in smoke.cfg.layer_specs()] == \
+        [(s.kind, s.moe, s.d_ff) for s in want]
+    assert [isinstance(layer.mlp, MoEMLP) for layer in smoke.layers] == \
+        [s.moe for s in want]
 
 
-def test_launch_serve_refuses_moe_arch():
+def test_launch_serve_refuses_moe_arch(capsys):
+    """(The name is kept from when the launcher refused MoE archs.)  The
+    launcher now serves deepseek-v3-671b's smoke stack, MoE layers
+    included, from paged latent pools on the CPU."""
     from repro_torch.launch import serve
-    for arch in (["--arch", "deepseek-v3-671b"],
-                 ["--arch", "deepseek-v3-671b", "--smoke"]):
-        with pytest.raises(NotImplementedError, match="moe=True"):
-            serve.main(arch + ["--device", "cpu", "--kv-layout", "paged",
-                               "--requests", "1", "--gen", "1"])
+    done = serve.main(["--arch", "deepseek-v3-671b", "--smoke", "--device",
+                       "cpu", "--kv-layout", "paged", "--requests", "1",
+                       "--gen", "1"])
+    assert len(done) == 1 and len(done[0].tokens) >= 1
+    assert "engine (cpu): 1 requests" in capsys.readouterr().out
 
 
 def test_forward_matches_reference():

@@ -134,11 +134,13 @@ def test_decay_mask_follows_the_reference_tree():
                                    atol=1e-7, rtol=1e-6, err_msg=n)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m-smoke", "gemma3-4b-smoke"])
+@pytest.mark.parametrize("arch", ["smollm-360m-smoke", "gemma3-4b-smoke",
+                                  "qwen3-moe-30b-a3b-smoke"])
 def test_decay_mask_of_attention_lms_follows_the_reference_tree(arch):
     """The attention LMs: the reference scans the repeated pattern unit,
-    so every leaf of those layers (wq, wk, wv, wo, the MLP weights and the
-    norm scales) is stacked and decayed; gemma3's tail layers are not
+    so every leaf of those layers (wq, wk, wv, wo, the MLP weights — the
+    MoE router and expert stacks of qwen3-moe too — and the norm scales)
+    is stacked and decayed; gemma3's tail layers are not
     scanned, so their 1-D norm scales are not decayed, nor is final_norm.
     Every port parameter's flag equals ``leaf.ndim >= 2`` of the
     reference leaf the bridge loads it from, and one step with zero grads

@@ -10,9 +10,9 @@ kernel in interpret mode off the TPU.
 
 The MLA stack is the dense smoke one of tests/test_torch_mla.py
 (``reduced(DEEPSEEK_V3_671B)`` with two dense MLA layers, built the same
-way in both packages), named ``deepseek-v3-671b-dense-smoke`` here: the
-reference's ``deepseek-v3-671b-smoke`` carries MoE layers, which the port
-does not have yet."""
+way in both packages), named ``deepseek-v3-671b-dense-smoke`` here; the
+MoE stack ``deepseek-v3-671b-smoke`` is served in
+tests/test_torch_serve_moe.py."""
 import dataclasses
 
 import jax
