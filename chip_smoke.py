@@ -18,7 +18,10 @@ Phases, each fatal on failure:
                fp32 queries held to fp64 sums at 2e-6); fused_ssm_fwd
                from a carried state with the final state written out (the
                form mamba_serve's prefill calls) at its chunk shape and an
-               odd tail.
+               odd tail, the chunk shape timed; paged_gqa(_q8) at
+               stablelm-12b's and mistral-large-123b's decode shapes and
+               flash_fwd/flash_bwd at whisper-small's and llava-next-34b's
+               training shapes (PAGED_MODEL_ROWS, FLASH_MODEL_ROWS).
   3. lm     — serve full-width minimalist-lm-360m (random weights from a
                seed) through ServeEngine: 8 greedy requests, 4 slots,
                prefill through the linear_scan kernel; then the same
@@ -126,7 +129,33 @@ Phases, each fatal on failure:
                smoke: Mamba layers through fused_ssm_fwd beside paged
                attention) dense, paged gather (streams bitwise the dense
                ones) and paged kernel (margin rule).
- 15. imc     — the paper's IMC projection (Eq. 6) through its entry point
+ 15. whisper — full-width whisper-small (12 + 12 layers, seeded weights,
+               1500 stub frame embeddings x 0.1): 10 AdamW steps through
+               Trainer at batch 4 x 448 decoder tokens with
+               attention_impl="flash" (every decoder layer launches the
+               flash kernels once a step on the tc route), the first
+               step's loss and gradient norm held to "naive" on the same
+               weights (|dloss| <= 2e-2, norms within 2 %); then 4 requests
+               (output projections x32) encoded once into the cross-K/V
+               cache by init_cache(frame_embeds=...) and decoded greedily
+               for 64 tokens from a dense self-cache, every choice equal to
+               the teacher-forced full forward's where its top-2 margin is
+               > 0.1.
+ 16. vlm     — full-width llava-next-34b cut to 4 of its 60 layers (seeded
+               weights; fp32 AdamW state of all 60 would be 550 GB): 5 AdamW
+               steps at batch 2, 576 seeded patch embeddings before 512
+               tokens, through flash (tc route), the first step held to
+               naive as in whisper; peak memory under 70 GiB.
+ 17. stablelm_serve — full-width stablelm-12b, all 40 layers (48.6 GB of
+               fp32 weights, output projections x32) through build_engine:
+               8 greedy requests (prompts 64-512, 32 new tokens), 4 slots,
+               page 16: (a) bf16 pages through paged_gqa at head dim 160
+               (its scalar route), (b) the gather read, (a) against (b)
+               under the margin rule, (c) int8 pages through paged_gqa_q8;
+               one bf16 decode step eager against graph replay (idle
+               share) and its device time split between attention, the
+               MLPs and the rest (one profiler window).
+ 18. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
                against its plain version, and Eq. 6's all-ones and
@@ -501,7 +530,8 @@ def phase_kernels(torch, dev):
     rows.update(_kernel_rows_ssm(torch, dev, g))
     rows.update(_kernel_rows_mla(torch, dev, g))
     rows.update(_kernel_rows_imc(torch, dev, g))
-    _ssm_carry_against_plain(torch, dev, g)
+    rows["fused_ssm_fwd"].update(_ssm_carry_against_plain(torch, dev, g))
+    _kernel_rows_model_shapes(torch, dev, rows)
     return rows
 
 
@@ -549,93 +579,196 @@ PAGED_ROWS = [
 ]
 
 
-def _kernel_rows_paged(torch, dev, g):
-    """paged_gqa and paged_gqa_q8 at PAGED_ROWS against the plain version;
+def _paged_row(torch, dev, g, q8, label, B, H, KV, hd, length, window,
+               pos):
+    """paged_gqa (or paged_gqa_q8) at one shape against the plain version;
     kernel (graph replay and eager), plain and SDPA times and the byte
-    bound of each."""
+    bound.  Returns the row's numbers."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
 
-    rows = {}
     ps = 16
+    name = "paged_gqa_q8" if q8 else "paged_gqa"
+    kern = pa_ops.paged_gqa_q8_kernel if q8 else pa_ops.paged_gqa_kernel
+    q, pk, pv, sc, bt, pos_t = _paged_case(
+        torch, dev, g, B=B, H=H, KV=KV, hd=hd, ps=ps, length=length,
+        pos=pos, window=window, num_pages=2 * B * (-(-length // ps)),
+        q8=q8)
+    kw = dict(length=length, window=window)
+    got = kern(q, pk, pv, *sc, bt, pos_t, **kw)
+    sk = dict(zip(("k_scale", "v_scale"), sc))
+    want = pa_ref.paged_gqa_ref(q, pk, pv, bt, pos_t, **kw, **sk)
+    torch.cuda.synchronize()
+    # one bf16 ulp of the output (of the larger magnitude), plus the fp32
+    # bound 2e-6 where cancellation leaves it near zero: both round fp32
+    # results within 2e-6 of each other to bf16
+    n_bad, err = _past_bf16_ulp(torch, got, want)
+    tag = (f"{name} {label} (B {B}, H {H}, KV {KV}, hd {hd}, page {ps}, "
+           f"length {length}, window {window}) bf16 q, "
+           f"{pa_ops.gqa_route(hd, 1 if q8 else 2)} route")
+    if n_bad:
+        fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
+             f"(max {err})")
+
+    def kernel():
+        kern(q, pk, pv, *sc, bt, pos_t, **kw)
+    ms = device_ms(torch, kernel, 200)
+    call_ms = eager_ms(torch, kernel, 200)
+    plain_ms = device_ms(torch, lambda: pa_ref.paged_gqa_ref(
+        q, pk, pv, bt, pos_t, **kw, **sk), 20)
+    # yardstick the port never calls: SDPA over the dense (dequantized)
+    # view of the same chains, gathered and expanded to H heads outside
+    # the timed region
+    L = length
+    if q8:
+        kd = pa_ref.gather_dequant(pk, sc[0], bt, L, torch.bfloat16)
+        vd = pa_ref.gather_dequant(pv, sc[1], bt, L, torch.bfloat16)
+    else:
+        kd = pa_ref.gather_pages(pk, bt, L)
+        vd = pa_ref.gather_pages(pv, bt, L)
+    kd = kd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
+    vd = vd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
+    _kp, valid = pa_ref.paged_positions(pos_t, L, window)
+    mask = valid[:, None, None, :]
+    qd = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = device_ms(
+        torch, lambda: sdpa(qd, kd, vd, attn_mask=mask), 200)
+    del kd, vd
+    # bytes and flops that this run's positions need: each row's live
+    # pages (the window caps them), q and out, the block table
+    flops = bytes_ = 0
+    for p in pos:
+        f, b = pa_ops.cost_model(
+            1, H, KV, hd, live_tokens=p + 1, page_size=ps,
+            dtype_bytes=1 if q8 else 2, window=window,
+            scale_bytes=4 if q8 else 0)
+        flops, bytes_ = flops + f, bytes_ + b
+    b_ms, by = bound(bytes_, flops)
+    print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp + 2e-6) "
+          f"kernel {ms:.5f} ms (eager call {call_ms:.5f} ms), plain "
+          f"{plain_ms:.4f} ms, library (SDPA on the dense view) "
+          f"{library_ms:.5f} ms, bound {b_ms:.5f} ms ({by}, "
+          f"{bytes_ / 1e6:.1f} MB; {b_ms / ms:.1%} of it)", flush=True)
+    return dict(max_abs_err=err, ms=ms, eager_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+
+
+def _prefixed(label, row):
+    """A shape's row numbers as extra keys of a kernel's JSON row."""
+    return {f"{label}_{k}": row[k] for k in (
+        "ms", "eager_ms", "plain_ms", "bound_ms", "library_ms",
+        "max_abs_err")}
+
+
+def _kernel_rows_paged(torch, dev, g):
+    """paged_gqa and paged_gqa_q8 at PAGED_ROWS against the plain version
+    (_paged_row)."""
+    rows = {}
     for q8 in (False, True):
         name = "paged_gqa_q8" if q8 else "paged_gqa"
-        kern = pa_ops.paged_gqa_q8_kernel if q8 else pa_ops.paged_gqa_kernel
-        for label, B, H, KV, hd, length, window, pos in PAGED_ROWS:
-            q, pk, pv, sc, bt, pos_t = _paged_case(
-                torch, dev, g, B=B, H=H, KV=KV, hd=hd, ps=ps, length=length,
-                pos=pos, window=window, num_pages=2 * B * (-(-length // ps)),
-                q8=q8)
-            kw = dict(length=length, window=window)
-            got = kern(q, pk, pv, *sc, bt, pos_t, **kw)
-            sk = dict(zip(("k_scale", "v_scale"), sc))
-            want = pa_ref.paged_gqa_ref(q, pk, pv, bt, pos_t, **kw, **sk)
-            torch.cuda.synchronize()
-            # one bf16 ulp of the output (of the larger magnitude), plus
-            # the fp32 bound 2e-6 where cancellation leaves it near zero:
-            # both round fp32 results within 2e-6 of each other to bf16
-            n_bad, err = _past_bf16_ulp(torch, got, want)
-            tag = (f"{name} {label} (B {B}, H {H}, KV {KV}, hd {hd}, page "
-                   f"{ps}, length {length}, window {window}) bf16 q")
-            if n_bad:
-                fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
-                     f"(max {err})")
-
-            def kernel():
-                kern(q, pk, pv, *sc, bt, pos_t, **kw)
-            ms = device_ms(torch, kernel, 200)
-            call_ms = eager_ms(torch, kernel, 200)
-            plain_ms = device_ms(torch, lambda: pa_ref.paged_gqa_ref(
-                q, pk, pv, bt, pos_t, **kw, **sk), 20)
-            # yardstick the port never calls: SDPA over the dense
-            # (dequantized) view of the same chains, gathered and expanded
-            # to H heads outside the timed region
-            L = length
-            if q8:
-                kd = pa_ref.gather_dequant(pk, sc[0], bt, L, torch.bfloat16)
-                vd = pa_ref.gather_dequant(pv, sc[1], bt, L, torch.bfloat16)
-            else:
-                kd = pa_ref.gather_pages(pk, bt, L)
-                vd = pa_ref.gather_pages(pv, bt, L)
-            kd = kd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
-            vd = vd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
-            _kp, valid = pa_ref.paged_positions(pos_t, L, window)
-            mask = valid[:, None, None, :]
-            qd = q[:, :, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = device_ms(
-                torch, lambda: sdpa(qd, kd, vd, attn_mask=mask), 200)
-            del kd, vd
-            # bytes and flops that this run's positions need: each row's
-            # live pages (the window caps them), q and out, the block table
-            flops = bytes_ = 0
-            for p in pos:
-                f, b = pa_ops.cost_model(
-                    1, H, KV, hd, live_tokens=p + 1, page_size=ps,
-                    dtype_bytes=1 if q8 else 2, window=window,
-                    scale_bytes=4 if q8 else 0)
-                flops, bytes_ = flops + f, bytes_ + b
-            b_ms, by = bound(bytes_, flops)
-            print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp "
-                  f"+ 2e-6) "
-                  f"kernel {ms:.5f} ms (eager call {call_ms:.5f} ms), plain "
-                  f"{plain_ms:.4f} ms, library (SDPA on the dense view) "
-                  f"{library_ms:.5f} ms, bound {b_ms:.5f} ms ({by}, "
-                  f"{bytes_ / 1e6:.1f} MB; {b_ms / ms:.1%} of it)",
-                  flush=True)
+        for label, *shape in PAGED_ROWS:
+            row = _paged_row(torch, dev, g, q8, label, *shape)
             if label == "path":
-                rows[name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, library_ms=library_ms)
+                row.pop("eager_ms")
+                rows[name] = row
             elif label != "ring":
-                rows[name].update({f"{label}_ms": ms,
-                                   f"{label}_eager_ms": call_ms,
-                                   f"{label}_plain_ms": plain_ms,
-                                   f"{label}_bound_ms": b_ms,
-                                   f"{label}_library_ms": library_ms,
-                                   f"{label}_max_abs_err": err})
-            del q, pk, pv, sc, bt, pos_t, got, want
+                rows[name].update(_prefixed(label, row))
     return rows
+
+
+def _flash_row(torch, dev, g, B, H, KV, S, D, window):
+    """flash_fwd and flash_bwd at one shape (causal, bf16) against their
+    plain versions (the bounds of _kernel_rows_flash), with kernel, plain
+    and SDPA times and the bounds.  Returns (forward row, backward
+    row)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf = torch.bfloat16
+    q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(bf)
+    k = (torch.randn(B, KV, S, D, device=dev, generator=g) * 0.5).to(bf)
+    v = torch.randn(B, KV, S, D, device=dev, generator=g).to(bf)
+    do = torch.randn(B, H, S, D, device=dev, generator=g).to(bf)
+    tag = (f"(B {B}, H {H}, KV {KV}, S {S}, D {D}, causal, window "
+           f"{window}) bf16, {fa_ops.route(bf, D)} route")
+    out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, window)
+    want, want_lse = fa_ref.flash_attention_ref(q, k, v, True, window)
+    torch.cuda.synchronize()
+    n_bad, err = _past_bf16_ulp(torch, out, want)
+    lse_diff = (lse - want_lse).abs()
+    lse_err = lse_diff.max().item()
+    if n_bad or not (lse_diff <= 2e-5 + 2e-5 * want_lse.abs()).all():
+        fail(f"flash_fwd {tag}: {n_bad} outputs past one bf16 ulp + "
+             f"2e-6 (max {err}), max |lse - plain| {lse_err}")
+    grads = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, window)
+    wgrads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True,
+                                            window, acc=torch.float64)
+    torch.cuda.synchronize()
+    gerr = 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), grads, wgrads):
+        n_bad, e = _past_bf16_ulp(torch, a, w)
+        if n_bad:
+            fail(f"flash_bwd {tag}: {n_bad} {name} entries past one bf16 "
+                 f"ulp + 2e-6 (max |diff| {e})")
+        gerr = max(gerr, e)
+
+    def fwd():
+        fa_ops.flash_fwd_kernel(q, k, v, True, window)
+
+    def bwd():
+        fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, window)
+    f_ms, f_call = device_ms(torch, fwd, 20), eager_ms(torch, fwd, 20)
+    b_ms, b_call = device_ms(torch, bwd, 10), eager_ms(torch, bwd, 10)
+    f_plain = device_ms(torch, lambda: fa_ref.flash_attention_ref(
+        q, k, v, True, window), 2)
+    b_plain = device_ms(torch, lambda: fa_ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, True, window), 2)
+    # yardstick the port never calls: SDPA (GQA), causal, or with a
+    # boolean window mask; its backward alone, timed on a retained
+    # autograd graph
+    if window is None:
+        kw = dict(is_causal=True, enable_gqa=True)
+    else:
+        kw = dict(attn_mask=fa_ref.attend_mask(S, True, window, dev),
+                  enable_gqa=True)
+    f_lib = device_ms(torch, lambda: sdpa(q, k, v, **kw), 20)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    ol = sdpa(ql, kl, vl, **kw)
+    b_lib = eager_ms(torch, lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), do, retain_graph=True), 10)
+    del ol, ql, kl, vl
+    # the reference's cost model: the forward is the inference call; the
+    # backward's flops are the training call's less the forward's, its
+    # bytes each input (q, k, v, out, do, lse) read and each gradient
+    # written once
+    ff, fb = fa_ops.cost_model(B, H, KV, S, D, window=window, train=False)
+    tf, _ = fa_ops.cost_model(B, H, KV, S, D, window=window, train=True)
+    el = q.element_size()
+    bb = 2 * B * (H + 2 * KV) * S * D * el + 2 * B * H * S * D * el \
+        + B * H * S * 4
+    fb_ms, f_by = bound(fb, ff, PEAK_BF16_TENSOR_FLOPS)
+    bb_ms, b_by = bound(bb, tf - ff, PEAK_BF16_TENSOR_FLOPS)
+    print(f"kernel flash_fwd {tag}: max_abs_err {err:.3g} (tol one bf16 "
+          f"ulp + 2e-6; lse {lse_err:.3g}) kernel {f_ms:.4f} ms (eager "
+          f"call {f_call:.4f} ms), plain {f_plain:.4f} ms, library (SDPA) "
+          f"{f_lib:.4f} ms, bound {fb_ms:.5f} ms ({f_by}, bf16 tensor "
+          f"peak; {ff / 1e9:.1f} GFLOP, {fb / 1e6:.1f} MB)", flush=True)
+    print(f"kernel flash_bwd {tag}: max_abs_err {gerr:.3g} (tol one bf16 "
+          f"ulp + 2e-6) kernels dq+dkv {b_ms:.4f} ms (eager call "
+          f"{b_call:.4f} ms), plain {b_plain:.4f} ms, library (SDPA "
+          f"backward on a retained graph) {b_lib:.4f} ms, bound "
+          f"{bb_ms:.5f} ms ({b_by}, bf16 tensor peak; "
+          f"{(tf - ff) / 1e9:.1f} GFLOP, {bb / 1e6:.1f} MB)", flush=True)
+    del q, k, v, do, out, lse, want, want_lse, grads, wgrads
+    torch.cuda.empty_cache()
+    return (dict(max_abs_err=err, ms=f_ms, eager_ms=f_call,
+                 plain_ms=f_plain, bound_ms=fb_ms, bound_by=f_by,
+                 library_ms=f_lib),
+            dict(max_abs_err=gerr, ms=b_ms, eager_ms=b_call,
+                 plain_ms=b_plain, bound_ms=bb_ms, bound_by=b_by,
+                 library_ms=b_lib))
 
 
 def _kernel_rows_flash(torch, dev, g):
@@ -653,110 +786,56 @@ def _kernel_rows_flash(torch, dev, g):
     magnitude, so where a key's terms sum to 20 (the first keys, which
     every query sees) two fp32 orders can part by more than 2e-6 while
     each is within it of the exact sum."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
     # the path shape; gemma3-4b's local layers; stablelm-12b's 32/8 heads
     # of 160 (simt route at its own compiled head dim)
     for B, H, KV, S, D, window in [(4, 15, 5, 2048, 64, None),
                                    (1, 8, 4, 2048, 256, 1024),
                                    (1, 32, 8, 1024, 160, None)]:
-        path = (B, H, D) == (4, 15, 64)
-        bf = torch.bfloat16
-        q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(bf)
-        k = (torch.randn(B, KV, S, D, device=dev, generator=g) * 0.5).to(bf)
-        v = torch.randn(B, KV, S, D, device=dev, generator=g).to(bf)
-        do = torch.randn(B, H, S, D, device=dev, generator=g).to(bf)
-        tag = (f"(B {B}, H {H}, KV {KV}, S {S}, D {D}, causal, window "
-               f"{window}) bf16, {fa_ops.route(bf, D)} route")
-        out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, window)
-        want, want_lse = fa_ref.flash_attention_ref(q, k, v, True, window)
-        torch.cuda.synchronize()
-        n_bad, err = _past_bf16_ulp(torch, out, want)
-        lse_diff = (lse - want_lse).abs()
-        lse_err = lse_diff.max().item()
-        if n_bad or not (lse_diff <= 2e-5 + 2e-5 * want_lse.abs()).all():
-            fail(f"flash_fwd {tag}: {n_bad} outputs past one bf16 ulp + "
-                 f"2e-6 (max {err}), max |lse - plain| {lse_err}")
-        grads = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, window)
-        wgrads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True,
-                                                window, acc=torch.float64)
-        torch.cuda.synchronize()
-        gerr = 0.0
-        for name, a, w in zip(("dq", "dk", "dv"), grads, wgrads):
-            n_bad, e = _past_bf16_ulp(torch, a, w)
-            if n_bad:
-                fail(f"flash_bwd {tag}: {n_bad} {name} entries past one bf16 "
-                     f"ulp + 2e-6 (max |diff| {e})")
-            gerr = max(gerr, e)
-
-        def fwd():
-            fa_ops.flash_fwd_kernel(q, k, v, True, window)
-
-        def bwd():
-            fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, window)
-        f_ms, f_call = device_ms(torch, fwd, 20), eager_ms(torch, fwd, 20)
-        b_ms, b_call = device_ms(torch, bwd, 10), eager_ms(torch, bwd, 10)
-        f_plain = device_ms(torch, lambda: fa_ref.flash_attention_ref(
-            q, k, v, True, window), 2)
-        b_plain = device_ms(torch, lambda: fa_ref.flash_attention_bwd_ref(
-            q, k, v, out, lse, do, True, window), 2)
-        # yardstick the port never calls: SDPA (GQA), causal, or with a
-        # boolean window mask; its backward alone, timed on a retained
-        # autograd graph
-        if window is None:
-            kw = dict(is_causal=True, enable_gqa=True)
-        else:
-            kw = dict(attn_mask=fa_ref.attend_mask(S, True, window, dev),
-                      enable_gqa=True)
-        f_lib = device_ms(torch, lambda: sdpa(q, k, v, **kw), 20)
-        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-        ol = sdpa(ql, kl, vl, **kw)
-        b_lib = eager_ms(torch, lambda: torch.autograd.grad(
-            ol, (ql, kl, vl), do, retain_graph=True), 10)
-        del ol, ql, kl, vl
-        # the reference's cost model: the forward is the inference call;
-        # the backward's flops are the training call's less the forward's,
-        # its bytes each input (q, k, v, out, do, lse) read and each
-        # gradient written once
-        ff, fb = fa_ops.cost_model(B, H, KV, S, D, window=window,
-                                   train=False)
-        tf, _ = fa_ops.cost_model(B, H, KV, S, D, window=window, train=True)
-        el = q.element_size()
-        bb = 2 * B * (H + 2 * KV) * S * D * el + 2 * B * H * S * D * el \
-            + B * H * S * 4
-        fb_ms, f_by = bound(fb, ff, PEAK_BF16_TENSOR_FLOPS)
-        bb_ms, b_by = bound(bb, tf - ff, PEAK_BF16_TENSOR_FLOPS)
-        print(f"kernel flash_fwd {tag}: max_abs_err {err:.3g} (tol one bf16 "
-              f"ulp + 2e-6; lse {lse_err:.3g}) kernel {f_ms:.4f} ms (eager "
-              f"call {f_call:.4f} ms), plain {f_plain:.4f} ms, library (SDPA) "
-              f"{f_lib:.4f} ms, bound {fb_ms:.5f} ms ({f_by}, bf16 tensor "
-              f"peak; {ff / 1e9:.1f} GFLOP, {fb / 1e6:.1f} MB)", flush=True)
-        print(f"kernel flash_bwd {tag}: max_abs_err {gerr:.3g} (tol one bf16 "
-              f"ulp + 2e-6) kernels dq+dkv {b_ms:.4f} ms (eager call "
-              f"{b_call:.4f} ms), plain {b_plain:.4f} ms, library (SDPA "
-              f"backward on a retained graph) {b_lib:.4f} ms, bound "
-              f"{bb_ms:.5f} ms ({b_by}, bf16 tensor peak; "
-              f"{(tf - ff) / 1e9:.1f} GFLOP, {bb / 1e6:.1f} MB)", flush=True)
-        if path:
-            rows["flash_fwd"] = dict(
-                max_abs_err=err, ms=f_ms, plain_ms=f_plain, bound_ms=fb_ms,
-                bound_by=f_by, library_ms=f_lib)
-            rows["flash_bwd"] = dict(
-                max_abs_err=gerr, ms=b_ms, plain_ms=b_plain, bound_ms=bb_ms,
-                bound_by=b_by, library_ms=b_lib)
+        fwd, bwd = _flash_row(torch, dev, g, B, H, KV, S, D, window)
+        if (B, H, D) == (4, 15, 64):
+            for r in (fwd, bwd):
+                r.pop("eager_ms")
+            rows["flash_fwd"], rows["flash_bwd"] = fwd, bwd
         elif D == 160:
-            rows["flash_fwd"].update(
-                d160_max_abs_err=err, d160_ms=f_ms, d160_plain_ms=f_plain,
-                d160_bound_ms=fb_ms, d160_library_ms=f_lib)
-            rows["flash_bwd"].update(
-                d160_max_abs_err=gerr, d160_ms=b_ms, d160_plain_ms=b_plain,
-                d160_bound_ms=bb_ms, d160_library_ms=b_lib)
-        del q, k, v, do, out, lse, want, want_lse, grads, wgrads
-        torch.cuda.empty_cache()
+            for name, r in (("flash_fwd", fwd), ("flash_bwd", bwd)):
+                rows[name].update({f"d160_{k}": r[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "library_ms")})
     return rows
+
+
+# the paged and flash calls of the archs the port added last, at the
+# shapes their phases give them: (label, B, H, KV, hd, length, window, pos)
+# of stablelm-12b's decode in phase stablelm_serve (32/8 heads of 160, the
+# scalar route; 4 slots, cache 544 = 512 + 32, page 16) and of
+# mistral-large-123b's heads (96/8 of 128, group 12, the same cache; no
+# phase serves it yet); (label, B, H, KV, S, D) of the decoder's causal
+# self-attention in phase whisper (batch 4, 12/12 heads of 64, 448 tokens)
+# and of phase vlm (llava-next-34b: batch 2, 56/8 heads of 128 over 576
+# patches + 512 tokens), both on the tc route
+PAGED_MODEL_ROWS = [
+    ("stablelm", 4, 32, 8, 160, 544, None, [543] * 4),
+    ("mistral", 4, 96, 8, 128, 544, None, [543] * 4),
+]
+FLASH_MODEL_ROWS = [("whisper", 4, 12, 12, 448, 64),
+                    ("llava", 2, 56, 8, 1088, 128)]
+
+
+def _kernel_rows_model_shapes(torch, dev, rows):
+    """PAGED_MODEL_ROWS and FLASH_MODEL_ROWS against the plain versions
+    (_paged_row, _flash_row), added to ``rows`` under their labels; a
+    generator of their own leaves the other rows' inputs as they were."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    for q8 in (False, True):
+        name = "paged_gqa_q8" if q8 else "paged_gqa"
+        for label, *shape in PAGED_MODEL_ROWS:
+            rows[name].update(_prefixed(label, _paged_row(
+                torch, dev, g, q8, label, *shape)))
+    for label, B, H, KV, S, D in FLASH_MODEL_ROWS:
+        fwd, bwd = _flash_row(torch, dev, g, B, H, KV, S, D, None)
+        rows["flash_fwd"].update(_prefixed(label, fwd))
+        rows["flash_bwd"].update(_prefixed(label, bwd))
 
 
 def _ssm_err_within(name, got, want, atol, rtol):
@@ -774,7 +853,8 @@ def _ssm_carry_against_plain(torch, dev, g):
     prefill chunk (B 1, T 256, d_inner 8192, d_state 16) and at an odd
     tail (T 77): y, the entry states and h_last against the plain version
     from the same h0 at the forward's atol 2e-5 x max|plain| / rtol
-    2e-5."""
+    2e-5; the chunk shape timed too.  Returns its ``carry_*`` numbers for
+    fused_ssm_fwd's JSON row."""
     from repro_torch.kernels.fused_ssm import ops as ssm_ops
     from repro_torch.kernels.fused_ssm import ref as ssm_ref
 
@@ -802,7 +882,32 @@ def _ssm_carry_against_plain(torch, dev, g):
               + " / ".join(f"{w.abs().max().item():.3g}"
                            for w in (yp, entp, want_last))
               + " + 2e-5 rel)", flush=True)
+        if T == 256:
+            ins = (dt, x, Bm, Cm, A)
+
+            def kernel():
+                ssm_ops.fused_ssm_fwd_kernel(*ins, h0=h0, h_last=h_last)
+            ms = device_ms(torch, kernel, 50)
+            call_ms = eager_ms(torch, kernel, 50)
+            plain_ms = device_ms(torch, lambda: ssm_ref.fused_ssm_fwd_ref(
+                *ins, ssm_ops.CHUNK, h0=h0, h_last=want_last), 2)
+            # the reference's forward cost at 4 bytes an element, plus h0
+            # read and h_last written once
+            flops, bytes_ = ssm_ops.cost_model(B, T, di, n, train=False,
+                                               dtype_bytes=4)
+            bytes_ += 2 * B * di * n * 4
+            b_ms, by = bound(bytes_, flops)
+            print(f"kernel {tag} fp32 carry form: kernel {ms:.4f} ms (eager "
+                  f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"library none, bound {b_ms:.5f} ms ({by}; "
+                  f"{flops / 1e9:.3f} GFLOP, {bytes_ / 1e6:.1f} MB; "
+                  f"{b_ms / ms:.1%} of it)", flush=True)
+            row = dict(carry_ms=ms, carry_eager_ms=call_ms,
+                       carry_plain_ms=plain_ms, carry_bound_ms=b_ms,
+                       carry_bound_by=by, carry_library_ms=None,
+                       carry_max_abs_err=max(errs.values()))
         del dt, x, Bm, Cm, A, h0, h_last, want_last, y, ent, yp, entp
+    return row
 
 
 def _ssm_against_plain(torch, ins, dy, what):
@@ -1846,7 +1951,6 @@ def phase_attn_train(torch, dev):
 
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedLoader, SyntheticLMDataset
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import build_model
     from repro_torch.optim import AdamW, cosine_schedule, param_groups
     from repro_torch.train import TrainConfig, Trainer, build_train_step
@@ -1854,7 +1958,6 @@ def phase_attn_train(torch, dev):
     cfg = dataclasses.replace(get_config("smollm-360m"),
                               attention_impl="flash")
     steps, batch, seq, seed = 20, 4, 2048, 0
-    fwd_k, bwd_k = fa_ops.flash_fwd_kernel, fa_ops.flash_bwd_kernel
 
     def make(config):
         model = build_model(config, device=dev, generator=torch.Generator(
@@ -1862,11 +1965,6 @@ def phase_attn_train(torch, dev):
         opt = AdamW(param_groups(model), lr=cosine_schedule(
             3e-4, warmup=steps // 20, total=steps))
         return model, opt
-
-    def launches():
-        return (fwd_k.launches, bwd_k.launches_dq, bwd_k.launches_dkv,
-                fwd_k.launches_tc, bwd_k.launches_dq_tc,
-                bwd_k.launches_dkv_tc)
 
     loader = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=seq),
                            global_batch=batch)
@@ -1877,12 +1975,11 @@ def phase_attn_train(torch, dev):
             log_every=10), loader=loader, seed=seed)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        fwd_k.launches = bwd_k.launches_dq = bwd_k.launches_dkv = 0
-        fwd_k.launches_tc = bwd_k.launches_dq_tc = bwd_k.launches_dkv_tc = 0
+        _zero_flash_counts()
         t0 = time.perf_counter()
         _, step = trainer.run()
         wall = time.perf_counter() - t0
-        n_fwd, n_dq, n_dkv, *n_tc = launches()
+        n_fwd, n_dq, n_dkv, *n_tc = _flash_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     hist = trainer.history
     losses = [h["loss"] for h in hist]
@@ -1928,14 +2025,14 @@ def phase_attn_train(torch, dev):
         step_fn = build_train_step(model, opt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        n0 = launches()
+        n0 = _flash_counts()
         mets = []
         for i in range(3):
             b = {k: torch.from_numpy(v).to(dev, torch.int64)
                  for k, v in one.batch_at(i).items()}
             _, met = step_fn({}, b)
             mets.append((float(met["loss"]), float(met["grad_norm"])))
-        ran = tuple(a - b for a, b in zip(launches(), n0))
+        ran = tuple(a - b for a, b in zip(_flash_counts(), n0))
         runs[impl] = (mets, torch.cuda.max_memory_allocated(dev) / 2**30,
                       ran)
         del model, opt, step_fn
@@ -2428,9 +2525,14 @@ def _sharpen(torch, model, factor=32.0):
     input's own embedding off the residual); x32 makes them vary at
     smollm-360m's width (phase_paged).  An attention layer's ``wo``, a
     Mamba layer's ``w_out``, a dense MLP's ``w_down``, an MoE MLP's
-    expert ``w_down`` stack and its shared expert's ``w_down``."""
+    expert ``w_down`` stack and its shared expert's ``w_down``; of an
+    encoder-decoder (whisper), the decoder layers' self- and
+    cross-attention ``wo`` and MLP ``w_down``."""
     with torch.no_grad():
-        for layer in model.layers:
+        for layer in getattr(model, "dec", ()):
+            for w in (layer.self_attn.wo, layer.cross.wo, layer.mlp.w_down):
+                w.mul_(factor)
+        for layer in getattr(model, "layers", ()):
             for name in ("wo", "w_out"):
                 if hasattr(layer.mixer, name):
                     getattr(layer.mixer, name).mul_(factor)
@@ -2955,10 +3057,10 @@ MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 16
 MOE_HYBRID = "jamba-1.5-large-398b-smoke"
 
 
-def _serve_moe(torch, model, prompts, gen_tokens, *, max_len,
-               kv_layout="paged", prefill_chunk=256):
-    """One run of the MoE serving path through build_engine (4 slots, page
-    16, dispatch as configured: "auto")."""
+def _serve_engine(torch, model, prompts, gen_tokens, *, max_len,
+                  kv_layout="paged", prefill_chunk=256):
+    """One greedy run of ``prompts`` through build_engine (4 slots, page
+    16; an MoE model's dispatch as configured)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve import Telemetry
@@ -3180,14 +3282,14 @@ def phase_moe_serve(torch, dev):
     gen = 32
     max_len = max(plens) + gen                   # 544: 34 pages of 16
     kernels = (pa_ops.paged_gqa_kernel, pa_ops.paged_gqa_q8_kernel)
-    _serve_moe(torch, model, [p[:40] for p in prompts[:4]], 2,
+    _serve_engine(torch, model, [p[:40] for p in prompts[:4]], 2,
                max_len=max_len)                  # warm-up (cuBLAS etc.)
 
     def measured(tag, kv_layout="paged", the_prompts=prompts, **kw):
         torch.cuda.reset_peak_memory_stats(dev)
         for k in kernels:
             k.launches = 0
-        eng, reqs, dt = _serve_moe(torch, model, the_prompts, gen,
+        eng, reqs, dt = _serve_engine(torch, model, the_prompts, gen,
                                    max_len=max_len, kv_layout=kv_layout,
                                    **kw)
         launches = tuple(k.launches for k in kernels)
@@ -3338,7 +3440,7 @@ def phase_moe_serve(torch, dev):
         _reconfigure(hmodel, paged_impl=impl)
         pa_ops.paged_gqa_kernel.launches = 0
         ssm_ops.fused_ssm_fwd_kernel.launches = 0
-        heng, hreqs, hdt = _serve_moe(torch, hmodel, hprompts, 16,
+        heng, hreqs, hdt = _serve_engine(torch, hmodel, hprompts, 16,
                                       max_len=96, kv_layout=layout,
                                       prefill_chunk=32)
         fused, paged = (ssm_ops.fused_ssm_fwd_kernel.launches,
@@ -3373,6 +3475,442 @@ def phase_moe_serve(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+#: The whisper phase: Whisper's 448-token text context, 64 decode tokens.
+WHISPER_SEQ, WHISPER_GEN = 448, 64
+#: Layers of llava-next-34b's 60 that the vlm phase trains: the port's
+#: AdamW holds fp32 params, grads and two moments, 16 B a parameter; 4
+#: layers (2.23 B parameters) and the untied embedding and head (0.92 B)
+#: need 50.4 GB, all 60 would need 550 GB.
+VLM_LAYERS = 4
+
+
+class _WithEmbeds:
+    """``loader``'s batches for steps 0..steps-1 with stub frontend
+    embeddings added: ``embeds`` (B, n, d) fp32, 0.1 x a normal seeded
+    by the step, made in bulk before the run (set-up, not step time)."""
+
+    def __init__(self, loader, n, d, steps, seed=0):
+        import numpy as np
+
+        self.loader = loader
+        self.embeds = [
+            0.1 * np.random.default_rng((seed, step)).standard_normal(
+                (loader.global_batch, n, d), dtype=np.float32)
+            for step in range(steps)]
+
+    def batch_at(self, step):
+        return dict(self.loader.batch_at(step), embeds=self.embeds[step])
+
+
+def _on_card(batch, dev):
+    """A loader's numpy batch on the card: float arrays in their dtype,
+    the rest as int64 (as Trainer moves them)."""
+    import torch
+    return {k: torch.from_numpy(v).to(dev, None if v.dtype.kind == "f"
+                                      else torch.int64)
+            for k, v in batch.items()}
+
+
+def _flash_counts():
+    """The flash kernels' launch counters: (fwd, dq, dkv) and the same on
+    the tc route."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    fwd_k, bwd_k = fa_ops.flash_fwd_kernel, fa_ops.flash_bwd_kernel
+    return (fwd_k.launches, bwd_k.launches_dq, bwd_k.launches_dkv,
+            fwd_k.launches_tc, bwd_k.launches_dq_tc, bwd_k.launches_dkv_tc)
+
+
+def _zero_flash_counts():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    fwd_k, bwd_k = fa_ops.flash_fwd_kernel, fa_ops.flash_bwd_kernel
+    fwd_k.launches = bwd_k.launches_dq = bwd_k.launches_dkv = 0
+    fwd_k.launches_tc = bwd_k.launches_dq_tc = bwd_k.launches_dkv_tc = 0
+
+
+def _flash_against_naive(torch, tag, model, batch):
+    """The first step's loss and gradients of ``model`` on ``batch`` with
+    attention_impl "flash", then "naive" on the same weights (no optimizer
+    step): |dloss| <= 2e-2 and the gradient norms within 2 % (the standing
+    flash-against-naive bound of phase attn_train); the smallest
+    per-tensor cosine printed.  Returns the flash loss; leaves the model
+    on flash with no gradients."""
+    runs = {}
+    for impl in ("flash", "naive"):
+        _reconfigure(model, attention_impl=impl)
+        model.zero_grad(set_to_none=True)
+        n0 = _flash_counts()
+        loss, _ = model.loss(batch)
+        loss.backward()
+        ran = tuple(a - b for a, b in zip(_flash_counts(), n0))
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads.values())).item()
+        runs[impl] = (loss.item(), norm, grads, ran)
+        model.zero_grad(set_to_none=True)
+    _reconfigure(model, attention_impl="flash")
+    (fl, fg, fgrads, f_ran), (nl, ng, ngrads, n_ran) = (runs["flash"],
+                                                        runs["naive"])
+    if not all(f_ran[:3]) or any(n_ran):
+        fail(f"{tag}: flash launches (fwd, dq, dkv, tc...) {f_ran} in the "
+             f"flash step, {n_ran} in the naive one")
+    cos = min((torch.sum(a.double() * b.double())
+               / (a.double().norm() * b.double().norm())).item()
+              for a, b in zip(fgrads.values(), ngrads.values())
+              if b.abs().max() > 0)
+    dl, dg = abs(fl - nl), abs(fg - ng) / ng
+    print(f"{tag}: first step flash loss {fl:.5f} grad norm {fg:.5f}; naive "
+          f"loss {nl:.5f} grad norm {ng:.5f} (|dloss| {dl:.2e} tol 2e-2, "
+          f"grad norm {dg:.2%} tol 2 %); smallest per-tensor gradient "
+          f"cosine {cos:.5f}", flush=True)
+    if not (dl <= 2e-2 and dg <= 0.02):
+        fail(f"{tag}: the first step with flash differs from naive")
+    del fgrads, ngrads, runs
+    return fl
+
+
+def _check_training(tag, losses, steps, cfg, want_launches):
+    """Every step ran with a finite loss (a few steps from random weights
+    on fresh batches need not lower it: the step-to-step spread is larger
+    than the fall), and the flash kernels launched as ``want_launches``
+    says, all on the tc route."""
+    import math
+
+    launches, want = want_launches
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: {len(losses)} of {steps} steps, losses {losses}")
+    if launches != (want,) * 6:
+        fail(f"{tag}: flash launches (fwd, dq, dkv, then on the tc route) "
+             f"{launches} != {cfg.n_layers} decoder layers x {steps} steps")
+
+
+def phase_whisper(torch, dev):
+    """Full-width whisper-small trained through Trainer with flash in the
+    decoder, the first step held to naive; then 4 requests encoded once
+    and decoded greedily from the cross-K/V cache, held to the full
+    forward teacher-forced."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule, param_groups
+    from repro_torch.train import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("whisper-small"),
+                              attention_impl="flash")
+    steps, batch, seed = 10, 4, 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"whisper: {cfg.name} at full width, {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab}, {cfg.frontend_seq} stub frame "
+          f"embeddings; {n_params / 1e6:.1f} M fp32 params; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    loader = _WithEmbeds(ShardedLoader(SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=WHISPER_SEQ), global_batch=batch),
+        cfg.frontend_seq, cfg.d_model, steps)
+    first = _flash_against_naive(torch, "whisper (a)", model,
+                                 _on_card(loader.batch_at(0), dev))
+    opt = AdamW(param_groups(model), lr=cosine_schedule(3e-4, warmup=0,
+                                                        total=steps))
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = Trainer(model, opt, TrainConfig(
+            steps=steps, ckpt_every=steps + 1, ckpt_dir=ckpt_dir,
+            log_every=steps), loader=loader, seed=seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_flash_counts()
+        t0 = time.perf_counter()
+        _, step = trainer.run()
+        wall = time.perf_counter() - t0
+        launches = _flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if trainer.restores:
+        fail(f"whisper (a): {trainer.restores} crash-restores")
+    _check_training("whisper (a)", losses, steps, cfg,
+                    (launches, cfg.n_layers * steps))
+    dts = sorted(h["dt"] for h in hist[2:])
+    step_ms = dts[len(dts) // 2] * 1e3
+    print(f"whisper (a): {steps} AdamW steps (batch {batch} x {WHISPER_SEQ} "
+          f"tokens, {cfg.frontend_seq} frames) in {wall:.1f} s incl. the "
+          f"final checkpoint; step p50 {step_ms:.1f} ms (first "
+          f"{hist[0]['dt'] * 1e3:.0f} ms) -> "
+          f"{batch * WHISPER_SEQ / (step_ms / 1e3):.0f} decoder tokens/s; "
+          f"peak memory {peak_gb:.2f} GiB; loss {losses[0]:.4f} (the "
+          f"checked first step's {first:.4f}) -> {losses[-1]:.4f}; flash "
+          f"launches fwd, dq, dkv {launches[:3]} = {cfg.n_layers} decoder "
+          f"layers x {steps} steps, all on the tc route", flush=True)
+    del trainer, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 4 requests: encode once into the cross-K/V cache, then greedy
+    # decode_step from a dense self-cache; output projections x32 so the
+    # greedy streams vary (the tied head otherwise reads each input back)
+    model = _sharpen(torch, build_model(cfg, device=dev, generator=torch
+                                        .Generator(device=dev).manual_seed(1)))
+    g = torch.Generator(device=dev).manual_seed(2)
+    frames = 0.1 * torch.randn(batch, cfg.frontend_seq, cfg.d_model,
+                               device=dev, generator=g)
+    start = torch.randint(0, cfg.vocab, (batch, 1), device=dev, generator=g)
+    with torch.inference_mode():
+        model.encode(frames)                                 # warm-up
+        enc_ms = eager_ms(torch, lambda: model.encode(frames), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = model.init_cache(batch, WHISPER_GEN, frame_embeds=frames)
+        torch.cuda.synchronize()
+        fill_ms = (time.perf_counter() - t0) * 1e3
+        tok, toks, logits, dts = start, [], [], []
+        t0 = time.perf_counter()
+        for t in range(WHISPER_GEN):
+            ts = time.perf_counter()
+            lg, cache = model.decode_step(tok, cache, t)
+            tok = lg[:, :, :cfg.vocab].argmax(-1)
+            toks.append(tok)
+            logits.append(lg[:, 0])
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - ts)
+        dec_s = time.perf_counter() - t0
+        stream = torch.cat(toks, 1)                          # (B, GEN)
+        dec = torch.stack(logits, 1)
+        # the full forward over the same tokens, teacher-forced
+        full = model(torch.cat([start, stream[:, :-1]], 1), embeds=frames)
+    top2 = torch.topk(full[..., :cfg.vocab], 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = full[..., :cfg.vocab].argmax(-1) != stream
+    worst = margin[differ].max().item() if differ.any() else None
+    err = (dec - full).abs().max().item()
+    distinct = [len(set(r.tolist())) for r in stream]
+    dts = sorted(dts[1:])
+    print(f"whisper (b): {batch} requests encoded once ({cfg.frontend_seq} "
+          f"frames: encoder {enc_ms:.2f} ms eager), cross-K/V cache filled "
+          f"in {fill_ms:.1f} ms, {WHISPER_GEN} greedy decode steps in "
+          f"{dec_s:.3f} s: step p50 {dts[len(dts) // 2] * 1e3:.2f} ms, "
+          f"{batch * WHISPER_GEN / dec_s:.1f} generated tok/s; decode vs the "
+          f"teacher-forced forward: max |logits diff| {err:.3g}, "
+          f"{int(differ.sum())} greedy choices differ (largest top-2 margin "
+          f"there {worst}, rule <= 0.1); distinct tokens per stream "
+          f"{distinct}", flush=True)
+    if worst is not None and worst > 0.1:
+        fail(f"whisper (b): a decode choice differs from the full forward "
+             f"where its top-2 margin is {worst:.3f} > 0.1")
+    if max(distinct) < 2:
+        fail("whisper (b): every stream repeats one token")
+    del model, cache, full, dec, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd": launches[0], "flash_bwd": launches[2]}
+
+
+def phase_vlm(torch, dev):
+    """Full-width llava-next-34b cut to VLM_LAYERS layers trained with 576
+    patch embeddings before 512 tokens, flash attention, the first step
+    held to naive."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticLMDataset
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, cosine_schedule, param_groups
+    from repro_torch.train import build_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("llava-next-34b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS,
+                              attention_impl="flash")
+    steps, batch, seq, seed = 5, 2, 512, 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"vlm: {cfg.name} at full width, depth cut to {cfg.n_layers} of "
+          f"its {full.n_layers} layers (AdamW state of all "
+          f"{full.n_layers}: {full.param_count() * 16 / 1e9:.0f} GB), "
+          f"{n_params / 1e9:.2f} B fp32 params, d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab "
+          f"{cfg.vocab}, {cfg.frontend_seq} patch embeddings + {seq} "
+          f"tokens; built in {time.perf_counter() - t0:.1f} s", flush=True)
+    loader = _WithEmbeds(ShardedLoader(SyntheticLMDataset(
+        vocab=cfg.vocab, seq_len=seq), global_batch=batch),
+        cfg.frontend_seq, cfg.d_model, steps)
+    first = _flash_against_naive(torch, "vlm", model,
+                                 _on_card(loader.batch_at(0), dev))
+    opt = AdamW(param_groups(model), lr=cosine_schedule(3e-4, warmup=0,
+                                                        total=steps))
+    step_fn = build_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_flash_counts()
+    losses, dts = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        _, met = step_fn({}, _on_card(loader.batch_at(i), dev))
+        losses.append(float(met["loss"]))
+        dts.append(time.perf_counter() - t0)
+    launches = _flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    _check_training("vlm", losses, steps, cfg, (launches,
+                                                cfg.n_layers * steps))
+    if peak_gb > 70:
+        fail(f"vlm: peak memory {peak_gb:.2f} GiB > 70 GiB at "
+             f"{cfg.n_layers} layers")
+    p50 = sorted(dts[1:])[(steps - 1) // 2] * 1e3
+    tokens = batch * (cfg.frontend_seq + seq)
+    print(f"vlm: {steps} AdamW steps (batch {batch} x ({cfg.frontend_seq} "
+          f"patches + {seq} tokens)): step p50 {p50:.1f} ms (first "
+          f"{dts[0] * 1e3:.0f} ms) -> {tokens / (p50 / 1e3):.0f} positions/s; "
+          f"peak memory {peak_gb:.2f} GiB; loss {losses[0]:.4f} (the checked "
+          f"first step's {first:.4f}) -> {losses[-1]:.4f}; flash launches "
+          f"fwd, dq, dkv {launches[:3]} = {cfg.n_layers} layers x {steps} "
+          f"steps, all on the tc route", flush=True)
+    del model, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd": launches[0], "flash_bwd": launches[2]}
+
+
+def phase_stablelm_serve(torch, dev):
+    """Full-width stablelm-12b, all 40 layers, served from bf16 pages
+    through paged_gqa at head dim 160 (its scalar route), against the
+    gather read, then from int8 pages through paged_gqa_q8."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import GQAAttention
+    from repro_torch.models.moe import DenseMLP
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("stablelm-12b")
+    t0 = time.perf_counter()
+    model = _sharpen(torch, build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"stablelm_serve: {cfg.name} at full width, all {cfg.n_layers} "
+          f"layers, {n_params / 1e9:.2f} B fp32 params = "
+          f"{n_params * 4 / 1e9:.1f} GB, d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim} (paged_gqa "
+          f"route: {pa_ops.gqa_route(cfg.head_dim, 2)} for bf16 pages, "
+          f"{pa_ops.gqa_route(cfg.head_dim, 1)} for int8), vocab "
+          f"{cfg.vocab}; output projections x32; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(5)
+    plens = [512, 448, 384, 320, 256, 192, 128, 64]
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in plens]
+    gen = 32
+    max_len = max(plens) + gen                   # 544: 34 pages of 16
+    kernels = (pa_ops.paged_gqa_kernel, pa_ops.paged_gqa_q8_kernel)
+    _serve_engine(torch, model, [p[:40] for p in prompts[:4]], 2,
+                  max_len=max_len)               # warm-up (cuBLAS etc.)
+
+    def measured(tag):
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels:
+            k.launches = 0
+        eng, reqs, dt = _serve_engine(torch, model, prompts, gen,
+                                      max_len=max_len)
+        launches = tuple(k.launches for k in kernels)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for r in reqs:
+            toks = r.tokens
+            if not r.finished or len(toks) != gen or not (
+                    (toks >= 0) & (toks < cfg.vocab)).all():
+                fail(f"stablelm_serve {tag}: request {r.uid} finished="
+                     f"{r.finished}, {len(toks)} tokens {toks}")
+        _check_drained(eng, f"stablelm_serve {tag}")
+        ttft = sorted((r.first_token_t - r.created_t) * 1e3 for r in reqs)
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        n_gen = sum(len(r.tokens) for r in reqs)
+        print(f"stablelm_serve {tag}: {len(reqs)} requests, {n_gen} tokens "
+              f"in {dt:.3f} s ({n_gen / dt:.1f} generated tok/s incl. "
+              f"prefill), TTFT p50 {ttft[len(ttft) // 2]:.1f} ms max "
+              f"{ttft[-1]:.1f} ms, {eng.n_steps} decode steps p50 "
+              f"{stp['p50']:.2f} ms, peak memory {peak:.2f} GiB, "
+              f"(paged_gqa, paged_gqa_q8) launches {launches}; distinct "
+              f"tokens per stream "
+              f"{[len(set(r.tokens.tolist())) for r in reqs]}", flush=True)
+        return eng, [list(r.tokens) for r in reqs], launches
+
+    # (a) bf16 pages through paged_gqa
+    eng_a, streams_a, (n_a, q_a) = measured("(a) bf16 kernel")
+    if q_a or n_a == 0 or n_a != cfg.n_layers * eng_a.n_steps:
+        fail(f"stablelm_serve (a): (paged_gqa, paged_gqa_q8) launches "
+             f"{(n_a, q_a)} != ({cfg.n_layers} layers x {eng_a.n_steps} "
+             "decode steps, 0)")
+    del eng_a
+    # (b) the same traffic through the gather read
+    _reconfigure(model, paged_impl="gather")
+    eng_b, streams_b, launched = measured("(b) bf16 gather")
+    if any(launched):
+        fail(f"stablelm_serve (b): paged kernel launches {launched}")
+    _margin_rule(torch, "stablelm_serve (a) kernel vs (b) gather", eng_b.sm,
+                 cfg.vocab, prompts, streams_a, streams_b)
+    del eng_b
+    # (c) int8 pages through paged_gqa_q8
+    _reconfigure(model, paged_impl="kernel", kv_dtype="int8")
+    eng_c, streams_c, (n_c, q_c) = measured("(c) int8 kernel")
+    if n_c or q_c == 0 or q_c != cfg.n_layers * eng_c.n_steps:
+        fail(f"stablelm_serve (c): (paged_gqa, paged_gqa_q8) launches "
+             f"{(n_c, q_c)} != (0, {cfg.n_layers} layers x "
+             f"{eng_c.n_steps} decode steps)")
+    same = sum(int(np.sum(np.asarray(a) == np.asarray(b)))
+               for a, b in zip(streams_a, streams_c))
+    print(f"stablelm_serve: int8 greedy tokens equal bf16's (a) at {same}/"
+          f"{len(prompts) * gen} positions; first divergence per request "
+          f"{[_first_divergence(a, b) for a, b in zip(streams_a, streams_c)]}"
+          f"; launches paged_gqa {n_a} (a), paged_gqa_q8 {q_c} (c)",
+          flush=True)
+    del eng_c
+
+    # one 4-slot bf16 decode step at position 543 (the longest chains):
+    # eager against its kernels replayed from a CUDA graph, then the device
+    # time split between the attention layers (projections, rope, pool
+    # write, paged_gqa), the MLPs and the rest (norms, embedding, head)
+    _reconfigure(model, kv_dtype="bf16")
+    n_chain = max_len // 16
+    state = model.init_paged_cache(4 * n_chain, 16)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), max_len - 1, dtype=torch.int32, device=dev)
+    bt = torch.arange(4 * n_chain, dtype=torch.int32,
+                      device=dev).reshape(4, n_chain)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    rows = torch.arange(4, device=dev)
+
+    def step():
+        model.decode_step_paged(tok, state, pos, bt, act, max_len, rows=rows)
+    with torch.inference_mode():
+        step_eager = eager_ms(torch, step, 5)
+        step_dev = device_ms(torch, step, 5)
+        split, wall = _device_split(torch, step, 3, {
+            "attention": (GQAAttention, "decode_paged"),
+            "mlp": (DenseMLP, "forward")})
+    busy = sum(split.values())
+    print(f"stablelm_serve: decode_step_paged (4 slots, pos {max_len - 1}, "
+          f"bf16 pages): eager {step_eager:.2f} ms, device {step_dev:.2f} ms "
+          f"-> card idle {1 - step_dev / step_eager:.1%} of an eager step; "
+          + ("device split: not measured (the profiler saw no device time)"
+             if busy <= 0 else
+             f"device split (profiler, 3 steps): busy {busy:.3f} ms of "
+             f"{wall:.2f} ms wall a step; " + ", ".join(
+                 f"{k} {v:.3f} ms ({v / busy:.1%})"
+                 for k, v in sorted(split.items()))), flush=True)
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_gqa": n_a, "paged_gqa_q8": q_c}
 
 
 def phase_imc(torch, dev):
@@ -3470,7 +4008,8 @@ def main():
     launches.update(timed(phase_mla_paged))
     # the serving phases drive kernels of earlier phases: counts add up
     for phase in (phase_sched, phase_spec, phase_mamba_serve,
-                  phase_moe_serve):
+                  phase_moe_serve, phase_whisper, phase_vlm,
+                  phase_stablelm_serve):
         for name, n in timed(phase).items():
             launches[name] += n
     launches["imc_mvm"] = timed(phase_imc)

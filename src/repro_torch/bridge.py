@@ -16,6 +16,10 @@ imports nothing of JAX.  Path rules:
     ``GQAAttention`` keeps the reference's leaves and shapes, so
     ``mixer.wq`` reads ``mixer/wq`` by the first rule.
 
+``EncDecLM`` (Whisper): ``enc[j]`` and ``dec[j]`` read index j of the
+reference's ``"enc"`` and ``"dec"`` stacks (the reference always stacks
+them), and a decoder layer's ``self_attn`` reads its ``"self"`` subtree.
+
 ``MinimalistNetwork`` needs no special rule: its ``block{i}`` names are
 the reference's.
 """
@@ -25,6 +29,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.whisper import EncDecLM
+
+# port parameter-name prefixes that the reference's tree spells otherwise
+_RENAMES = (("mixer.block.", "mixer."), ("self_attn.", "self."))
 
 
 def _layer_source(cfg, tree, j):
@@ -44,7 +52,9 @@ def _layer_source(cfg, tree, j):
 
 def _copy_tree(module, tree, index=None, prefix=""):
     for name, p in module.named_parameters():
-        keys = name.replace("mixer.block.", "mixer.").split(".")
+        for port, ref in _RENAMES:
+            name = name.replace(port, ref)
+        keys = name.split(".")
         node = tree
         for k in keys:
             if not isinstance(node, dict) or k not in node:
@@ -76,6 +86,13 @@ def load_jax_params(module, tree):
             key, index = _layer_source(cfg, tree, j)
             _copy_tree(layer, tree[key], index=index, prefix=f"layers.{j}.")
         return module
+    if isinstance(module, EncDecLM):
+        for key in ("embed", "enc_norm", "final_norm"):
+            _copy_tree(getattr(module, key), tree[key], prefix=f"{key}.")
+        for key in ("enc", "dec"):
+            for j, layer in enumerate(getattr(module, key)):
+                _copy_tree(layer, tree[key], index=j, prefix=f"{key}.{j}.")
+        return module
     _copy_tree(module, tree)
     return module
 
@@ -85,8 +102,13 @@ def reference_ndim(module) -> dict:
     ``DecoderLM`` layer that the reference stacks (a pattern-unit layer
     when the unit repeats, so ``scan_layers`` is on by default) has one
     more axis there than in the port; every other leaf has the port's
-    ndim.  The optimizer's decay mask reads this (``optim.param_groups``)."""
+    ndim; ``EncDecLM``'s encoder and decoder layers are always stacked.
+    The optimizer's decay mask reads this (``optim.param_groups``)."""
     out = {name: p.ndim for name, p in module.named_parameters()}
+    if isinstance(module, EncDecLM):
+        for name, p in module.named_parameters():
+            if name.startswith(("enc.", "dec.")):
+                out[name] = p.ndim + 1
     if isinstance(module, DecoderLM):
         cfg = module.cfg
         nh, nu = len(cfg.head_layers), len(cfg.pattern)

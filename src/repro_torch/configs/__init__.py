@@ -1,4 +1,4 @@
-from repro_torch.configs.archs import (ARCHS, MINIMALIST_LM_360M,
+from repro_torch.configs.archs import (ARCHS, ASSIGNED, MINIMALIST_LM_360M,
                                       MINIMALIST_LM_HW,
                                       MINIMALIST_SMNIST_DIMS, get_config,
                                       reduced)

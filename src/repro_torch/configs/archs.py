@@ -1,11 +1,16 @@
-"""The architectures of the port so far (port of ``repro.configs.archs``):
+"""The reference's 14 architectures (port of ``repro.configs.archs``):
 Qwen3-MoE-30B-A3B (GQA with 128 routed experts top-8), DeepSeek-V3-671B
-(MLA, 3 dense head layers then MoE with a shared expert), SmolLM-360M
-(global GQA), Gemma-3-4B (5:1 sliding-window:global GQA),
-Falcon-Mamba-7B (attention-free Mamba-1), Jamba-1.5-Large-398B (Mamba
-and attention 7:1, MoE every other layer), the paper's technique at LM
-scale, its hardware-mode twin, the paper's sMNIST network dims,
-``reduced()`` and ``get_config``.  Values are the reference's own."""
+(MLA, 3 dense head layers then MoE with a shared expert), StableLM-12B
+(GQA at head dim 160), Mistral-Large-123B (GQA group 12), SmolLM-360M
+(global GQA), Gemma-3-4B (5:1 sliding-window:global GQA), LLaVA-NeXT-34B
+(a decoder LM behind a stubbed patch-embedding prefix), Whisper-small
+(encoder-decoder over stubbed frame embeddings), Falcon-Mamba-7B
+(attention-free Mamba-1), Jamba-1.5-Large-398B (Mamba and attention 7:1,
+MoE every other layer), the paper's technique at LM scale at 360M and
+100M and their hardware-mode twins, the paper's sMNIST network dims,
+``ASSIGNED``, ``reduced()`` and ``get_config``.  Values are the
+reference's own.  ``input_specs``, ``shape_supported`` and
+``LONG_CONTEXT_OK`` belong to the dry-run, which is not ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,6 +43,22 @@ DEEPSEEK_V3_671B = ModelConfig(
     rope_theta=1e4, tie_embeddings=False, mtp_depth=1,
 )
 
+STABLELM_12B = ModelConfig(
+    # [hf:stabilityai/stablelm-2-12b; hf]
+    name="stablelm-12b",
+    n_layers=40, d_model=5120, n_heads=32, n_kv_heads=8, head_dim=160,
+    d_ff=13824, vocab=100352,
+    pattern=(LayerSpec(ATTN),), rope_theta=1e4, tie_embeddings=False,
+)
+
+MISTRAL_LARGE_123B = ModelConfig(
+    # [hf:mistralai/Mistral-Large-Instruct-2407; unverified]
+    name="mistral-large-123b",
+    n_layers=88, d_model=12288, n_heads=96, n_kv_heads=8, head_dim=128,
+    d_ff=28672, vocab=32768,
+    pattern=(LayerSpec(ATTN),), rope_theta=1e6, tie_embeddings=False,
+)
+
 SMOLLM_360M = ModelConfig(
     # [hf:HuggingFaceTB/SmolLM-360M; hf] — llama-arch small
     name="smollm-360m",
@@ -54,6 +75,26 @@ GEMMA3_4B = ModelConfig(
     pattern=(LayerSpec(ATTN_LOCAL),) * 5 + (LayerSpec(ATTN),),
     tail_layers=(LayerSpec(ATTN_LOCAL),) * 3 + (LayerSpec(ATTN),),
     rope_theta=1e6, tie_embeddings=True,
+)
+
+LLAVA_NEXT_34B = ModelConfig(
+    # [hf:llava-hf/llava-v1.6-34b-hf; unverified] — anyres tiling stubbed:
+    # the caller passes precomputed patch embeddings (B, n_patches, D)
+    name="llava-next-34b",
+    n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8, head_dim=128,
+    d_ff=20480, vocab=64000,
+    pattern=(LayerSpec(ATTN),), arch_type="vlm",
+    frontend_embed_dim=7168, frontend_seq=576,
+    rope_theta=5e6, tie_embeddings=False,
+)
+
+WHISPER_SMALL = ModelConfig(
+    # [arXiv:2212.04356; unverified] — enc-dec, conv frontend stubbed
+    name="whisper-small",
+    n_layers=12, n_enc_layers=12, d_model=768, n_heads=12, n_kv_heads=12,
+    head_dim=64, d_ff=3072, vocab=51865,
+    pattern=(LayerSpec(ATTN),), arch_type="audio",
+    frontend_embed_dim=768, frontend_seq=1500, tie_embeddings=True,
 )
 
 FALCON_MAMBA_7B = ModelConfig(
@@ -94,12 +135,34 @@ MINIMALIST_LM_360M = dataclasses.replace(
     mingru_quant="float",
 )
 
+# ~100M-param variant for the end-to-end training example
+MINIMALIST_LM_100M = ModelConfig(
+    name="minimalist-lm-100m",
+    n_layers=16, d_model=1152, n_heads=0, n_kv_heads=0, head_dim=0,
+    d_ff=0, vocab=49152,
+    pattern=(LayerSpec(MINGRU),),
+    tie_embeddings=True, mingru_quant="float",
+)
+
+MINIMALIST_LM_100M_HW = dataclasses.replace(
+    MINIMALIST_LM_100M, name="minimalist-lm-100m-hw",
+    mingru_quant="hardware")
+
 MINIMALIST_LM_HW = dataclasses.replace(
     MINIMALIST_LM_360M, name="minimalist-lm-360m-hw", mingru_quant="hardware")
 
-ARCHS = {c.name: c for c in [QWEN3_MOE_30B, DEEPSEEK_V3_671B, SMOLLM_360M,
-                             GEMMA3_4B, FALCON_MAMBA_7B, JAMBA_15_LARGE_398B,
-                             MINIMALIST_LM_360M, MINIMALIST_LM_HW]}
+ARCHS = {c.name: c for c in [
+    QWEN3_MOE_30B, DEEPSEEK_V3_671B, STABLELM_12B, MISTRAL_LARGE_123B,
+    SMOLLM_360M, GEMMA3_4B, LLAVA_NEXT_34B, WHISPER_SMALL, FALCON_MAMBA_7B,
+    JAMBA_15_LARGE_398B, MINIMALIST_LM_360M, MINIMALIST_LM_HW,
+    MINIMALIST_LM_100M, MINIMALIST_LM_100M_HW,
+]}
+
+ASSIGNED = [c.name for c in [
+    QWEN3_MOE_30B, DEEPSEEK_V3_671B, STABLELM_12B, MISTRAL_LARGE_123B,
+    SMOLLM_360M, GEMMA3_4B, LLAVA_NEXT_34B, WHISPER_SMALL, FALCON_MAMBA_7B,
+    JAMBA_15_LARGE_398B,
+]]
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

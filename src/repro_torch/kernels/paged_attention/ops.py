@@ -72,6 +72,20 @@ def gqa_page_range(pos, length, page_size, n_split, rank):
     return rank * n_live // n_split, (rank + 1) * n_live // n_split
 
 
+def gqa_route(head_dim, pool_itemsize):
+    """The GQA kernels' route for pools of ``pool_itemsize``-byte elements
+    (4 fp32, 2 bf16, 1 int8) at ``head_dim``, the rule ``launch`` in
+    ``csrc/paged_gqa.cuh`` applies (16-byte-aligned pools assumed):
+    ``"vector"`` (16-byte chunks, up to 4 query rows a tile, 3 for int8)
+    where a row is a power-of-two count of at most 32 chunks, else
+    ``"scalar"`` (one element a lane, one query row a tile).  Used to label
+    measurements; the card decides for itself."""
+    per_chunk = 16 // pool_itemsize
+    nc = head_dim // per_chunk
+    vec = head_dim % per_chunk == 0 and nc <= 32 and nc & (nc - 1) == 0
+    return "vector" if vec else "scalar"
+
+
 def _check(what, q, pool_k, pool_v, bt, pos, length, window, pool_dtypes,
            scales=()):
     """Device, dtype, shape and contiguity checks shared by both CUDA

@@ -1,12 +1,14 @@
 def build_model(cfg, *, device=None, **kw):
-    """Factory: config -> model instance (``repro.models.build_model``;
-    decoder LMs only in this port).  Builds on ``cuda`` unless ``device``
-    names another device, and raises when CUDA is missing and no device
-    was given (``common.resolve_device``)."""
+    """Factory: config -> model instance (``repro.models.build_model``):
+    an ``audio`` arch builds the encoder-decoder ``EncDecLM``, every other
+    (``decoder``, ``vlm``) a ``DecoderLM``.  Builds on ``cuda`` unless
+    ``device`` names another device, and raises when CUDA is missing and
+    no device was given (``common.resolve_device``)."""
     from repro_torch.common import resolve_device
     from repro_torch.models.transformer import DecoderLM
+    from repro_torch.models.whisper import EncDecLM
 
-    if cfg.arch_type != "decoder":
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet")
-    return DecoderLM(cfg, device=resolve_device(device), **kw)
+    device = resolve_device(device)
+    if cfg.arch_type == "audio":
+        return EncDecLM(cfg, device=device, **kw)
+    return DecoderLM(cfg, device=device, **kw)

@@ -104,6 +104,15 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, S, H, hd)
 
 
+def no_mask(q, k):
+    """The all-zero additive mask (B, 1, S, L) of unmasked attention of q
+    (B, S, ...) over k (B, L, ...), in q's dtype: a broadcast view of one
+    zero (the reference's ``jnp.zeros((B, 1, S, L), q.dtype)``)."""
+    B, S, L = q.shape[0], q.shape[1], k.shape[1]
+    return torch.zeros((1, 1, 1, 1), dtype=q.dtype,
+                       device=q.device).expand(B, 1, S, L)
+
+
 def _decode_mask(pos, L, window=None):
     """(B, 1, 1, L) additive mask of the dense (ring) view for queries at
     per-slot positions ``pos`` (B,)."""
@@ -253,6 +262,14 @@ class GQAAttention(nn.Module):
         pos = positions.expand(B, S) if positions.dim() == 1 else positions
         mask = causal_mask(pos, pos, self.window)[:, None]
         return self._out(_sdpa(q, k, v, mask), x)
+
+    def bidirectional(self, x):
+        """Full-sequence attention with no mask, rope at 0..S-1: the
+        Whisper encoder's self-attention (``whisper.EncoderLayer``), the
+        naive softmax whatever ``attention_impl`` says, as in the
+        reference.  x: (B, S, D)."""
+        q, k, v = self._qkv(x, torch.arange(x.shape[1], device=x.device))
+        return self._out(_sdpa(q, k, v, no_mask(q, k)), x)
 
     # --- dense cache ---------------------------------------------------
     def ring_length(self, length):

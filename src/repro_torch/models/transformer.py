@@ -252,21 +252,31 @@ class DecoderLM(nn.Module):
         d_model) tensor, else a list of per-layer attention caches."""
         return self.cfg.layer_specs()[0].kind == MINGRU
 
-    def forward(self, tokens, positions=None):
-        """tokens: (B, S) int -> logits (B, S, V_pad) fp32."""
-        x = self.embed(tokens).to(self.compute_dtype)
+    def forward(self, tokens=None, positions=None, embeds=None):
+        """tokens: (B, S) int, or embeds: (B, P, D) (the VLM's stubbed
+        patch embeddings); both may be given, the embeds then prepended
+        in the compute dtype (``DecoderLM.__call__``).  Returns logits
+        (B, P + S, V_pad) fp32."""
+        parts = []
+        if embeds is not None:
+            parts.append(embeds.to(self.compute_dtype))
+        if tokens is not None:
+            parts.append(self.embed(tokens))
+        x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        x = x.to(self.compute_dtype)
         for layer in self.layers:
             x = layer(x, positions)
         return self._head(x)
 
     def loss(self, batch):
-        """batch: {"tokens": (B, S), "labels": (B, S)}; labels −1 are
-        masked.  Mean next-token NLL over the unmasked labels, from fp32
-        logits (``transformer.DecoderLM.loss``).  Returns (scalar loss,
+        """batch: {"tokens": (B, S), "labels": (B, S), optional "embeds"
+        (B, P, D)}; labels −1 are masked.  Mean next-token NLL over the
+        unmasked labels, from fp32 logits; an embeds prefix gives no
+        loss (``transformer.DecoderLM.loss``).  Returns (scalar loss,
         {"loss", "tokens"})."""
-        logits = self(batch["tokens"]).float()
+        logits = self(batch.get("tokens"), embeds=batch.get("embeds"))
         labels = batch["labels"]
-        logits = logits[:, -labels.shape[1]:, :]
+        logits = logits[:, -labels.shape[1]:, :].float()
         mask = labels >= 0
         lab = labels.clamp(min=0).long()
         logz = torch.logsumexp(logits, dim=-1)

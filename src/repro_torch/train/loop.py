@@ -148,8 +148,15 @@ class Trainer:
                               "aux": aux}, blocking=blocking)
 
     def _batch(self, step):
-        return {k: torch.from_numpy(v).to(self.device, torch.int64)
-                for k, v in self.loader.batch_at(step).items()}
+        """The loader's numpy batch on the model's device: integer arrays
+        (tokens, labels) as int64, float ones (the stubbed ``embeds`` of
+        a VLM or Whisper) in their own dtype."""
+        out = {}
+        for k, v in self.loader.batch_at(step).items():
+            t = torch.from_numpy(v)
+            out[k] = t.to(self.device, None if t.is_floating_point()
+                          else torch.int64)
+        return out
 
     def run(self):
         """Train to ``cfg.steps``; returns (model, final step)."""

@@ -14,7 +14,9 @@ of each other); the IMC projection the reference's 1e-5; the flash-attention for
 2e-6 in bf16, its gradients the reference's atol 5e-5 / rtol 5e-4 in
 fp32 and one bf16 ulp on top of that in bf16; the fused selective scan
 the reference's 2e-5 (forward) and atol 5e-5 / rtol 5e-4 (gradients),
-with atol scaled by the largest magnitude of the plain result."""
+with atol scaled by the largest magnitude of the plain result; the flash
+kernels at whisper-small's and llava-next-34b's training shapes one bf16
+ulp plus 2e-6 of the plain version, the gradients of its fp64 sums."""
 import numpy as np
 import pytest
 import torch
@@ -479,6 +481,13 @@ PAGED_MODEL_CASES = [
     (4, 16, 2, 128, 16, 256, None, [255, 100, 31, 0]),
     (4, 32, 4, 128, 16, 512, None, [511, 511, 511, 511]),
     (4, 32, 4, 128, 16, 512, None, [511, 300, 17, 0]),
+    # stablelm-12b's decode (32/8 heads of 160: the scalar route at bf16,
+    # fp32 and int8; cache 544 = 512 + 32, chip_smoke's rows 5e/6e) and
+    # mistral-large-123b's heads (96/8 of 128, group 12; rows 5f/6f)
+    (4, 32, 8, 160, 16, 544, None, [543, 543, 543, 543]),
+    (4, 32, 8, 160, 16, 544, None, [543, 300, 17, 0]),
+    (4, 96, 8, 128, 16, 544, None, [543, 543, 543, 543]),
+    (4, 96, 8, 128, 16, 544, None, [543, 200, 16, 1]),
 ]
 
 
@@ -829,6 +838,82 @@ def test_attention_lm_train_step_on_cuda_launches_flash_kernels(cuda):
     assert (fa_ops.flash_fwd_kernel.launches - n[0],
             fa_ops.flash_bwd_kernel.launches_dq - n[1],
             fa_ops.flash_bwd_kernel.launches_dkv - n[2]) == (cfg.n_layers,) * 3
+
+
+# (B, H, KV, S, D) of the decoder self-attention of whisper-small's
+# training (chip_smoke phase whisper: batch 4 x 448 tokens) and of
+# llava-next-34b's (phase vlm: batch 2, 576 patches + 512 tokens, GQA group
+# 7), causal, bf16: the tc route
+FLASH_MODEL_CASES = [(4, 12, 12, 448, 64), (2, 56, 8, 1088, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_MODEL_CASES, ids=str)
+def test_flash_kernels_at_whisper_and_llava_shapes(cuda, case):
+    """flash_fwd and flash_bwd on the tc route at the two new training
+    shapes: out within one bf16 ulp + 2e-6 of the plain version, lse 2e-5
+    + 2e-5 |lse|, dq/dk/dv within one bf16 ulp + 2e-6 of the plain
+    version's sums in fp64 (chip_smoke's kernel-row bounds)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, H, KV, S, D = case
+    bf = torch.bfloat16
+    q, k, v, do = _flash_inputs(cuda, B, H, KV, S, D, bf, seed=S)
+    tc0 = _tc_counts()
+    out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, None)
+    got = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, None)
+    assert _tc_counts() == tuple(x + 1 for x in tc0)
+    want, want_lse = fa_ref.flash_attention_ref(q, k, v, True, None)
+    wgrads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, True,
+                                            None, acc=torch.float64)
+    torch.cuda.synchronize()
+    assert _bf16_close(out, want)
+    _flash_check(lse, want_lse, torch.float32, 2e-5, 2e-5)
+    for g, w in zip(got, wgrads):
+        assert g.dtype == bf and _bf16_close(g, w)
+
+
+@pytest.mark.cuda
+def test_whisper_builds_on_cuda_and_trains_through_flash(cuda):
+    """build_model with no device named puts whisper-small-smoke on the
+    card; one train step with attention_impl="flash" launches the flash
+    kernels once a decoder layer, the encoder none (its softmax is the
+    reference's naive one); the cached decode runs on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, param_groups
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(get_config("whisper-small-smoke"),
+                              attention_impl="flash")
+    model = build_model(cfg)
+    assert {p.device.type for p in model.parameters()} == {"cuda"}
+    step = build_train_step(model, AdamW(param_groups(model), lr=1e-3))
+    batch = {k: torch.from_numpy(v).to(cuda, torch.int64) for k, v in
+             SyntheticLMDataset(vocab=cfg.vocab, seq_len=24).sample(
+                 2, 0).items()}
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch["embeds"] = 0.1 * torch.randn(2, cfg.frontend_seq, cfg.d_model,
+                                        device=cuda, generator=g)
+    n = (fa_ops.flash_fwd_kernel.launches,
+         fa_ops.flash_bwd_kernel.launches_dq,
+         fa_ops.flash_bwd_kernel.launches_dkv)
+    _, met = step({}, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(met["loss"]))
+    assert (fa_ops.flash_fwd_kernel.launches - n[0],
+            fa_ops.flash_bwd_kernel.launches_dq - n[1],
+            fa_ops.flash_bwd_kernel.launches_dkv - n[2]) == (cfg.n_layers,) * 3
+    with torch.no_grad():
+        cache = model.init_cache(2, 4, frame_embeds=batch["embeds"])
+        logits, _ = model.decode_step(batch["tokens"][:, :1], cache, 0)
+    assert logits.device.type == "cuda"
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.cuda

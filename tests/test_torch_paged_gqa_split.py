@@ -195,7 +195,25 @@ CASES = [
     # same)
     (2, 4, 2, 256, 16, 64, 64, [200, 40]),
     (2, 16, 2, 128, 16, 64, None, [63, 20]),
+    # stablelm-12b's heads of 160 (the kernels' scalar route: one query
+    # row a tile, one element a lane) and mistral-large-123b's group 12
+    (2, 8, 2, 160, 16, 64, None, [63, 20]),
+    (2, 12, 1, 128, 16, 48, None, [47, 5]),
 ]
+
+
+@pytest.mark.parametrize("hd,itemsize,want", [
+    (64, 2, "vector"), (128, 2, "vector"), (256, 2, "vector"),
+    (160, 2, "scalar"), (160, 1, "scalar"), (160, 4, "scalar"),
+    (128, 1, "vector"), (256, 1, "vector"), (128, 4, "vector"),
+    (80, 2, "scalar"), (512, 2, "scalar"), (24, 2, "scalar"),
+    (16, 2, "vector")])
+def test_gqa_route_mirrors_the_launch_rule(hd, itemsize, want):
+    """``ops.gqa_route``: 16-byte chunks where a row is a power-of-two
+    count of at most 32 of them (``csrc/paged_gqa.cuh`` ``launch``), else
+    the scalar route; stablelm-12b's head dim 160 is 20 bf16 chunks, 10
+    int8 ones and 40 fp32 ones."""
+    assert ops.gqa_route(hd, itemsize) == want
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["fp32", "int8"])
