@@ -155,7 +155,21 @@ Phases, each fatal on failure:
                one bf16 decode step eager against graph replay (idle
                share) and its device time split between attention, the
                MLPs and the rest (one profiler window).
- 18. imc     — the paper's IMC projection (Eq. 6) through its entry point
+ 18. mesh_serve — a world-1 process group (NCCL, through a FileStore
+               under build/) and a 1x1 DeviceMesh: (a) full-width
+               minimalist-lm-360m dense, phase lm's traffic greedy and
+               sampled, (b) full-width smollm-360m (output projections
+               x32), phase paged's traffic from bf16 pages through paged_gqa
+               and int8 pages through paged_gqa_q8 — every stream bitwise
+               the no-mesh engine's, each kernel's launches equal to the
+               no-mesh run's, tok/s and decode-step p50 with and without
+               the mesh — and (c) two AdamW steps of smollm-360m through
+               flash at 1 x 2048 on the mesh, each loss within 1e-6
+               relative of the no-mesh run's; (d) TP 2 over two cards with
+               spawned NCCL ranks when two are visible, (a) greedy and (b)
+               bf16 against the no-mesh streams under the margin rule (else
+               a line says it did not run).
+ 19. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
                against its plain version, and Eq. 6's all-ones and
@@ -1725,16 +1739,18 @@ def phase_system(torch, dev):
 
 
 def _serve_paged(torch, model, prompts, gen_tokens, *, prefix_cache=False,
-                 prefill_chunk=256):
+                 prefill_chunk=256, mesh=None):
     """One run of the paged serving path through the entry points a user
-    calls (build_engine with a paged ServeConfig)."""
+    calls (build_engine with a paged ServeConfig; on ``mesh`` when one is
+    given)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve import Telemetry
 
     eng = build_engine(model, ServeConfig(
         slots=4, max_len=256, prefill_chunk=prefill_chunk, kv_layout="paged",
-        page_size=16, prefix_cache=prefix_cache), telemetry=Telemetry())
+        page_size=16, prefix_cache=prefix_cache), telemetry=Telemetry(),
+        mesh=mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=gen_tokens) for p in prompts]
@@ -3913,6 +3929,312 @@ def phase_stablelm_serve(torch, dev):
     return {"paged_gqa": n_a, "paged_gqa_q8": q_c}
 
 
+# phase mesh_serve: the archs it serves (a rehearsal on the CPU maps them
+# to their smoke variants) and the flash training shape of its part (c)
+MESH_LM, MESH_GQA = "minimalist-lm-360m", "smollm-360m"
+MESH_TRAIN_SEQ = 2048
+
+
+def _mesh_group(torch, dev, rank=0, world=1, name="mesh_serve_store"):
+    """Open this rank's process group (NCCL on the card, gloo on the CPU)
+    through a FileStore under build/."""
+    import torch.distributed as dist
+
+    store = ROOT / "build" / name
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if rank == 0 and store.exists():
+        store.unlink()
+    if dev.type == "cuda":      # the card the group's communicator uses
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(str(store), world),
+                            rank=rank, world_size=world)
+
+
+def _mesh_lm_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, size=p)
+            for p in [192, 192, 192, 192, 64, 96, 128, 160]]
+
+
+def _mesh_gqa_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, size=p)
+            for p in [71, 97, 130, 150, 165, 181, 190, 75]]
+
+
+def _mesh_lm_run(torch, model, prompts, *, sampled, mesh=None):
+    """Phase lm's traffic (32 new tokens; odd requests sampled when
+    ``sampled``) through ServeEngine, dense slots: (streams, linear_scan
+    launches, engine, seconds)."""
+    from repro_torch.configs import SamplingParams
+    from repro_torch.kernels.linear_scan.ops import linear_scan_kernel
+    from repro_torch.serve import DecoderStepModel, ServeEngine, Telemetry
+
+    eng = ServeEngine(DecoderStepModel(model, max_len=512,
+                                       prefill_chunk=256),
+                      slots=4, telemetry=Telemetry(), mesh=mesh)
+    linear_scan_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=32, sampling=SamplingParams(
+        temperature=0.8, top_k=40, seed=11 + i)
+        if sampled and i % 2 else None) for i, p in enumerate(prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    return ([r.tokens.tolist() for r in reqs], linear_scan_kernel.launches,
+            eng, time.perf_counter() - t0)
+
+
+def _mesh_gqa_model(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return _sharpen(torch, build_model(
+        get_config(MESH_GQA), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0)))
+
+
+def _mesh_tp2_rank(rank, world, out_path):
+    """One rank of part (d): TP 2 over two cards, phase (a)'s greedy and
+    phase (b)'s bf16 traffic; rank 0 writes the streams to ``out_path``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+
+    dev = resolve_device(f"cuda:{rank}")
+    torch.cuda.set_device(dev)
+    _mesh_group(torch, dev, rank, world, "mesh_serve_tp2_store")
+    try:
+        mesh = make_local_mesh(model=world, data=1, device="cuda")
+        cfg = get_config(MESH_LM)
+        model = build_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        lm, *_ = _mesh_lm_run(torch, model, _mesh_lm_prompts(cfg),
+                              sampled=False, mesh=mesh)
+        del model
+        model = _mesh_gqa_model(torch, dev)
+        _eng, reqs, _dt = _serve_paged(
+            torch, model, _mesh_gqa_prompts(model.cfg), 32, mesh=mesh)
+        if rank == 0:
+            Path(out_path).write_text(json.dumps({
+                "lm": lm, "gqa": [r.tokens.tolist() for r in reqs]}))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_serve(torch, dev):
+    """Serving and training on a 1x1 DeviceMesh (world-1 group) at full
+    width, bitwise the no-mesh runs: (a) minimalist-lm-360m dense through
+    linear_scan, greedy and sampled; (b) smollm-360m (output projections
+    x32) from bf16 and int8 pages through paged_gqa(_q8), with generated
+    tok/s and decode-step p50 with and without the mesh; (c) two AdamW
+    steps of smollm-360m through flash at 1 x MESH_TRAIN_SEQ; (d) TP 2
+    over two cards when more than one is visible."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh, mesh_info
+
+    _mesh_group(torch, dev)
+    try:
+        mesh = make_local_mesh(model=1, data=1, device=dev.type)
+        print(f"mesh_serve: {dist.get_backend()} world-1 group, mesh "
+              f"{mesh_info(mesh)}", flush=True)
+        launches = _mesh_serve_parts(torch, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    _mesh_tp2(torch, dev)
+    return launches
+
+
+def _mesh_serve_parts(torch, dev, mesh):
+    from repro_torch.common.pytree import module_tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamW, param_groups
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import spmd
+
+    # (a) minimalist-lm-360m, dense slots: no mesh first, then the same
+    # model bound to the mesh in place
+    cfg = get_config(MESH_LM)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    prompts = _mesh_lm_prompts(cfg)
+    ref = {s: _mesh_lm_run(torch, model, prompts, sampled=s)
+           for s in (False, True)}
+    got = {s: _mesh_lm_run(torch, model, prompts, sampled=s, mesh=mesh)
+           for s in (False, True)}
+    n_scan = 0
+    for s in (False, True):
+        tag = "sampled" if s else "greedy"
+        (rs, rn, _re, rdt), (gs, gn, _ge, gdt) = ref[s], got[s]
+        if gs != rs:
+            fail(f"mesh_serve (a) {tag}: 1x1 mesh streams differ from the "
+                 f"no-mesh engine's (request {_first_divergence_req(rs, gs)})")
+        if gn == 0 or gn != rn:
+            fail(f"mesh_serve (a) {tag}: linear_scan launches {gn} on the "
+                 f"mesh, {rn} without")
+        n_scan += gn
+        print(f"mesh_serve (a): {cfg.name} dense {tag}: 8 streams bitwise "
+              f"the no-mesh engine's, linear_scan launches {gn} (no mesh "
+              f"{rn}); {rdt:.3f} s without the mesh, {gdt:.3f} s on it",
+              flush=True)
+    del model, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) smollm-360m x32 from bf16 and int8 pages
+    model = _mesh_gqa_model(torch, dev)
+    cfg = model.cfg
+    prompts = _mesh_gqa_prompts(cfg)
+    counts = {"paged_gqa": 0, "paged_gqa_q8": 0}
+
+    def run(kv, mesh=None):
+        _reconfigure(model, kv_dtype=kv)
+        if kv == "bf16":     # warm-up of each side (the int8 run follows)
+            _serve_paged(torch, model, prompts[:4], 2, mesh=mesh)
+        pa_ops.paged_gqa_kernel.launches = 0
+        pa_ops.paged_gqa_q8_kernel.launches = 0
+        eng, reqs, dt = _serve_paged(torch, model, prompts, 32, mesh=mesh)
+        n = (pa_ops.paged_gqa_kernel.launches,
+             pa_ops.paged_gqa_q8_kernel.launches)
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        toks = [r.tokens.tolist() for r in reqs]
+        return toks, n, sum(map(len, toks)) / dt, stp["p50"], eng.n_steps
+    ref = {kv: run(kv) for kv in ("bf16", "int8")}
+    got = {kv: run(kv, mesh) for kv in ("bf16", "int8")}
+    for kv, name, i in (("bf16", "paged_gqa", 0), ("int8", "paged_gqa_q8",
+                                                    1)):
+        (rs, rn, rtps, rp50, rsteps), (gs, gn, gtps, gp50, gsteps) = \
+            ref[kv], got[kv]
+        if gs != rs:
+            fail(f"mesh_serve (b) {kv}: 1x1 mesh streams differ from the "
+                 f"no-mesh engine's (request {_first_divergence_req(rs, gs)})")
+        if gn[i] == 0 or gn != rn or gn[1 - i]:
+            fail(f"mesh_serve (b) {kv}: (paged_gqa, paged_gqa_q8) launches "
+                 f"{gn} on the mesh, {rn} without")
+        counts[name] += gn[i]
+        print(f"mesh_serve (b): {cfg.name} x32 {kv} pages: 8 greedy streams "
+              f"bitwise the no-mesh engine's (distinct tokens per stream "
+              f"{[len(set(t)) for t in gs]}), {name} launches {gn[i]} (no "
+              f"mesh {rn[i]}); generated tok/s incl. prefill {gtps:.1f} on "
+              f"the mesh, {rtps:.1f} without; decode step p50 {gp50:.2f} ms "
+              f"on the mesh, {rp50:.2f} ms without ({gsteps} / {rsteps} "
+              f"steps)", flush=True)
+    _reconfigure(model, kv_dtype="bf16")
+    del model, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) two AdamW steps through flash at 1 x MESH_TRAIN_SEQ
+    import numpy as np
+    tcfg = dataclasses.replace(get_config(MESH_GQA), attention_impl="flash")
+    toks = np.random.default_rng(5).integers(0, tcfg.vocab,
+                                             (1, MESH_TRAIN_SEQ + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+
+    def two_steps(mesh=None):
+        model = build_model(tcfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        b = batch
+        if mesh is not None:
+            bind = spmd.bind(model, mesh)
+            b = shd.distribute_tree(batch, shd.batch_specs(batch, mesh), mesh)
+            specs = shd.opt_state_specs(bind.specs, module_tree(model), mesh,
+                                        zero1=True)
+        opt = AdamW(param_groups(model), lr=3e-4)
+        if mesh is not None:
+            from repro_torch.common.pytree import flatten_dict
+            opt.place_moments(dict(model.named_parameters()), {
+                ".".join(k): v for k, v in flatten_dict(specs["m"]).items()})
+        losses = []
+        _zero_flash_counts()
+        for _ in range(2):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = model.loss(b)
+            loss.backward()
+            spmd.sync_grads(model)
+            opt.step()
+            losses.append(loss.item())
+        torch.cuda.synchronize()
+        ran = _flash_counts()
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, ran
+    ref_l, _ = two_steps()
+    got_l, ran = two_steps(mesh)
+    rel = [abs(g - r) / abs(r) for g, r in zip(got_l, ref_l)]
+    print(f"mesh_serve (c): {tcfg.name} through flash at 1 x "
+          f"{MESH_TRAIN_SEQ}, 2 AdamW steps: losses {got_l} on the mesh, "
+          f"{ref_l} without (relative differences {rel}, tol 1e-6); flash "
+          f"launches (fwd, dq, dkv, then on the tc route) {ran}",
+          flush=True)
+    if max(rel) > 1e-6:
+        fail("mesh_serve (c): the mesh losses differ from the no-mesh ones")
+    want = tcfg.n_layers * 2
+    if ran != (want,) * 6:
+        fail(f"mesh_serve (c): flash launches {ran} != {tcfg.n_layers} "
+             "layers x 2 steps, all on the tc route")
+    return {"linear_scan": n_scan, **counts, "flash_fwd": ran[0],
+            "flash_bwd": ran[2]}
+
+
+def _first_divergence_req(a, b):
+    return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+
+
+def _mesh_tp2(torch, dev):
+    """Part (d): TP 2 over two cards, spawned NCCL ranks, against the
+    no-mesh streams of (a) greedy and (b) bf16 under the margin rule —
+    or a line saying it did not run."""
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n < 2:
+        print(f"mesh_serve (d): TP 2 not run: {n} card(s) visible (it "
+              "needs two)", flush=True)
+        return
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    out = ROOT / "build" / "mesh_serve_tp2.json"
+    out.unlink(missing_ok=True)
+    mp.start_processes(_mesh_tp2_rank, args=(2, str(out)), nprocs=2,
+                       start_method="spawn")
+    got = json.loads(out.read_text())
+    # the no-mesh streams; where TP 2's part from them, the parting must
+    # sit at a near-tie of the no-mesh model (the row-parallel sums
+    # reassociate in fp32)
+    cfg = get_config(MESH_LM)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    prompts = _mesh_lm_prompts(cfg)
+    lm, _n, eng, _dt = _mesh_lm_run(torch, model, prompts, sampled=False)
+    _margin_rule(torch, "mesh_serve (d) lm", eng.sm, cfg.vocab, prompts,
+                 got["lm"], lm)
+    del model, eng
+    model = _mesh_gqa_model(torch, dev)
+    prompts = _mesh_gqa_prompts(model.cfg)
+    eng, reqs, _dt = _serve_paged(torch, model, prompts, 32)
+    _margin_rule(torch, "mesh_serve (d) paged bf16", eng.sm, model.cfg.vocab,
+                 prompts, got["gqa"], [r.tokens.tolist() for r in reqs])
+    del model, eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("mesh_serve (d): TP 2 over two cards against no mesh: streams "
+          "above", flush=True)
+
+
 def phase_imc(torch, dev):
     """The paper's IMC projection through its entry point on the card, at
     the kernel rows' shapes and with leading dimensions, and Eq. 6's
@@ -4009,7 +4331,7 @@ def main():
     # the serving phases drive kernels of earlier phases: counts add up
     for phase in (phase_sched, phase_spec, phase_mamba_serve,
                   phase_moe_serve, phase_whisper, phase_vlm,
-                  phase_stablelm_serve):
+                  phase_stablelm_serve, phase_mesh_serve):
         for name, n in timed(phase).items():
             launches[name] += n
     launches["imc_mvm"] = timed(phase_imc)

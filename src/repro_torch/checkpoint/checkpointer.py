@@ -15,6 +15,11 @@
   * retention (keep_n) with garbage collection
 
 A tree is nested dicts / lists of tensors, numpy arrays or numbers.
+DTensor leaves (state placed on a mesh) are saved whole: every rank of
+the world calls :meth:`Checkpointer.save`, the leaves are gathered, rank
+0 writes, and the call returns once the step is committed.
+``restore(shardings=...)`` places the leaves onto any mesh — a
+checkpoint written on one mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -56,10 +61,34 @@ def _esc(path: str) -> str:
     return path.replace("/", "%2F")
 
 
+def _is_dtensor(v):
+    from torch.distributed.tensor import DTensor
+    return isinstance(v, DTensor)
+
+
 def _to_host(v):
+    if _is_dtensor(v):
+        v = v.full_tensor()
     if torch.is_tensor(v):
         return v.detach().to("cpu", copy=True).numpy()
     return np.array(v)
+
+
+def _place(tree, shardings):
+    """Leaves of ``tree`` with a NamedSharding in ``shardings`` onto it."""
+    from repro_torch.parallel import sharding as shd
+
+    if isinstance(shardings, shd.NamedSharding):
+        if shardings.mesh.get_coordinate() is None:
+            return None
+        t = torch.as_tensor(tree).to(shardings.mesh.device_type)
+        return shd.distribute(t, shardings)
+    if isinstance(shardings, (list, tuple)):
+        shardings = {str(i): s for i, s in enumerate(shardings)}
+    if isinstance(shardings, dict):
+        return {k: _place(v, shardings[k]) if k in shardings else v
+                for k, v in tree.items()}
+    return tree
 
 
 class Checkpointer:
@@ -74,8 +103,17 @@ class Checkpointer:
         self.wait()
         # host copies on the caller's thread (the next step updates the
         # device tensors in place)
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        host = {k: _to_host(v) for k, v in flat.items()}
+        if any(_is_dtensor(v) for v in flat.values()):
+            import torch.distributed as dist
+            if dist.get_rank() == 0:
+                self._save_host(step, host, blocking=True)
+            dist.barrier()
+            return
+        self._save_host(step, host, blocking=blocking)
 
+    def _save_host(self, step, host, *, blocking):
         def _write():
             tmp = os.path.join(self.root, f"step_{step:08d}.tmp")
             final = os.path.join(self.root, f"step_{step:08d}")
@@ -116,10 +154,12 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int | None = None, device=None):
+    def restore(self, step: int | None = None, device=None, shardings=None):
         """The tree saved at ``step`` (default: the latest), as numpy
         arrays, or as tensors on ``device`` when one is given; None when
-        there is no checkpoint."""
+        there is no checkpoint.  ``shardings``: a tree (a sub-tree of the
+        saved one) of ``sharding.NamedSharding`` leaves — those leaves come
+        back as DTensors on their mesh (None on a rank outside it)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
@@ -131,7 +171,8 @@ class Checkpointer:
         if device is not None:
             flat = {k: torch.from_numpy(v).to(device)
                     for k, v in flat.items()}
-        return _unflatten(flat)
+        tree = _unflatten(flat)
+        return tree if shardings is None else _place(tree, shardings)
 
     def _gc(self):
         steps = self.steps()

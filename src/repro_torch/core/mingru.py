@@ -21,6 +21,7 @@ from repro_torch.core import quant
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels.linear_scan import ops as scan_ops
 from repro_torch.models.module import fan_in_init
+from repro_torch.parallel import spmd
 
 
 class MinGRUBlock(nn.Module):
@@ -50,9 +51,23 @@ class MinGRUBlock(nn.Module):
             # bias the gate towards "keep state" at init (z ≈ 0.27 under σ)
             self.bz.fill_(-1.0)
 
+    def axes(self):
+        return {"wh": ("embed", "mlp"), "bh": ("mlp",),
+                "wz": ("embed", "mlp"), "bz": ("mlp",)}
+
+    def _sharded(self):
+        """The runtime when this block's hidden dim is "model"-sharded
+        (its parameters hold this rank's columns), else None."""
+        s = spmd.current()
+        return s if s is not None and self.bh.shape[0] < self.dim else None
+
     def projections(self, x):
-        """Return (h̃, z) for input x: (B, T, in_dim), in x.dtype."""
+        """Return (h̃, z) for input x: (B, T, in_dim), in x.dtype.  Under
+        a "model"-sharded hidden dim: this rank's columns of both."""
         cfg = self.qcfg
+        s = self._sharded()
+        if s is not None:
+            x = s.enter(x)
         bh = quant.maybe_quant_bias(self.bh, cfg).to(x.dtype)
         bz = quant.maybe_quant_gate_bias(self.bz, cfg).to(x.dtype)
         if cfg.quantize_weights:
@@ -60,6 +75,8 @@ class MinGRUBlock(nn.Module):
             # h and z synapses (paper Fig. 2A; analog.export_layer)
             scale = torch.maximum(quant.weight_scale(self.wh),
                                   quant.weight_scale(self.wz)).detach()
+            if s is not None:       # the layer's one scale: max of shards
+                scale = s.reduce_max(scale)
             if x.dtype == torch.float32:
                 # the array's own order (paper Eq. 6): sum the 2 b levels,
                 # then scale by Δ once.  Exact for binary inputs in any
@@ -84,19 +101,26 @@ class MinGRUBlock(nn.Module):
         """x: (B, T, in_dim) -> (out (B,T,dim), h (B,T,dim)).
         ``backend`` overrides the construction-time scan backend."""
         if h0 is None:
-            h0 = torch.zeros(x.shape[0], self.dim, dtype=x.dtype,
+            h0 = torch.zeros(x.shape[0], self.bh.shape[0], dtype=x.dtype,
                              device=x.device)
         htilde, z = self.projections(x)
         h = scan_ops.mingru_scan(z, htilde, h0.contiguous(),
                                  backend=backend or self.scan_backend)
-        return quant.output_fn(self.qcfg)(h), h
+        return self._whole(quant.output_fn(self.qcfg)(h)), h
+
+    def _whole(self, out):
+        """The block output over the whole hidden dim (gathered over
+        "model" when sharded); the state ``h`` stays this rank's
+        columns."""
+        s = self._sharded()
+        return out if s is None else s.gather(out)
 
     def step(self, x_t, h_prev):
         """Single inference step. x_t: (B, in_dim); h_prev: (B, dim)."""
         htilde, z = self.projections(x_t[:, None, :])
         htilde, z = htilde[:, 0], z[:, 0]
         h = z * htilde + (1.0 - z) * h_prev
-        return quant.output_fn(self.qcfg)(h), h
+        return self._whole(quant.output_fn(self.qcfg)(h)), h
 
 
 def _readout_qcfg(qcfg: QuantConfig) -> QuantConfig:
@@ -141,6 +165,9 @@ class MinimalistNetwork(nn.Module):
     def reset_parameters(self, generator=None):
         for b in self.blocks:
             b.reset_parameters(generator)
+
+    def axes(self):
+        return {f"block{i}": b.axes() for i, b in enumerate(self.blocks)}
 
     def forward(self, x, collect_traces: bool = False):
         """x: (B, T, dims[0]) -> logits (B, dims[-1]).  With

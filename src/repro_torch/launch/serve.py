@@ -31,15 +31,30 @@ turns on speculative decoding with a pure-recurrent drafter (paged
 layout); ``--baseline`` runs the static-batch loop (:func:`generate`)
 instead of the engine.  ``--moe-dispatch pooled|per_request|auto`` sets
 an MoE arch's dispatch (``auto``, the default, is batch-invariant; an
-arch without MoE layers refuses it).  ``--mesh`` (sharded serving) is
-accepted by the parser and refused with an error naming it: it is not
-ported yet.
+arch without MoE layers refuses it).
+
+``--mesh DxM`` serves on a (data=D, model=M) mesh: parameters TP-shard
+over "model" by the rule tables, slots DP-shard over "data".  Run
+plainly, the launcher starts the D x M ranks itself and waits for them —
+gloo ranks with ``--device cpu``, NCCL ranks with one card each on
+``cuda`` (D x M must not exceed the visible cards); under ``torchrun``
+(``RANK``/``WORLD_SIZE`` set) it joins that group instead.  Rank 0 alone
+prints.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --mesh 2x2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,11 +97,12 @@ def generate(model, prompts, *, max_len, gen_tokens):
         return torch.stack(out, 1)
 
 
-def build_engine(model, serve: ServeConfig = ServeConfig(), telemetry=None):
+def build_engine(model, serve: ServeConfig = ServeConfig(), telemetry=None,
+                 mesh=None):
     """ServeEngine over ``model`` as ``serve`` configures it (dense or
     paged KV layout, prefix cache, policy, and the drafter
     ``serve.drafter`` on the target's device, weights from seed 1 as the
-    reference's)."""
+    reference's), bound to ``mesh`` when one is given."""
     kw = {}
     if serve.drafter:
         dev = model.device
@@ -105,15 +121,80 @@ def build_engine(model, serve: ServeConfig = ServeConfig(), telemetry=None):
                           kv_layout=serve.kv_layout, paged=paged)
     return ServeEngine(sm, slots=serve.slots, policy=serve.policy,
                        prefix_cache=serve.prefix_cache, telemetry=telemetry,
-                       **kw)
+                       mesh=mesh, **kw)
 
 
-def _not_ported(args, ap):
-    """Refuse every flag of a feature the port does not have yet."""
-    refused = {"--mesh": bool(args.mesh)}
-    bad = [flag for flag, used in refused.items() if used]
-    if bad:
-        ap.error(f"not ported to the PyTorch package yet: {', '.join(bad)}")
+def parse_mesh(spec: str):
+    """'DxM' -> (data=D, model=M); '' -> None (no mesh)."""
+    if not spec:
+        return None
+    try:
+        d, m = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh expects DxM (e.g. 2x2), got {spec!r}")
+    if m < 1 or d < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={d} model={m}")
+    return d, m
+
+
+def _spawn_ranks(argv, world: int) -> int:
+    """Start ``world`` ranks of this command, meeting through a FileStore
+    in a fresh temporary directory; rank 0's output is this process's.
+    Returns the first non-zero exit code (the others are then stopped),
+    else 0."""
+    import repro_torch
+
+    src = os.path.dirname(os.path.dirname(repro_torch.__file__))
+    with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
+        env = dict(os.environ, REPRO_TORCH_MESH_STORE=os.path.join(
+            tmp, "store"), REPRO_TORCH_MESH_WORLD=str(world),
+            PYTHONPATH=os.pathsep.join(
+                [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+            env=dict(env, REPRO_TORCH_MESH_RANK=str(r)),
+            stdout=None if r == 0 else subprocess.DEVNULL)
+            for r in range(world)]
+        try:
+            while True:
+                codes = [p.poll() for p in procs]
+                failed = [c for c in codes if c]
+                if failed or all(c == 0 for c in codes):
+                    rc = failed[0] if failed else 0
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        return rc
+
+
+def _join_ranks(device):
+    """Open this rank's process group (a rank this launcher started, or
+    one of ``torchrun``'s); returns (rank, world, device)."""
+    import torch.distributed as dist
+
+    if "REPRO_TORCH_MESH_STORE" in os.environ:
+        rank = int(os.environ["REPRO_TORCH_MESH_RANK"])
+        world = int(os.environ["REPRO_TORCH_MESH_WORLD"])
+        local = rank
+    else:
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        local = int(os.environ.get("LOCAL_RANK", rank))
+    if device.type == "cuda":
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "REPRO_TORCH_MESH_STORE" in os.environ:
+        store = dist.FileStore(os.environ["REPRO_TORCH_MESH_STORE"], world)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world)
+    else:
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=world)
+    return rank, world, device
 
 
 def main(argv=None):
@@ -179,15 +260,60 @@ def main(argv=None):
     ap.add_argument("--moe-dispatch", default=None,
                     choices=[None, "pooled", "per_request", "auto"],
                     help="MoE routing mode (default: the arch's, auto)")
-    # a feature of the reference not ported yet (refused by _not_ported)
-    ap.add_argument("--mesh", default="")
+    ap.add_argument("--mesh", default="",
+                    help="serve under a DxM mesh (e.g. 2x2 = data 2 x "
+                         "model 2): params and caches TP-shard over "
+                         "'model' via the logical-axis rules, slots "
+                         "DP-shard over 'data'; starts D*M ranks (gloo on "
+                         "the CPU, NCCL with one card a rank) unless run "
+                         "under torchrun")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     if min(args.requests, args.gen, args.prompt_len, args.slots) < 1:
         ap.error("--requests, --gen, --prompt-len and --slots must all "
                  "be >= 1")
-    _not_ported(args, ap)
+    try:
+        mesh_dm = parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
 
+    cfg, drafter = _config(args, ap)
     device = resolve_device(args.device)
+    if mesh_dm is None:
+        return _serve(args, cfg, drafter, device)
+    d, m = mesh_dm
+    if args.baseline:
+        ap.error("--baseline is the single-device static loop; drop --mesh")
+    if device.type == "cuda" and d * m > torch.cuda.device_count():
+        ap.error(f"mesh data={d} x model={m} needs {d * m} devices but only "
+                 f"{torch.cuda.device_count()} are available (one card a "
+                 "rank)")
+    if not ("REPRO_TORCH_MESH_STORE" in os.environ
+            or "WORLD_SIZE" in os.environ):
+        rc = _spawn_ranks(argv, d * m)
+        if rc:
+            raise SystemExit(rc)
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    rank, world, device = _join_ranks(device)
+    try:
+        mesh = make_local_mesh(model=m, data=d, device=device.type)
+        quiet = contextlib.redirect_stdout(io.StringIO()) if rank \
+            else contextlib.nullcontext()
+        with quiet:
+            print(f"mesh data={d} x model={m} ({world} "
+                  f"{dist.get_backend()} ranks)")
+            return _serve(args, cfg, drafter, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _config(args, ap):
+    """The config ``args`` ask for and the drafter's arch (flag errors
+    exit through ``ap``)."""
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
     if args.scan_backend:
         cfg = dataclasses.replace(cfg, scan_backend=args.scan_backend)
@@ -216,6 +342,12 @@ def main(argv=None):
                      "layers")
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch=args.moe_dispatch))
+    return cfg, drafter
+
+
+def _serve(args, cfg, drafter, device, mesh=None):
+    """Build the model and serve the run ``args`` describe (on ``mesh``
+    when one is given)."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = build_model(cfg, device=device, generator=gen)
 
@@ -250,7 +382,7 @@ def main(argv=None):
         kv_layout=args.kv_layout, page_size=args.page_size,
         num_pages=args.num_pages, prefix_cache=args.prefix_cache,
         policy=args.policy, spec_k=args.spec_k, drafter=drafter),
-        telemetry=telemetry)
+        telemetry=telemetry, mesh=mesh)
     if eng.drafter is not None:
         print(f"speculative decoding: drafter {drafter}, k={args.spec_k}")
     t0 = time.time()

@@ -53,6 +53,7 @@ from repro_torch.kernels.paged_attention.ref import (gather_dequant,
                                                      gather_pages,
                                                      paged_positions)
 from repro_torch.models.module import fan_in_init
+from repro_torch.parallel import spmd
 
 NEG_INF = -1e30
 
@@ -229,8 +230,76 @@ class GQAAttention(nn.Module):
             fan_in_init(w, c.d_model, generator)
         fan_in_init(self.wo, c.n_heads * c.head_dim, generator)
 
+    def axes(self):
+        return {"wq": ("embed", "heads", "head_dim"),
+                "wk": ("embed", "kv_heads", "head_dim"),
+                "wv": ("embed", "kv_heads", "head_dim"),
+                "wo": ("heads", "head_dim", "embed")}
+
+    def cache_axes(self):
+        a = ("batch", "kv_len", "kv_heads", "head_dim")
+        return {"k": a, "v": a}
+
+    def paged_cache_axes(self):
+        a = ("pages", "page", "kv_heads", "head_dim")
+        if self.cfg.kv_dtype == "int8":
+            sc = ("pages", "kv_heads")
+            return {"k": a, "v": a, "k_scale": sc, "v_scale": sc}
+        return {"k": a, "v": a}
+
+    # --- tensor parallelism: this rank's heads ---------------------------
+    # The rule tables shard the query heads when their count divides the
+    # "model" axis, and the KV heads likewise; KV heads cannot shard while
+    # the query heads replicate (H = KV·G).  Sharded query heads make the
+    # output projection a partial sum; replicated KV heads under sharded
+    # query heads (4 heads, 2 KV heads at TP 4) keep every KV head on
+    # every rank, and a rank's local query head h reads KV head
+    # (h + rank·H/tp) // G.
+    def _tp(self):
+        """The runtime when this layer's query heads are sharded."""
+        s = spmd.current()
+        return s if s is not None and \
+            self.wq.shape[1] < self.cfg.n_heads else None
+
+    def _kv_index(self):
+        """KV head of each local query head when the query heads shard and
+        the KV heads do not (else None: the plain H // KV grouping)."""
+        s = self._tp()
+        if s is None or self.wk.shape[1] < self.cfg.n_kv_heads:
+            return None
+        hl = self.wq.shape[1]
+        g = self.cfg.n_heads // self.cfg.n_kv_heads
+        return (s.tp_rank * hl + torch.arange(hl, device=self.wq.device)) \
+            // g
+
+    def _kernel_rows(self, idx):
+        """(row of each local query head, query rows a KV head) of the
+        query block the paged kernel takes when :meth:`_kv_index` applies:
+        KV head j's rows are j·m .. j·m + m - 1, m = the most local heads
+        one KV head serves."""
+        heads = idx.tolist()
+        m = max(heads.count(h) for h in heads)
+        seen, rows = {}, []
+        for h in heads:
+            rows.append(h * m + seen.get(h, 0))
+            seen[h] = seen.get(h, 0) + 1
+        return torch.as_tensor(rows, device=idx.device), m
+
+    def _kv(self, k, v):
+        """K/V (B, L, KV, hd) as this rank's query heads read them."""
+        idx = self._kv_index()
+        if idx is None:
+            return k, v
+        return k[:, :, idx], v[:, :, idx]
+
+    def _attend(self, q, k, v, mask):
+        return _sdpa(q, *self._kv(k, v), mask)
+
     def _qkv(self, x, positions):
         dt = x.dtype
+        s = self._tp()
+        if s is not None:
+            x = s.enter(x)
         q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
         k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt))
         v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt))
@@ -239,6 +308,14 @@ class GQAAttention(nn.Module):
                                                            theta), v
 
     def _out(self, out, x):
+        s = self._tp()
+        if s is not None:
+            # the heads' partial products stay in fp32 (what the compute
+            # dtype's GEMM accumulates in) until the sum over "model",
+            # rounded once as the single-device product is
+            return s.reduce(torch.einsum(
+                "bshk,hkd->bsd", out.float(),
+                self.wo.to(x.dtype).float())).to(x.dtype)
         return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
 
     def forward(self, x, positions=None):
@@ -256,12 +333,13 @@ class GQAAttention(nn.Module):
             positions = torch.arange(S, device=x.device)
         q, k, v = self._qkv(x, positions)
         if self.cfg.attention_impl == "flash":
+            k, v = self._kv(k, v)
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), True, self.window)
             return self._out(out.transpose(1, 2), x)
         pos = positions.expand(B, S) if positions.dim() == 1 else positions
         mask = causal_mask(pos, pos, self.window)[:, None]
-        return self._out(_sdpa(q, k, v, mask), x)
+        return self._out(self._attend(q, k, v, mask), x)
 
     def bidirectional(self, x):
         """Full-sequence attention with no mask, rope at 0..S-1: the
@@ -269,7 +347,7 @@ class GQAAttention(nn.Module):
         naive softmax whatever ``attention_impl`` says, as in the
         reference.  x: (B, S, D)."""
         q, k, v = self._qkv(x, torch.arange(x.shape[1], device=x.device))
-        return self._out(_sdpa(q, k, v, no_mask(q, k)), x)
+        return self._out(self._attend(q, k, v, no_mask(q, k)), x)
 
     # --- dense cache ---------------------------------------------------
     def ring_length(self, length):
@@ -279,7 +357,10 @@ class GQAAttention(nn.Module):
 
     def init_cache(self, batch, length, dtype=torch.bfloat16):
         c = self.cfg
-        shape = (batch, self.ring_length(length), c.n_kv_heads, c.head_dim)
+        # self.wk: this rank's KV heads inside spmd.local_view, all of
+        # them outside
+        shape = (batch, self.ring_length(length), self.wk.shape[1],
+                 c.head_dim)
         dev = self.wq.device
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -312,7 +393,7 @@ class GQAAttention(nn.Module):
             mask = torch.where(k_pos[None, :] <= positions[:, None], zero,
                                _neg_inf(x))
             mask = mask[None, None].expand(B, 1, S, L)
-            out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask)
+            out = self._attend(q, ck.to(q.dtype), cv.to(q.dtype), mask)
         else:
             W = min(self.window, L)
             j = torch.arange(L, device=dev)
@@ -328,7 +409,7 @@ class GQAAttention(nn.Module):
             mask = mask[None, None].expand(B, 1, S, L + S)
             kk = torch.cat([cache["k"].to(q.dtype), k], dim=1)
             vv = torch.cat([cache["v"].to(q.dtype), v], dim=1)
-            out = _sdpa(q, kk, vv, mask)
+            out = self._attend(q, kk, vv, mask)
             # only the last L valid tokens survive a wrap
             keep = slice(max(0, length - L), length)
             idx = torch.remainder(positions[keep], L)
@@ -354,8 +435,8 @@ class GQAAttention(nn.Module):
         ck, cv = cache["k"].clone(), cache["v"].clone()
         ck[rows, slot] = k[:, 0].to(ck.dtype)
         cv[rows, slot] = v[:, 0].to(cv.dtype)
-        out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype),
-                    self._decode_mask(pos, L))
+        out = self._attend(q, ck.to(q.dtype), cv.to(q.dtype),
+                           self._decode_mask(pos, L))
         return self._out(out, x), {"k": ck, "v": cv}
 
     # --- paged cache ---------------------------------------------------
@@ -363,9 +444,10 @@ class GQAAttention(nn.Module):
         """{leaf: (shape, dtype)} of this layer's page pool; int8 pools
         add a float32 (page, kv head) scale leaf per data leaf."""
         c = self.cfg
-        shape = (num_pages, page_size, c.n_kv_heads, c.head_dim)
+        kv = self.wk.shape[1]       # this rank's, in spmd.local_view
+        shape = (num_pages, page_size, kv, c.head_dim)
         if c.kv_dtype == "int8":
-            sc = ((num_pages, c.n_kv_heads), torch.float32)
+            sc = ((num_pages, kv), torch.float32)
             return {"k": (shape, torch.int8), "v": (shape, torch.int8),
                     "k_scale": sc, "v_scale": sc}
         return {"k": (shape, dtype), "v": (shape, dtype)}
@@ -379,15 +461,26 @@ class GQAAttention(nn.Module):
         active slots when the caller has them (else taken from
         ``active``).  Each ACTIVE slot's K/V is written into its live page
         in place (int8: quantized into it), then attention reads the
-        chains back.  Returns (y, cache)."""
+        chains back.
+
+        Slots sharded over "data" (a bound mesh's decode step): the pools
+        are whole on every data rank, so the K/V of every rank's active
+        slots are gathered and written on each (the step's global views,
+        ``Spmd.step``), and the attention reads this rank's slots.
+        Returns (y, cache)."""
         q, k, v = self._qkv(x, pos.long()[:, None])
         ps = cache["k"].shape[1]
         L = self.ring_length(length)
         if rows is None:
             rows = torch.nonzero(active).flatten()
-        wpos = pos.long()[rows]
+        s = spmd.current()
+        wbt, wposs = bt, pos
+        if s is not None and s.step is not None:
+            k, v = s.gather_rows(k, s.step.n), s.gather_rows(v, s.step.n)
+            wbt, wposs, rows = s.step.bt, s.step.pos, s.step.rows
+        wpos = wposs.long()[rows]
         slot = torch.remainder(wpos, L) if self.window else wpos
-        wpage = bt[rows, slot // ps].long()
+        wpage = wbt[rows, slot // ps].long()
         in_page = slot % ps
         q8 = self.cfg.kv_dtype == "int8"
         if q8:
@@ -407,10 +500,22 @@ class GQAAttention(nn.Module):
         if self.cfg.paged_impl != "gather":
             from repro_torch.kernels.paged_attention.ops import (
                 paged_gqa_attention)
+            idx = self._kv_index()
+            qk = q[:, 0]
+            if idx is not None:
+                # every KV head is here but this rank's query heads do not
+                # make whole groups: give the kernel m query rows a KV head
+                # (zeros where no local head reads it)
+                sel, m = self._kernel_rows(idx)
+                qk = qk.new_zeros(qk.shape[0], ck.shape[2] * m, qk.shape[2])
+                qk[:, sel] = q[:, 0]
             out = paged_gqa_attention(
-                q[:, 0], ck, cv, bt, pos, length=L, window=self.window,
+                qk, ck, cv, bt, pos, length=L, window=self.window,
                 backend=self.cfg.paged_impl, k_scale=cks,
-                v_scale=cvs)[:, None]
+                v_scale=cvs)
+            if idx is not None:
+                out = out[:, sel]
+            out = out[:, None]
         else:
             if q8:
                 kd = gather_dequant(ck, cks, bt, L, q.dtype)
@@ -418,7 +523,7 @@ class GQAAttention(nn.Module):
             else:
                 kd = gather_pages(ck, bt, L).to(q.dtype)
                 vd = gather_pages(cv, bt, L).to(q.dtype)
-            out = _sdpa(q, kd, vd, self._decode_mask(pos, L))
+            out = self._attend(q, kd, vd, self._decode_mask(pos, L))
         return self._out(out, x), cache
 
     # --- speculative k-token verify (read-only; commit is separate) ---
@@ -441,8 +546,9 @@ class GQAAttention(nn.Module):
         block = {"k": k.to(view["k"].dtype), "v": v.to(view["v"].dtype)}
 
         def attend(i, view, mask):
-            return _sdpa(q[:, i:i + 1].contiguous(), view["k"].to(q.dtype),
-                         view["v"].to(q.dtype), mask)
+            return self._attend(q[:, i:i + 1].contiguous(),
+                                view["k"].to(q.dtype),
+                                view["v"].to(q.dtype), mask)
         out = _verify_overlays(view, block, positions, self.window, attend)
         return self._out(out, x), block
 
@@ -506,6 +612,26 @@ class MLAAttention(nn.Module):
         with torch.no_grad():
             self.q_norm.fill_(1.0)
             self.kv_norm.fill_(1.0)
+
+    def axes(self):
+        return {"w_dq": ("embed", "q_lora"),
+                "w_uq": ("q_lora", "heads", "head_dim"),
+                "w_dkv": ("embed", "kv_lora"),
+                "w_kr": ("embed", "head_dim"),
+                "w_ukv": ("kv_lora", "heads", "head_dim"),
+                "wo": ("heads", "head_dim", "embed"),
+                "q_norm": ("q_lora",), "kv_norm": ("kv_lora",)}
+
+    def cache_axes(self):
+        return {"ckv": ("batch", "kv_len", "kv_lora"),
+                "krope": ("batch", "kv_len", "head_dim")}
+
+    def paged_cache_axes(self):
+        a = {"ckv": ("pages", "page", "kv_lora"),
+             "krope": ("pages", "page", "head_dim")}
+        if self.cfg.kv_dtype == "int8":
+            a.update(ckv_scale=("pages",), krope_scale=("pages",))
+        return a
 
     @staticmethod
     def _rms(x, scale, eps=1e-6):
@@ -665,8 +791,14 @@ class MLAAttention(nn.Module):
         ps = cache["ckv"].shape[1]
         if rows is None:
             rows = torch.nonzero(active).flatten()
-        wpos = pos.long()[rows]
-        wpage = bt[rows, wpos // ps].long()
+        s = spmd.current()
+        wbt, wposs = bt, pos
+        if s is not None and s.step is not None:     # DP: pools whole
+            ckv = s.gather_rows(ckv, s.step.n)
+            k_rope = s.gather_rows(k_rope, s.step.n)
+            wbt, wposs, rows = s.step.bt, s.step.pos, s.step.rows
+        wpos = wposs.long()[rows]
+        wpage = wbt[rows, wpos // ps].long()
         in_page = wpos % ps
         q8 = self.cfg.kv_dtype == "int8"
         if q8:

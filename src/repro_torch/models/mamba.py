@@ -217,6 +217,17 @@ class MambaBlock(nn.Module):
         return y, self._carry(h_last, hist[:, s:s + self.mc.d_conv - 1],
                               cache)
 
+    def axes(self):
+        return {"w_in": ("embed", "d_inner"), "conv": (None, "d_inner"),
+                "conv_b": ("d_inner",),
+                "w_bcdt": ("d_inner", None), "w_dt": (None, "d_inner"),
+                "dt_bias": ("d_inner",), "a_log": ("d_inner", None),
+                "d_skip": ("d_inner",), "w_out": ("d_inner", "embed")}
+
+    def cache_axes(self):
+        return {"ssm": ("batch", "d_inner", "state"),
+                "conv": ("batch", "conv", "d_inner")}
+
     # --- decode: O(1) state ---
     def init_cache(self, batch, length=0, dtype=torch.float32):
         del length

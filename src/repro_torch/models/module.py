@@ -15,6 +15,8 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.parallel import spmd
+
 
 def _trunc_normal_(t, stddev, generator=None):
     # 2-sigma truncated normal, the standard transformer init
@@ -47,17 +49,35 @@ class Embedding(nn.Module):
     def reset_parameters(self, generator=None):
         embed_init(self.table, generator)
 
+    def axes(self):
+        return {"table": ("vocab", "embed")}
+
     def forward(self, ids):
         """Rows of the table in bf16 when params are fp32 (the reference's
         ``Embedding.__call__``)."""
         dt = torch.bfloat16 if self.table.dtype == torch.float32 \
             else self.table.dtype
+        s, vl = spmd.current(), self.table.shape[0]
+        if s is not None and vl < self.vocab:
+            # vocab-sharded table: each rank looks up the ids it holds and
+            # the one non-zero row of every id is summed over "model"
+            # (exact: x + 0 == x)
+            loc = ids - s.tp_rank * vl
+            mine = (loc >= 0) & (loc < vl)
+            rows = self.table[loc.clamp(0, vl - 1)]
+            rows = torch.where(mine[..., None], rows, rows.new_zeros(()))
+            return s.reduce(rows).to(dt)
         return self.table[ids].to(dt)
 
     def attend(self, x):
         """Logits via tied embedding: (x @ table.T) / sqrt(dim), computed in
         x.dtype and promoted to fp32 by the scale, as in the reference."""
-        logits = x @ self.table.to(x.dtype).T
+        s = spmd.current()
+        if s is not None and self.table.shape[0] < self.vocab:
+            # vocab-sharded head: each rank's columns, gathered whole
+            logits = s.gather(s.enter(x) @ self.table.to(x.dtype).T)
+        else:
+            logits = x @ self.table.to(x.dtype).T
         return logits.float() / torch.full((), math.sqrt(self.dim),
                                            dtype=torch.float32,
                                            device=x.device)
@@ -73,6 +93,9 @@ class RMSNorm(nn.Module):
     def reset_parameters(self, generator=None):
         with torch.no_grad():
             self.scale.fill_(1.0)
+
+    def axes(self):
+        return {"scale": ("embed",)}
 
     def forward(self, x):
         """fp32 normalisation, result in x.dtype (``module.py:137-141``)."""

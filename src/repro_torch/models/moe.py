@@ -50,6 +50,7 @@ from torch import nn
 from repro_torch.configs.base import MOE_DISPATCH_MODES, MoEConfig
 from repro_torch.core.quant import sigmoid
 from repro_torch.models.module import fan_in_init
+from repro_torch.parallel import spmd
 
 #: Execution routes threaded from models.transformer: full-sequence
 #: training/eval, chunked prompt prefill, single-token decode.
@@ -93,7 +94,24 @@ class DenseMLP(nn.Module):
         for w in (self.w_gate, self.w_up, self.w_down):
             fan_in_init(w, generator=generator)
 
-    def forward(self, x):
+    def axes(self):
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+
+    def forward(self, x, entered=False):
+        """Under a "model"-sharded hidden dim each rank runs its columns
+        of gate/up and its rows of down, and the partial products are
+        summed; ``entered``: the caller already marked ``x`` as the input
+        of its parallel region (:meth:`MoEMLP.forward`)."""
+        s = spmd.current()
+        if s is not None and self.w_gate.shape[1] < self.d_ff:
+            x = x if entered else s.enter(x)
+            g = x @ self.w_gate.to(x.dtype)
+            u = x @ self.w_up.to(x.dtype)
+            # fp32 partial products, summed, rounded once (see
+            # GQAAttention._out)
+            return s.reduce((_silu(g) * u).float()
+                            @ self.w_down.to(x.dtype).float()).to(x.dtype)
         g = x @ self.w_gate.to(x.dtype)
         u = x @ self.w_up.to(x.dtype)
         return (_silu(g) * u) @ self.w_down.to(x.dtype)
@@ -128,6 +146,15 @@ class MoEMLP(nn.Module):
         if self.shared is not None:
             self.shared.reset_parameters(generator)
 
+    def axes(self):
+        a = {"router": ("embed", None),
+             "w_gate": ("experts", "embed", "mlp"),
+             "w_up": ("experts", "embed", "mlp"),
+             "w_down": ("experts", "mlp", "embed")}
+        if self.shared is not None:
+            a["shared"] = self.shared.axes()
+        return a
+
     @staticmethod
     def capacity(NL, e):
         """Per-group expert capacity (bounded by the assignment count)."""
@@ -147,17 +174,37 @@ class MoEMLP(nn.Module):
         gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
         return gate, ids, probs
 
+    def _experts_here(self):
+        """(first expert id, count) of the experts this rank holds (all of
+        them unless "model" shards the expert axis)."""
+        s, el = spmd.current(), self.w_gate.shape[0]
+        if s is None or el == self.moe.n_experts:
+            return 0, el
+        return s.tp_rank * el, el
+
     def _gather_ffn(self, xt):
         """Capacity-free gather-GEMM dispatch over one token a row: each
-        token's k expert slices, gathered in fp32 and then cast."""
+        token's k expert slices, gathered in fp32 and then cast.  With the
+        experts sharded, a rank computes the choices among its own
+        experts and the others' gates count zero (a partial sum)."""
         gate, ids, probs = self._route(xt)
         dt = xt.dtype
-        wg, wu, wd = (w[ids].to(dt) for w in (self.w_gate, self.w_up,
+        e0, el = self._experts_here()
+        loc = ids - e0
+        if el < self.moe.n_experts:
+            mine = (loc >= 0) & (loc < el)
+            gate = torch.where(mine, gate, gate.new_zeros(()))
+            loc = loc.clamp(0, el - 1)
+        wg, wu, wd = (w[loc].to(dt) for w in (self.w_gate, self.w_up,
                                               self.w_down))
         x4 = xt[:, None, None, :]                            # (N, 1, 1, D)
         g = (x4 @ wg)[:, :, 0]                               # (N, k, F)
         u = (x4 @ wu)[:, :, 0]
         y = ((_silu(g) * u)[:, :, None, :] @ wd)[:, :, 0]    # (N, k, D)
+        if el < self.moe.n_experts:
+            # partial over this rank's choices, in fp32 until the sum
+            out = (gate.to(dt).float()[:, None, :] @ y.float())[:, 0]
+            return out, probs, ids
         out = (gate.to(dt)[:, None, :] @ y)[:, 0]            # (N, D)
         return out, probs, ids
 
@@ -195,9 +242,16 @@ class MoEMLP(nn.Module):
             E, G * C, D)
         # grouped expert GEMM over every (E, C) row, as the reference's
         # einsum: rows past an expert's count are zero
+        e0, el = self._experts_here()
+        if el < E:
+            # this rank's experts only; the others' rows stay zero
+            xe = xe[e0:e0 + el]
         g = torch.bmm(xe, self.w_gate.to(dt))
         u = torch.bmm(xe, self.w_up.to(dt))
         ye = torch.bmm(_silu(g) * u, self.w_down.to(dt))    # (E, G·C, D)
+        if el < E:
+            ye = torch.cat([ye.new_zeros(e0, *ye.shape[1:]), ye,
+                            ye.new_zeros(E - e0 - el, *ye.shape[1:])])
         yflat = ye.reshape(E, G, C, D).transpose(0, 1).reshape(-1, D)
         gates = torch.gather(gate.reshape(G, NL * k), 1, order).to(dt)
         picked = yflat[dest.clamp(max=G * E * C - 1)].reshape(G, NL * k, D)
@@ -222,6 +276,14 @@ class MoEMLP(nn.Module):
         e = self.moe
         B, S, D = x.shape
         mode = resolve_dispatch(e.dispatch, route)
+        s = spmd.current()
+        # experts or their hidden dim "model"-sharded: every rank routes
+        # all tokens, runs its slices, and the partial outputs are summed
+        par = s if s is not None and (
+            self.w_gate.shape[0] < e.n_experts
+            or self.w_gate.shape[2] < e.d_ff_expert) else None
+        if par is not None:
+            x = par.enter(x)
         if mode == "gather":
             out, probs, flat_e = self._gather_ffn(x.reshape(B * S, D))
             out = out.reshape(B, S, D)
@@ -232,18 +294,28 @@ class MoEMLP(nn.Module):
                 # one group a request row at the drop-free bound C = S
                 G, C = B, S
             else:
+                # the pool is the whole batch: with its rows sharded over
+                # "data" every rank dispatches all of them (a token's
+                # drop depends on its neighbours) and keeps its own
+                if s is not None:
+                    x = s.gather_batch(x)
+                    B = x.shape[0]
                 # groups must divide the batch; the clamp guards B < groups
                 G = max(1, e.groups if B % max(e.groups, 1) == 0 else 1)
                 C = self.capacity(B * S // G, e)
             out, probs, flat_e, valid = self._grouped_ffn(x, G, C)
+            if mode == "pooled" and s is not None:
+                out, x = s.my_rows(out), s.my_rows(x)
             me = probs.mean((0, 1))
             # the reference's mean: XLA turns the division by the count
             # into a product with its fp32 reciprocal (same bits here)
             recip = torch.tensor(1.0 / valid.numel(), dtype=torch.float32,
                                  device=x.device)
             dropped = 1.0 - valid.float().sum() * recip
+        if par is not None:
+            out = par.reduce(out).to(x.dtype)
         if self.shared is not None:
-            out = out + self.shared(x)
+            out = out + self.shared(x, entered=par is not None)
         flat = flat_e.reshape(-1)
         ce = torch.zeros(e.n_experts, device=x.device).scatter_add_(
             0, flat, torch.ones(flat.shape, device=x.device)) / flat.numel()

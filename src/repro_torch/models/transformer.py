@@ -35,6 +35,8 @@ Stacks that mix minGRU and attention layers are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -47,6 +49,7 @@ from repro_torch.models.attention import (GQAAttention, MLAAttention,
 from repro_torch.models.mamba import MambaBlock
 from repro_torch.models.module import Embedding, RMSNorm
 from repro_torch.models.moe import DenseMLP, MoEMLP
+from repro_torch.parallel import spmd
 
 _QUANT_MODES = {
     "float": QuantConfig.float_baseline,
@@ -70,6 +73,12 @@ class MinGRUMixer(nn.Module):
 
     def reset_parameters(self, generator=None):
         self.block.reset_parameters(generator)
+
+    def axes(self):
+        return {"block": self.block.axes()}
+
+    def cache_axes(self):
+        return {"h": ("batch", "mlp")}
 
     def forward(self, x, positions=None):
         del positions
@@ -137,6 +146,21 @@ class DecoderLayer(nn.Module):
         if self.mlp is not None:
             self.mlp.reset_parameters(generator)
 
+    def axes(self):
+        a = {"mixer": self.mixer.axes(), "norm1": self.norm1.axes()}
+        if self.mlp is not None:
+            a["mlp"] = self.mlp.axes()
+            a["norm2"] = self.norm2.axes()
+        return a
+
+    def cache_axes(self):
+        return self.mixer.cache_axes()
+
+    def paged_cache_axes(self):
+        if self.paged():
+            return self.mixer.paged_cache_axes()
+        return self.cache_axes()
+
     def _mlp_tail(self, x, route="train"):
         """Residual MLP tail; ``route`` picks an MoE MLP's dispatch path
         (pooled for training, per-request prefill, gather-GEMM decode
@@ -198,6 +222,13 @@ class DecoderLayer(nn.Module):
         return self._mlp_tail(x + h, "decode"), block
 
 
+def _rows_sharded(t) -> bool:
+    """Whether ``t`` is a DTensor with its dim 0 sharded."""
+    from torch.distributed.tensor import Shard
+    return spmd.is_dtensor(t) and any(
+        isinstance(pl, Shard) and pl.dim == 0 for pl in t.placements)
+
+
 class DecoderLM(nn.Module):
     """Embedding + the layer stack + final norm + tied (or separate) head
     (``transformer.DecoderLM``: ``__call__``, ``loss``, ``prefill``,
@@ -233,6 +264,30 @@ class DecoderLM(nn.Module):
         for layer in self.layers:
             layer.reset_parameters(generator)
 
+    def axes(self):
+        """Logical axes keyed by the port's parameter names; the layers
+        are a list, so the reference's stacked "layers" axis (which maps
+        to None in every table) is dropped."""
+        a = {"embed": self.embed.axes(),
+             "layers": {str(j): l.axes() for j, l in enumerate(self.layers)},
+             "final_norm": self.final_norm.axes()}
+        if self.lm_head is not None:
+            a["lm_head"] = self.lm_head.axes()
+        return a
+
+    def cache_axes(self):
+        """Axes of :meth:`init_cache`'s layout: a minGRU stack's one
+        (n_layers, B, d_model) tensor, else one entry a layer."""
+        if self.stacked_cache:
+            return ("layers", "batch", "mlp")
+        return [l.cache_axes() for l in self.layers]
+
+    def paged_cache_axes(self):
+        """Axes of :meth:`init_paged_cache`'s layout: page pools
+        ("pages", "page", kv heads or latents, ...) and, in a hybrid
+        stack, the per-slot carries."""
+        return [l.paged_cache_axes() for l in self.layers]
+
     @property
     def device(self):
         return self.embed.table.device
@@ -256,7 +311,11 @@ class DecoderLM(nn.Module):
         """tokens: (B, S) int, or embeds: (B, P, D) (the VLM's stubbed
         patch embeddings); both may be given, the embeds then prepended
         in the compute dtype (``DecoderLM.__call__``).  Returns logits
-        (B, P + S, V_pad) fp32."""
+        (B, P + S, V_pad) fp32.  A model bound to a mesh
+        (``parallel.spmd.bind``) runs on its local shards."""
+        if spmd.binding(self) is not None and spmd.current() is None:
+            with spmd.local_view(self):
+                return self.forward(tokens, positions, embeds)
         parts = []
         if embeds is not None:
             parts.append(embeds.to(self.compute_dtype))
@@ -273,8 +332,25 @@ class DecoderLM(nn.Module):
         (B, P, D)}; labels −1 are masked.  Mean next-token NLL over the
         unmasked labels, from fp32 logits; an embeds prefix gives no
         loss (``transformer.DecoderLM.loss``).  Returns (scalar loss,
-        {"loss", "tokens"})."""
-        logits = self(batch.get("tokens"), embeds=batch.get("embeds"))
+        {"loss", "tokens"}).
+
+        On a mesh (parameters placed by ``parallel.spmd.bind``, the batch
+        by ``sharding.batch_specs`` as DTensors) each rank scores its own
+        rows and the NLL sum and token count are summed over "data": the
+        loss is the global batch's."""
+        if spmd.binding(self) is not None and spmd.current() is None:
+            with spmd.local_view(self):
+                return self.loss(batch)
+        s = spmd.current()
+        if s is not None and s.dp > 1 and not _rows_sharded(batch["labels"]):
+            raise ValueError("on a mesh with data > 1 the batch rows must "
+                             "shard over 'data' (sharding.batch_specs; "
+                             "the batch size must divide by it)")
+        sharded = _rows_sharded(batch["labels"])
+        batch = {k: spmd.local(v) for k, v in batch.items()}
+        with s.data_rows(sharded) if s is not None \
+                else contextlib.nullcontext():
+            logits = self(batch.get("tokens"), embeds=batch.get("embeds"))
         labels = batch["labels"]
         logits = logits[:, -labels.shape[1]:, :].float()
         mask = labels >= 0
@@ -282,15 +358,20 @@ class DecoderLM(nn.Module):
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, lab[..., None])[..., 0]
         nll = (logz - ll) * mask
-        loss = nll.sum() / mask.sum().clamp(min=1)
-        return loss, {"loss": loss, "tokens": mask.sum()}
+        total, count = nll.sum(), mask.sum()
+        if s is not None:
+            total, count = s.sum_data(total), s.sum_data(count)
+        loss = total / count.clamp(min=1)
+        return loss, {"loss": loss, "tokens": count}
 
     def init_cache(self, batch, length=0, dtype=torch.bfloat16):
         """Zero dense decode cache for ``batch`` rows at cache length
         ``length`` (unused by minGRU stacks: their state is O(1)); see the
         module docstring for the layouts."""
         if self.stacked_cache:
-            return torch.zeros(len(self.layers), batch, self.cfg.d_model,
+            # the minGRU hidden (this rank's columns in spmd.local_view)
+            d = self.layers[0].mixer.block.bh.shape[0]
+            return torch.zeros(len(self.layers), batch, d,
                                dtype=dtype, device=self.device)
         return [layer.init_cache(batch, length, dtype)
                 for layer in self.layers]

@@ -53,6 +53,12 @@ class CrossAttention(nn.Module):
             fan_in_init(w, c.d_model, generator)
         fan_in_init(self.wo, c.n_heads * c.head_dim, generator)
 
+    def axes(self):
+        return {"wq": ("embed", "heads", "head_dim"),
+                "wk": ("embed", "heads", "head_dim"),
+                "wv": ("embed", "heads", "head_dim"),
+                "wo": ("heads", "head_dim", "embed")}
+
     def kv(self, memory):
         """memory: (B, L, D) -> (k, v), each (B, L, H, hd) in its dtype."""
         dt = memory.dtype
@@ -87,6 +93,10 @@ class EncoderLayer(nn.Module):
         for m in (self.attn, self.mlp, self.n1, self.n2):
             m.reset_parameters(generator)
 
+    def axes(self):
+        return {"attn": self.attn.axes(), "mlp": self.mlp.axes(),
+                "n1": self.n1.axes(), "n2": self.n2.axes()}
+
     def forward(self, x):
         x = x + self.attn.bidirectional(self.n1(x))
         return x + self.mlp(self.n2(x))
@@ -109,6 +119,12 @@ class DecoderLayerED(nn.Module):
         for m in (self.self_attn, self.cross, self.mlp, self.n1, self.n2,
                   self.n3):
             m.reset_parameters(generator)
+
+    def axes(self):
+        return {"self_attn": self.self_attn.axes(),
+                "cross": self.cross.axes(), "mlp": self.mlp.axes(),
+                "n1": self.n1.axes(), "n2": self.n2.axes(),
+                "n3": self.n3.axes()}
 
     def forward(self, x, memory):
         x = x + self.self_attn(self.n1(x))
@@ -152,6 +168,21 @@ class EncDecLM(nn.Module):
             layer.reset_parameters(generator)
         self.enc_norm.reset_parameters(generator)
         self.final_norm.reset_parameters(generator)
+
+    def axes(self):
+        """Keyed by the port's names: ``enc``/``dec`` are per-layer lists
+        (the reference's stacked "layers" axis dropped)."""
+        return {"embed": self.embed.axes(),
+                "enc": {str(j): l.axes() for j, l in enumerate(self.enc)},
+                "dec": {str(j): l.axes() for j, l in enumerate(self.dec)},
+                "enc_norm": self.enc_norm.axes(),
+                "final_norm": self.final_norm.axes()}
+
+    def cache_axes(self):
+        """One entry a decoder layer, as :meth:`init_cache` lays it out."""
+        xa = ("batch", "frames", "heads", "head_dim")
+        return [{"self": l.self_attn.cache_axes(), "xk": xa, "xv": xa}
+                for l in self.dec]
 
     @property
     def device(self):

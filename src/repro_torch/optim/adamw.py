@@ -11,13 +11,23 @@ global norm, then with the step count s incremented first,
 (eps outside the sqrt, the schedule read at s).  The reference decays
 the leaves of ITS parameter tree with ndim ≥ 2; :func:`param_groups`
 rebuilds that mask for the port's modules (see its docstring).
+
+DTensor parameters (a model placed on a mesh, ``parallel.spmd.bind``)
+step on their shards: the global norm sums every shard's squares once,
+and moments placed by :meth:`AdamW.place_moments` (ZeRO-1:
+``sharding.opt_state_specs(zero1=True)`` shards them over "data") update
+their own slice of the gradient, the step's slice being gathered back
+onto the parameter's placement.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
 import torch
+
+from repro_torch.parallel import spmd
 
 
 def _f32(v, device=None):
@@ -41,11 +51,17 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
+def _whole(t):
+    """A DTensor reduction's value on every rank (a plain tensor)."""
+    return t.full_tensor() if spmd.is_dtensor(t) else t
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """grads: list of tensors.  Returns (grads scaled by
     min(1, max_norm / max(‖g‖, 1e-9)) in fp32 and cast back, the global
     norm ‖g‖ as a 0-dim fp32 tensor)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    gn = torch.sqrt(sum(_whole(torch.sum(torch.square(g.float())))
+                        for g in grads))
     scale = torch.clamp(_f32(max_norm, gn.device)
                         / torch.clamp(gn, min=1e-9), max=1.0)
     return [(g.float() * scale).to(g.dtype) for g in grads], gn
@@ -101,17 +117,46 @@ class AdamW(torch.optim.Optimizer):
         return float(self.lr(step)) if callable(self.lr) else float(
             _f32(self.lr))
 
+    def place_moments(self, named_params: dict, specs: dict):
+        """Place the moments of DTensor parameters by ``specs`` ({name:
+        PartitionSpec}, e.g. the flattened "m" tree of
+        ``sharding.opt_state_specs(..., zero1=True)``); unnamed ones take
+        their parameter's placement.  Call before the first step."""
+        from repro_torch.parallel.sharding import placements
+
+        self._placements = {
+            id(p): placements(specs[name], p.device_mesh)
+            for name, p in named_params.items()
+            if name in specs and spmd.is_dtensor(p)}
+
     def _moments(self, p):
         st = self.state[p]
         if "m" not in st:
-            st["m"] = torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+            if spmd.is_dtensor(p):
+                from torch.distributed.tensor import zeros
+                pl = getattr(self, "_placements", {}).get(id(p),
+                                                          p.placements)
+                st["m"] = zeros(p.shape, dtype=torch.float32,
+                                device_mesh=p.device_mesh, placements=pl)
+            else:
+                st["m"] = torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
             st["v"] = torch.zeros_like(st["m"])
         return st["m"], st["v"]
 
     @torch.no_grad()
     def step(self, closure=None):
         params = [p for g in self.param_groups for p in g["params"]]
+        if any(spmd.is_dtensor(p) for p in params):
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            ctx = implicit_replication()   # plain scalars meet DTensors
+        else:
+            ctx = contextlib.nullcontext()
+        with ctx:
+            return self._step(params)
+
+    def _step(self, params):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         dev = params[0].device if params else None
@@ -130,6 +175,11 @@ class AdamW(torch.optim.Optimizer):
             for p in group["params"]:
                 g32 = grad_of[id(p)].float()
                 m, v = self._moments(p)
+                pf = p.float()
+                zero1 = spmd.is_dtensor(p) and m.placements != p.placements
+                if zero1:     # this rank's slice of the gradient (no comm)
+                    g32 = g32.redistribute(p.device_mesh, m.placements)
+                    pf = pf.redistribute(p.device_mesh, m.placements)
                 m.copy_(b1 * m + (1 - b1) * g32)
                 v.copy_(b2 * v + (1 - b2) * torch.square(g32))
                 delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
@@ -137,7 +187,9 @@ class AdamW(torch.optim.Optimizer):
                 if decay is None:
                     decay = p.ndim >= 2
                 if wd and decay:
-                    delta = delta + wd * p.float()
+                    delta = delta + wd * pf
+                if zero1:     # the step gathered onto p's placement
+                    delta = delta.redistribute(p.device_mesh, p.placements)
                 p.copy_((p.float() - lr * delta).to(p.dtype))
         return {"grad_norm": gn, "lr": lr}
 

@@ -118,15 +118,25 @@ class ServeEngine:
     instance; ``prefix_cache=True`` (paged layout only) pins finished
     prompts' pages for later requests to attach to; ``drafter`` (a
     :class:`~repro_torch.serve.spec.DraftStepModel` built for ``spec_k``)
-    turns every decode step into a speculative wave."""
+    turns every decode step into a speculative wave.
+
+    ``mesh=`` serves under a ("data", "model") ``DeviceMesh``: the step
+    model is bound to it (``bind_mesh``) — parameters TP-shard over
+    "model" by the model's logical-axis rules, slots DP-shard over
+    "data" — and every rank runs this same engine on the same requests,
+    so host decisions (admission, pages, preemption, the prefix cache)
+    agree.  On a 1x1 mesh the streams are bitwise the no-mesh engine's."""
 
     def __init__(self, step_model, *, slots: int = 8, policy="fifo",
                  prefix_cache: bool = False, drafter=None, spec_k: int = 1,
-                 telemetry=None):
+                 telemetry=None, mesh=None):
         self.sm = step_model
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError("slots must be >= 1")
+        if mesh is not None:
+            step_model.bind_mesh(mesh, self.slots)
+        self.mesh = getattr(step_model, "mesh", None)
         self.telemetry = telemetry if telemetry is not None \
             else NULL_TELEMETRY
         self.policy = make_policy(policy)

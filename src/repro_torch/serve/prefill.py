@@ -13,11 +13,17 @@ the shared pages holds the first ``start`` positions (or more), and only
 the chunks from ``start`` on are computed — with the same chunk widths
 and boundaries, so every computed chunk is the program a from-scratch
 prefill of the same prompt would run.
+
+On a mesh (a step model bound by ``bind_mesh``) the wave's rows shard
+over "data" when their count divides it: each rank prefills its rows on
+its local shards, and the logits and carry it returns are those rows'.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import spmd
 
 
 def chunked_prefill(step_model, tokens, *, chunk=256, pos0=0, cache0=None,
@@ -28,6 +34,18 @@ def chunked_prefill(step_model, tokens, *, chunk=256, pos0=0, cache0=None,
     the chunk grid)."""
     model = step_model.model
     tokens = torch.as_tensor(tokens, dtype=torch.int64, device=model.device)
+    s = getattr(step_model, "spmd", None)
+    if s is None:
+        return _prefill(step_model, model, tokens, chunk, pos0, cache0,
+                        start)
+    sharded = s.dp_sharded(tokens.shape[0])
+    tokens = tokens[s.rows(tokens.shape[0])]
+    with spmd.local_view(model), s.data_rows(sharded):
+        return _prefill(step_model, model, tokens, chunk, pos0, cache0,
+                        start)
+
+
+def _prefill(step_model, model, tokens, chunk, pos0, cache0, start):
     B, P = tokens.shape
     chunk = max(1, int(chunk))
     start = int(start)

@@ -19,8 +19,20 @@ recurrent state:
 The port's modules own their parameters, so no ``params`` argument
 travels through these calls.  Paged decoder stacks also offer the
 preemption and fork operations (``snapshot_slot``, ``restore_slot``,
-``copy_slot``) and the speculative ``verify``.  The mesh part of the
-reference is not ported yet.
+``copy_slot``) and the speculative ``verify``.
+
+Mesh serving: ``bind_mesh(mesh, slots)`` commits an adapter to a
+("data", "model") ``DeviceMesh`` — the parameters TP-shard over "model"
+through the model's logical-axis rule tables (``parallel.spmd.bind``:
+DTensor parameters, the modules computing on local shards with explicit
+collectives), and every slot-leading array (the slot-batch state, the
+per-call host arrays, an admission wave's prompts and carries) shards
+dim 0 over "data" when it divides (``parallel.sharding.dim0_dp_spec``).
+Each rank computes its rows and the results come back whole, so the
+engine on every rank sees the same tokens and takes the same decisions.
+Page pools are pages x TP-sharded KV heads, whole on every data rank:
+a decode step's new K/V rows are gathered over "data" and written on
+each, and page copies run on each.  See :class:`ServeShardings`.
 
   * :class:`DecoderStepModel` — a ``DecoderLM`` of minGRU, GQA, MLA or
     Mamba layers with dense or MoE MLPs, with a dense or (attention-
@@ -32,7 +44,10 @@ reference is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import warnings
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -43,6 +58,8 @@ from repro_torch.kernels.minimalist_block import ops as mb_ops
 from repro_torch.kernels.paged_attention import quant as kvq
 from repro_torch.kernels.paged_attention.ref import (gather_dequant,
                                                      gather_pages)
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import spmd
 from repro_torch.serve.paged import PagedConfig
 from repro_torch.serve.prefill import chunked_prefill
 from repro_torch.serve.sampling import (greedy_arrays, knobs_to_device,
@@ -55,11 +72,85 @@ def _data_keys(pool):
     return [k for k in pool if not k.endswith("_scale")]
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeShardings:
+    """Every placement the serving engine uses, for one (mesh, model,
+    slot count), as PartitionSpec trees: ``params`` (the model's
+    parameters, by its logical axes), ``state`` (the slot-batch state of
+    ``init_state(slots)``, by the serve cache rules), ``slot`` ((slots,)
+    arrays: DP over "data" when it divides) and ``replicated``."""
+
+    mesh: Any
+    params: Any
+    state: Any
+    slot: Any
+    replicated: Any
+
+
+@dataclasses.dataclass
+class _StepView:
+    """The whole slot batch of a DP-sharded decode step, for the layers
+    that write the data-replicated page pools (``Spmd.step``)."""
+
+    n: int          # slots
+    bt: Any         # (slots, max_pages) int32 block tables
+    pos: Any        # (slots,) positions
+    rows: Any       # indices of every active slot
+
+
+def _local_slots(slots, rows: slice):
+    """Global slot ids -> this rank's row indices; other ranks' slots map
+    past the end (dropped like wave padding)."""
+    slots = np.asarray(slots, np.int64)
+    mine = (slots >= rows.start) & (slots < rows.stop)
+    return np.where(mine, slots - rows.start, np.iinfo(np.int64).max)
+
+
+def _gather_tree(s, tree, n, axis=0):
+    """Every leaf of a tree of this rank's rows (dim ``axis``) made whole."""
+    if isinstance(tree, (list, tuple)):
+        return [_gather_tree(s, t, n, axis) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _gather_tree(s, v, n, axis) for k, v in tree.items()}
+    if axis == 0:
+        return s.gather_rows(tree, n)
+    return s.gather_rows(tree.movedim(axis, 0).contiguous(),
+                         n).movedim(0, axis)
+
+
 class StepModel:
     """Contract only; see module docstring."""
 
     #: LM generation (emitted tokens feed back) vs frame streaming.
     autoregressive: bool = True
+
+    #: bound by :meth:`bind_mesh`; None = single-device serving.
+    mesh = None
+    sharding: Optional[ServeShardings] = None
+    spmd = None
+
+    def put_slot(self, a):
+        """This rank's rows of a host slot-leading array (dim 0 over
+        "data" when it divides; the whole array when unbound)."""
+        a = np.asarray(a)
+        if self.spmd is None or a.ndim == 0:
+            return a
+        return a[self.spmd.rows(a.shape[0])]
+
+    def _put_knobs(self, knobs):
+        """This rank's rows of a dict of per-slot sampling knobs."""
+        return {k: self.put_slot(v) for k, v in knobs.items()}
+
+    def _slot_owner(self, slot, n):
+        """(data rank, local row) holding slot ``slot`` of ``n``."""
+        s = self.spmd
+        if s is None or not s.dp_sharded(n):
+            return (s.dp_rank if s is not None else 0), int(slot)
+        k = n // s.dp
+        return int(slot) // k, int(slot) % k
+
+    def _slot_rows(self, n):
+        return self.spmd.rows(n) if self.spmd is not None else slice(0, n)
 
     def init_state(self, batch):
         raise NotImplementedError
@@ -206,6 +297,82 @@ class DecoderStepModel(StepModel):
     def device(self):
         return self.model.device
 
+    # -- mesh placement ----------------------------------------------------
+    def state_axes(self):
+        """Logical axes of :meth:`init_state`'s layout: the model's native
+        cache layout (its batch axis is the slot axis), or page pools
+        ("pages", "page", kv heads, ...) with the O(1) carries of a hybrid
+        stack under the paged layout."""
+        if self.kv_layout == "paged":
+            return self.model.paged_cache_axes()
+        return self.model.cache_axes()
+
+    def _state_sharding(self, mesh, batch):
+        """Serve cache specs of ``init_state(batch)``, from the whole
+        state's shapes (outside ``local_view`` a bound model reads its
+        parameters' global shapes)."""
+        shapes = self._state(int(batch), int(batch))
+        return shd.serve_cache_specs(self.state_axes(), shapes, mesh)
+
+    def shardings(self, mesh, slots, rules=None) -> ServeShardings:
+        """The placements this model's serve arrays take on ``mesh`` with
+        a ``slots``-wide slot batch (computed, not bound)."""
+        from repro_torch.common.pytree import module_tree
+
+        return ServeShardings(
+            mesh=mesh,
+            params=shd.param_specs(self.model, module_tree(self.model),
+                                   mesh, rules),
+            state=self._state_sharding(mesh, slots),
+            slot=shd.dim0_dp_spec((int(slots),), mesh), replicated=shd.P())
+
+    def put_params(self, mesh, rules=None):
+        """Place the model's parameters on ``mesh`` (in place: DTensor
+        parameters, ``parallel.spmd.bind``); returns their tree."""
+        from repro_torch.common.pytree import module_tree
+
+        b = spmd.binding(self.model)
+        if b is None:
+            spmd.bind(self.model, mesh, rules)
+        elif b.spmd.mesh is not mesh:
+            raise ValueError("the model is bound to another mesh")
+        return module_tree(self.model)
+
+    def bind_mesh(self, mesh, slots, rules=None) -> ServeShardings:
+        """Commit this StepModel to ``mesh`` for a ``slots``-wide engine:
+        place the parameters, then shard every slot-leading array over
+        "data" from here on (one mesh per StepModel; the model's
+        parameters are placed in place, so a no-mesh run needs a model of
+        its own)."""
+        slots = int(slots)
+        if self.mesh is mesh and self._bound_slots == slots:
+            return self.sharding
+        if self.mesh is not None:
+            raise ValueError("this StepModel is bound to another mesh "
+                             "(or slot count)")
+        sharding = self.shardings(mesh, slots, rules)
+        self.put_params(mesh, rules)
+        self.mesh, self._bound_slots = mesh, slots
+        self.spmd = spmd.binding(self.model).spmd
+        self.sharding = sharding
+        self._greedy = {}
+        return sharding
+
+    def place_cache(self, cache):
+        """This rank's rows of a whole native-layout wave cache (dim 0
+        over "data" when it divides)."""
+        if self.spmd is None:
+            return cache
+        if isinstance(cache, (list, tuple)):
+            return [self.place_cache(c) for c in cache]
+        if isinstance(cache, dict):
+            return {k: self.place_cache(v) for k, v in cache.items()}
+        return cache[self.spmd.rows(cache.shape[0])]
+
+    def _n_rows(self, n):
+        r = self._slot_rows(int(n))
+        return r.stop - r.start
+
     @property
     def _slot_axis(self):
         """Slot axis of the dense state's leaves: 1 in a pure minGRU
@@ -271,13 +438,33 @@ class DecoderStepModel(StepModel):
     def copy_slot(self, state, src: int, dst: int):
         """Fork, in place: the child shares the parent's page chain
         through the block tables; the per-slot carry rows of the
-        O(1)-state layers are copied from ``src`` to ``dst``."""
+        O(1)-state layers are copied from ``src`` to ``dst`` (across
+        "data" ranks: sent by the rank holding ``src``)."""
         with torch.inference_mode():
             for j, sub in enumerate(state):
                 if j not in self._pool:
                     for leaf in sub.values():
-                        leaf[int(dst)] = leaf[int(src)]
+                        row = self._read_row(leaf, src)
+                        self._write_row(leaf, dst, row)
         return state
+
+    def _read_row(self, leaf, slot):
+        """Row ``slot`` of a per-slot leaf, on every rank (sent over
+        "data" by the rank that holds it)."""
+        n = self._bound_slots if self.spmd is not None else leaf.shape[0]
+        owner, i = self._slot_owner(slot, n)
+        if self.spmd is None or not self.spmd.dp_sharded(n):
+            return leaf[i].clone()
+        row = leaf[i].clone() if owner == self.spmd.dp_rank \
+            else leaf.new_empty(leaf.shape[1:])
+        return self.spmd.broadcast_row(row, owner)
+
+    def _write_row(self, leaf, slot, row):
+        """Row ``slot`` of a per-slot leaf := ``row`` (on its rank)."""
+        n = self._bound_slots if self.spmd is not None else leaf.shape[0]
+        owner, i = self._slot_owner(slot, n)
+        if self.spmd is None or owner == self.spmd.dp_rank:
+            leaf[i] = row.to(leaf.device, leaf.dtype)
 
     def snapshot_slot(self, state, slot, pages):
         """Host copy of what slot ``slot`` owns: the rows ``pages`` (its
@@ -291,8 +478,9 @@ class DecoderStepModel(StepModel):
         with torch.inference_mode():
             # copy=True: on a CPU state a carry row would otherwise be a
             # view that the slot's next occupant overwrites
-            return [{k: (v[pg] if j in self._pool else v[int(slot)]).to(
-                        "cpu", copy=True) for k, v in sub.items()}
+            return [{k: (v[pg] if j in self._pool
+                         else self._read_row(v, slot)).to("cpu", copy=True)
+                     for k, v in sub.items()}
                     for j, sub in enumerate(state)]
 
     def restore_slot(self, state, snap, slot, pages):
@@ -311,7 +499,7 @@ class DecoderStepModel(StepModel):
                     if j in self._pool:
                         v[pg] = saved[k].to(self.device)
                     else:
-                        v[int(slot)] = saved[k].to(self.device)
+                        self._write_row(v, slot, saved[k])
         return state
 
     def seed_cache(self, state, bt_row):
@@ -336,11 +524,19 @@ class DecoderStepModel(StepModel):
 
     # -- state ------------------------------------------------------------
     def init_state(self, batch):
+        """Zero state of a ``batch``-slot engine; on a mesh this rank's
+        rows of it (the pools keep every page: they are whole on every
+        "data" rank)."""
+        with spmd.local_view(self.model):
+            return self._state(batch, self._n_rows(batch))
+
+    def _state(self, batch, rows):
+        """Zero state of a ``batch``-slot engine with ``rows`` slot rows."""
         if self.kv_layout == "paged":
             return self.model.init_paged_cache(self.num_pages(batch),
                                                self.paged.page_size,
-                                               batch=batch)
-        return self.model.init_cache(batch, self.max_len)
+                                               batch=rows)
+        return self.model.init_cache(rows, self.max_len)
 
     def chunk_for(self, plen: int) -> int:
         """Chunk width of a ``plen``-token prompt: ``prefill_chunk`` capped
@@ -360,7 +556,9 @@ class DecoderStepModel(StepModel):
     def _sample(self, logits, samp, pos):
         """Per-row counter-keyed sampling over the REAL vocab; an
         all-greedy batch (decided on the host, where the knobs live)
-        takes the plain argmax."""
+        takes the plain argmax.  The logits are whole over the vocab
+        (a vocab-sharded head gathers them), so draws hash global vocab
+        indices."""
         lg = logits[..., :self.vocab].float()
         if not (np.asarray(samp["temperature"]) > 0).any():
             return torch.argmax(lg, dim=-1).to(torch.int32)
@@ -374,12 +572,40 @@ class DecoderStepModel(StepModel):
         dict of per-slot host knob arrays (None -> all greedy); bt:
         (slots, max_pages) int32 block tables (paged layout only).
         Returns (next token per slot (slots,) int32 on the device, merged
-        state)."""
+        state).  On a mesh each rank steps its slots and the tokens come
+        back whole."""
         n = int(np.shape(tok)[0])
         if sampling is None:
             if n not in self._greedy:
                 self._greedy[n] = greedy_arrays(n)
             sampling = self._greedy[n]
+        s = self.spmd
+        if s is None:
+            return self._step(tok, state, pos, active, sampling, bt)
+        if self.kv_layout == "paged" and s.dp_sharded(n) and bt is not None:
+            dev = self.device
+            s.step = _StepView(
+                n, torch.as_tensor(np.asarray(bt), dtype=torch.int32,
+                                   device=dev),
+                torch.as_tensor(np.asarray(pos), dtype=torch.int32,
+                                device=dev),
+                torch.as_tensor(np.flatnonzero(np.asarray(active)),
+                                dtype=torch.int64, device=dev))
+        try:
+            # inference mode first: the view then swaps in the shards'
+            # aliases, with no autograd node a parameter
+            with torch.inference_mode(), spmd.local_view(self.model), \
+                    s.data_rows(s.dp_sharded(n)):
+                out, state = self._step(
+                    self.put_slot(tok), state, self.put_slot(pos),
+                    self.put_slot(active), self._put_knobs(sampling),
+                    None if bt is None else self.put_slot(bt))
+        finally:
+            s.step = None
+        with torch.inference_mode():
+            return s.gather_rows(out, n), state
+
+    def _step(self, tok, state, pos, active, sampling, bt):
         dev = self.device
         active = np.asarray(active)
         with torch.inference_mode():
@@ -434,36 +660,68 @@ class DecoderStepModel(StepModel):
         n = int(np.shape(toks)[0])
         if sampling is None:
             sampling = greedy_arrays(n)
+        # on a mesh each rank scores its slots; the accepted K/V of every
+        # slot are then committed into the whole pools on each rank
+        sp, r = self.spmd, self._slot_rows(n)
         dev = self.device
         with torch.inference_mode():
-            # the drafter's proposals may already sit on the device
-            toks_t = toks.to(dev, torch.int64) if torch.is_tensor(toks) \
-                else torch.as_tensor(np.asarray(toks), dtype=torch.int64,
-                                     device=dev)
-            pos_t = torch.as_tensor(np.asarray(pos), dtype=torch.int32,
-                                    device=dev)
-            act = torch.as_tensor(np.asarray(active), device=dev)
-            bt_t = torch.as_tensor(np.asarray(bt), dtype=torch.int32,
-                                   device=dev)
-            logits, blocks = self.model.verify_step_paged(
-                toks_t, state, pos_t, bt_t, act, self.max_len)
-            knobs = knobs_to_device(sampling, dev)
-            emitted, n_emit = verify_tokens(
-                logits[..., :self.vocab].float(), toks_t,
-                torch.as_tensor(np.asarray(k_slot), device=dev),
-                knobs["seed"], knobs["uid"], knobs["uid_hi"], pos_t,
-                knobs["temperature"], knobs["top_k"], knobs["top_p"],
-                greedy_only=not (np.asarray(sampling["temperature"])
-                                 > 0).any())
-            n_emit = torch.where(act, n_emit, torch.zeros_like(n_emit))
+            with spmd.local_view(self.model), (
+                    sp.data_rows(sp.dp_sharded(n)) if sp is not None
+                    else contextlib.nullcontext()):
+                emitted, n_emit, blocks = self._score(
+                    toks[r], state, self.put_slot(pos),
+                    self.put_slot(active), self.put_slot(k_slot),
+                    self._put_knobs(sampling), self.put_slot(bt))
+            if sp is not None:
+                emitted = sp.gather_rows(emitted, n)
+                n_emit = sp.gather_rows(n_emit, n)
+                blocks = _gather_tree(sp, blocks, n)
             state = self.model.commit_step_paged(
-                state, blocks, pos_t, bt_t, n_emit, act, self.max_len)
+                state, blocks,
+                torch.as_tensor(np.asarray(pos), dtype=torch.int32,
+                                device=dev),
+                torch.as_tensor(np.asarray(bt), dtype=torch.int32,
+                                device=dev), n_emit,
+                torch.as_tensor(np.asarray(active), device=dev),
+                self.max_len)
             return emitted.cpu().numpy(), n_emit.cpu().numpy(), state
 
+    def _score(self, toks, state, pos, active, k_slot, sampling, bt):
+        """The verify's read half on this rank's slots: (emitted, n_emit,
+        blocks) as device tensors."""
+        dev = self.device
+        # the drafter's proposals may already sit on the device
+        toks_t = toks.to(dev, torch.int64) if torch.is_tensor(toks) \
+            else torch.as_tensor(np.asarray(toks), dtype=torch.int64,
+                                 device=dev)
+        pos_t = torch.as_tensor(np.asarray(pos), dtype=torch.int32,
+                                device=dev)
+        act = torch.as_tensor(np.asarray(active), device=dev)
+        bt_t = torch.as_tensor(np.asarray(bt), dtype=torch.int32,
+                               device=dev)
+        logits, blocks = self.model.verify_step_paged(
+            toks_t, state, pos_t, bt_t, act, self.max_len)
+        knobs = knobs_to_device(sampling, dev)
+        emitted, n_emit = verify_tokens(
+            logits[..., :self.vocab].float(), toks_t,
+            torch.as_tensor(np.asarray(k_slot), device=dev),
+            knobs["seed"], knobs["uid"], knobs["uid_hi"], pos_t,
+            knobs["temperature"], knobs["top_k"], knobs["top_p"],
+            greedy_only=not (np.asarray(sampling["temperature"])
+                             > 0).any())
+        n_emit = torch.where(act, n_emit, torch.zeros_like(n_emit))
+        return emitted, n_emit, blocks
+
     def sample(self, logits, sampling, pos):
-        """Draw one token per row of ``logits`` (admission-wave shape)."""
+        """Draw one token per row of ``logits`` (admission-wave shape; on
+        a mesh this rank's rows of the wave, the tokens returned whole)."""
         with torch.inference_mode():
-            return self._sample(logits, sampling, pos)
+            s, n = self.spmd, int(np.shape(pos)[0])
+            if s is None:
+                return self._sample(logits, sampling, pos)
+            out = self._sample(logits, self._put_knobs(sampling),
+                               self.put_slot(pos))
+            return s.gather_rows(out, n)
 
     def emit(self, logits):
         """Greedy over the REAL vocab (debugging helper)."""
@@ -503,6 +761,18 @@ class DecoderStepModel(StepModel):
         ``pages`` = the wave's block-table rows (padding rows all out of
         bounds) and ``plen`` = the wave's prompt length."""
         slots = np.asarray(slots)
+        s = self.spmd
+        if s is not None:
+            # the wave's rows come whole (they shard like any slot-leading
+            # array), then each rank keeps those of its own slots
+            n = len(slots)
+            with torch.inference_mode():
+                if self.kv_layout != "paged":
+                    batch_state = _gather_tree(s, batch_state, n,
+                                               self._slot_axis)
+                else:
+                    batch_state = _gather_tree(s, batch_state, n)
+            slots = _local_slots(slots, s.rows(self._bound_slots))
         with torch.inference_mode():
             if self.kv_layout != "paged":
                 return _scatter_slots(state, batch_state, slots,
@@ -556,8 +826,48 @@ class MinimalistStepModel(StepModel):
             self._export_key = key
         return self._exported
 
+    # -- mesh placement ----------------------------------------------------
+    # Frame streaming serves DP-only: slots (and their O(1) states) shard
+    # over "data"; the paper-scale analog blocks are far too small to pay
+    # TP collectives, so the parameters replicate.
+    def shardings(self, mesh, slots, rules=None) -> ServeShardings:
+        del rules
+        from repro_torch.common.pytree import module_tree
+
+        params = module_tree(self.net)
+        rep = {k: {n: shd.P(*([None] * p.dim())) for n, p in v.items()}
+               for k, v in params.items()}
+        return ServeShardings(
+            mesh=mesh, params=rep,
+            state=shd.slot_specs(self.net.initial_state(int(slots)), mesh),
+            slot=shd.dim0_dp_spec((int(slots),), mesh), replicated=shd.P())
+
+    def bind_mesh(self, mesh, slots, rules=None) -> ServeShardings:
+        """DP-only binding: rank 0's parameters on every rank (replicated),
+        slot states sharded over "data"."""
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        slots = int(slots)
+        if self.mesh is mesh and self._bound_slots == slots:
+            return self.sharding
+        if self.mesh is not None:
+            raise ValueError("this StepModel is bound to another mesh")
+        self.sharding = self.shardings(mesh, slots, rules)
+        rep = [Replicate()] * mesh.ndim
+        with torch.no_grad():
+            for p in self.net.parameters():
+                p.copy_(distribute_tensor(p.detach(), mesh, rep).to_local())
+        self.mesh, self._bound_slots = mesh, slots
+        self.spmd = spmd.Spmd(mesh)
+        if self.spmd.tp > 1:
+            raise ValueError("frame streaming serves DP-only: use a mesh "
+                             "with model=1")
+        return self.sharding
+
     def init_state(self, batch):
-        return self.net.initial_state(batch)
+        """Zero per-block states; on a mesh this rank's rows."""
+        r = self._slot_rows(int(batch))
+        return self.net.initial_state(r.stop - r.start)
 
     def _raw_step(self, x, state):
         if self.use_fused_kernel:
@@ -576,16 +886,25 @@ class MinimalistStepModel(StepModel):
         ignored — frame streaming emits analog outputs, not tokens."""
         del pos, sampling
         dev = self.device
+        n = int(np.shape(x)[0])
         with torch.inference_mode():
-            x = torch.as_tensor(np.asarray(x), dtype=torch.float32,
+            x = torch.as_tensor(self.put_slot(x), dtype=torch.float32,
                                 device=dev)
-            act = torch.as_tensor(np.asarray(active), device=dev)
+            act = torch.as_tensor(self.put_slot(active), device=dev)
             out, new_state = self._raw_step(x, state)
+            if self.spmd is not None:
+                out = self.spmd.gather_rows(out, n)
             return out, masked_update(state, new_state, act)
 
     def write_slots(self, state, batch_state, slots):
-        """In place, per block state; padding entries are dropped."""
+        """In place, per block state; padding entries are dropped.  On a
+        mesh the wave's rows come whole and each rank keeps its slots'."""
         slots = np.asarray(slots)
         with torch.inference_mode():
+            if self.spmd is not None:
+                batch_state = _gather_tree(self.spmd, batch_state,
+                                           len(slots))
+                slots = _local_slots(slots, self.spmd.rows(
+                    self._bound_slots))
             return [_scatter_slots(s, v, slots, 0)
                     for s, v in zip(state, batch_state)]

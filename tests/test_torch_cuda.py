@@ -1940,3 +1940,35 @@ def test_moe_mlp_on_cuda_matches_its_cpu_run(cuda, dispatch, route):
     assert torch.equal(ids.cpu(), wids)
     assert ga["dropped_frac"].item() == wa["dropped_frac"].item()
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_mesh_1x1_nccl_paged_streams_bitwise(cuda, kv_dtype, tmp_path):
+    """A world-1 NCCL group and a 1x1 DeviceMesh on the card: the paged
+    engine (output projections x4) serves from bf16 pages through
+    paged_gqa and from int8 pages through paged_gqa_q8, greedy and
+    sampled streams bitwise the no-mesh engine's."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.mesh import make_local_mesh
+
+    kern = pa_ops.paged_gqa_q8_kernel if kv_dtype == "int8" \
+        else pa_ops.paged_gqa_kernel
+    ref = _serve_streams(_paged_engine(_smollm_sharp(cuda,
+                                                     kv_dtype=kv_dtype)))
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(model=1, data=1, device="cuda")
+        n0 = kern.launches
+        eng = _paged_engine(_smollm_sharp(cuda, kv_dtype=kv_dtype),
+                            mesh=mesh)
+        got = _serve_streams(eng)
+        assert kern.launches > n0
+        assert eng.mesh is mesh
+    finally:
+        dist.destroy_process_group()
+    assert got == ref

@@ -7,8 +7,9 @@ able to unblock the head, SJF's aging bound and its zero prefill cost for
 resumed requests, EDF's no-deadline-last — plus ``make_policy``, the
 SlotTable views and ``Request.validate_scheduling``.  Then the launcher:
 the static baseline ``generate`` against the reference's, and the CLI on
-the CPU with each lifted flag (only ``--mesh`` and ``--moe-dispatch``
-are refused)."""
+the CPU with each lifted flag (``--mesh`` serves on gloo ranks the
+launcher starts; ``--moe-dispatch`` is refused on an arch without MoE
+layers)."""
 import numpy as np
 import pytest
 
@@ -301,16 +302,24 @@ def test_launcher_runs_each_flag_on_cpu(flags, capsys):
 @pytest.mark.parametrize("flags", [["--mesh", "1x1"],
                                    ["--moe-dispatch", "auto"]])
 def test_launcher_refuses_only_mesh_and_moe_dispatch(flags, capsys):
-    """``--mesh`` is refused as not ported.  (The name is kept from when
-    ``--moe-dispatch`` was refused too.)  ``--moe-dispatch`` on an arch
-    without MoE layers exits with the reference's error, and on
+    """``--mesh 1x1 --device cpu`` serves its requests on one gloo rank
+    (which the launcher starts in a process of its own, joined within a
+    time limit) and ``--mesh 0x1`` exits with the reference's error.  (The
+    name is kept from when both flags were refused.)  ``--moe-dispatch``
+    on an arch without MoE layers exits with the reference's error, and on
     qwen3-moe-30b-a3b it serves."""
     from repro_torch.launch.serve import main
     if flags[0] == "--mesh":
+        from test_torch_serve_sharded import run_launcher
+        rc, out, err = run_launcher(
+            "--smoke", "--device", "cpu", "--requests", "3", "--slots", "2",
+            "--prompt-len", "6", "--gen", "4", *flags)
+        assert rc == 0, err[-3000:]
+        assert "mesh data=1 x model=1 (1 gloo ranks)" in out
+        assert "engine (cpu): 3 requests" in out
         with pytest.raises(SystemExit):
-            main(["--smoke", "--device", "cpu"] + flags)
-        assert "not ported to the PyTorch package yet: --mesh" in \
-            capsys.readouterr().err
+            main(["--smoke", "--device", "cpu", "--mesh", "0x1"])
+        assert "mesh axes must be >= 1" in capsys.readouterr().err
         return
     with pytest.raises(SystemExit):
         main(["--smoke", "--device", "cpu"] + flags)
