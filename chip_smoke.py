@@ -155,7 +155,24 @@ Phases, each fatal on failure:
                one bf16 decode step eager against graph replay (idle
                share) and its device time split between attention, the
                MLPs and the rest (one profiler window).
- 18. mesh_serve — a world-1 process group (NCCL, through a FileStore
+ 18. mistral_serve — full-width mistral-large-123b cut to 8 of its 88
+               layers (launch.dryrun.depth_variant; 47.5 GB of fp32
+               weights, output projections x32): first the dry-run's
+               prediction for this cell (lower_cell, decode_32k at batch 4
+               x 544 on a 1x1 mesh, meta tensors), then 8 greedy requests
+               (prompts 64-512, 32 new tokens), 4 slots, page 16: (a) bf16
+               pages through paged_gqa (group 12, vector route), (b) the
+               gather read, (a) against (b) under the margin rule, (c)
+               int8 pages through paged_gqa_q8; the parameter bytes equal
+               the prediction exactly, (a)'s peak lies within
+               MISTRAL_PEAK_TOL of the predicted peak, and one 4-slot bf16
+               decode step's device time is printed beside the predicted
+               memory_s.
+ 19. dryrun_train — full-width smollm-360m at batch 4 x 2048 through flash,
+               one AdamW step with remat "none" and one with "full" from
+               the same seed: losses and gradient norms bitwise equal,
+               each peak beside the dry-run's prediction, full's below.
+ 20. mesh_serve — a world-1 process group (NCCL, through a FileStore
                under build/) and a 1x1 DeviceMesh: (a) full-width
                minimalist-lm-360m dense, phase lm's traffic greedy and
                sampled, (b) full-width smollm-360m (output projections
@@ -169,7 +186,9 @@ Phases, each fatal on failure:
                spawned NCCL ranks when two are visible, (a) greedy and (b)
                bf16 against the no-mesh streams under the margin rule (else
                a line says it did not run).
- 19. imc     — the paper's IMC projection (Eq. 6) through its entry point
+ 21. examples — repro_torch.examples.quickstart and .serve_batch on the
+               card as subprocesses; a non-zero exit fails the script.
+ 22. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
                against its plain version, and Eq. 6's all-ones and
@@ -3929,6 +3948,284 @@ def phase_stablelm_serve(torch, dev):
     return {"paged_gqa": n_a, "paged_gqa_q8": q_c}
 
 
+#: Layers of mistral-large-123b's 88 that mistral_serve keeps (full width:
+#: 11.9 B parameters, 47.5 GB in fp32; 12 would be 69.7 GB and leave too
+#: little room for the per-call bf16 weight casts, ~2.8 GB a layer)
+MISTRAL_LAYERS = 8
+#: mistral_serve's measured peak (max_memory_allocated over serving run
+#: (a), less what was allocated before the model was built) must lie
+#: within this fraction of the dry-run's predicted peak (arguments +
+#: temp of the decode cell); fixed before the first card run (PERF.md)
+MISTRAL_PEAK_TOL = 0.05
+
+
+def phase_mistral_serve(torch, dev):
+    """Full-width mistral-large-123b cut to MISTRAL_LAYERS layers with the
+    dry-run's ``depth_variant``: the dry-run's prediction for its decode
+    cell first, then 8 requests from bf16 pages through paged_gqa (group
+    12, vector route) against the gather read (margin rule), and from int8
+    pages through paged_gqa_q8; the parameter bytes equal the prediction,
+    the peak lies within MISTRAL_PEAK_TOL of it, and one decode step's
+    device time is printed beside the predicted memory_s."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dryrun.depth_variant(get_config("mistral-large-123b"),
+                               MISTRAL_LAYERS)
+    plens = [512, 448, 384, 320, 256, 192, 128, 64]
+    gen = 32
+    max_len = max(plens) + gen                   # 544: 34 pages of 16
+    # (1) the prediction for this cell, before anything is built
+    t0 = time.perf_counter()
+    pred = dryrun.lower_cell(cfg.name, "decode_32k",
+                             ShapeMesh(("data", "model"), (1, 1)), cfg=cfg,
+                             batch_override=4, seq_override=max_len)
+    mem, roof = pred["memory_analysis"], pred["roofline"]
+    want_params = mem["argument_parts"]["params"]
+    want_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    print(f"mistral_serve: dry-run prediction (lower_cell, decode_32k at "
+          f"batch 4 x {max_len}, {cfg.n_layers} of 88 layers, 1x1 mesh; "
+          f"{time.perf_counter() - t0:.1f} s on meta tensors): arguments "
+          f"{mem['argument_size_in_bytes']} B ({mem['argument_parts']}), "
+          f"temp {mem['temp_size_in_bytes']} B, peak {want_peak} B = "
+          f"{want_peak / 2**30:.2f} GiB; flops "
+          f"{pred['cost_analysis']['flops']:.4g}, bytes accessed "
+          f"{pred['cost_analysis']['bytes accessed']:.4g} -> memory_s "
+          f"{roof['memory_s'] * 1e3:.3f} ms, compute_s "
+          f"{roof['compute_s'] * 1e3:.4f} ms (H100 SXM data-sheet peaks)",
+          flush=True)
+
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = _sharpen(torch, build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"mistral_serve: {cfg.name} at full width, {cfg.n_layers} of 88 "
+          f"layers, {n_bytes / 4e9:.2f} B fp32 params = {n_bytes / 1e9:.1f} "
+          f"GB, d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+          f"{cfg.head_dim} (paged_gqa route "
+          f"{pa_ops.gqa_route(cfg.head_dim, 2)}), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}; output projections x32; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if n_bytes != want_params:
+        fail(f"mistral_serve: parameter bytes {n_bytes} != the dry-run's "
+             f"{want_params}")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in plens]
+    kernels = (pa_ops.paged_gqa_kernel, pa_ops.paged_gqa_q8_kernel)
+    _serve_engine(torch, model, [p[:40] for p in prompts[:4]], 2,
+                  max_len=max_len)               # warm-up (cuBLAS etc.)
+    gc.collect()
+
+    def measured(tag):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels:
+            k.launches = 0
+        eng, reqs, dt = _serve_engine(torch, model, prompts, gen,
+                                      max_len=max_len)
+        launches = tuple(k.launches for k in kernels)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        for r in reqs:
+            toks = r.tokens
+            if not r.finished or len(toks) != gen or not (
+                    (toks >= 0) & (toks < cfg.vocab)).all():
+                fail(f"mistral_serve {tag}: request {r.uid} finished="
+                     f"{r.finished}, {len(toks)} tokens {toks}")
+        _check_drained(eng, f"mistral_serve {tag}")
+        ttft = sorted((r.first_token_t - r.created_t) * 1e3 for r in reqs)
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        n_gen = sum(len(r.tokens) for r in reqs)
+        print(f"mistral_serve {tag}: {len(reqs)} requests, {n_gen} tokens "
+              f"in {dt:.3f} s ({n_gen / dt:.1f} generated tok/s incl. "
+              f"prefill), TTFT p50 {ttft[len(ttft) // 2]:.1f} ms max "
+              f"{ttft[-1]:.1f} ms, {eng.n_steps} decode steps p50 "
+              f"{stp['p50']:.2f} ms, peak {peak} B = {peak / 2**30:.2f} GiB "
+              f"above the phase's start, (paged_gqa, paged_gqa_q8) "
+              f"launches {launches}", flush=True)
+        return eng, [list(r.tokens) for r in reqs], launches, peak
+
+    # (2) bf16 pages through paged_gqa, the peak against the prediction
+    eng_a, streams_a, (n_a, q_a), peak = measured("(a) bf16 kernel")
+    if q_a or n_a == 0 or n_a != cfg.n_layers * eng_a.n_steps:
+        fail(f"mistral_serve (a): (paged_gqa, paged_gqa_q8) launches "
+             f"{(n_a, q_a)} != ({cfg.n_layers} layers x {eng_a.n_steps} "
+             "decode steps, 0)")
+    rel = peak / want_peak - 1.0
+    print(f"mistral_serve: peak predicted {want_peak} B "
+          f"({want_peak / 2**30:.2f} GiB), measured {peak} B "
+          f"({peak / 2**30:.2f} GiB): {rel:+.2%} (tol "
+          f"{MISTRAL_PEAK_TOL:.0%}); parameter bytes {n_bytes} = the "
+          "prediction exactly", flush=True)
+    if abs(rel) > MISTRAL_PEAK_TOL:
+        fail(f"mistral_serve: measured peak {peak} B is {rel:+.2%} off the "
+             f"dry-run's {want_peak} B (tol {MISTRAL_PEAK_TOL:.0%})")
+    del eng_a
+    # the same traffic through the gather read
+    _reconfigure(model, paged_impl="gather")
+    eng_b, streams_b, launched, _ = measured("(b) bf16 gather")
+    if any(launched):
+        fail(f"mistral_serve (b): paged kernel launches {launched}")
+    _margin_rule(torch, "mistral_serve (a) kernel vs (b) gather", eng_b.sm,
+                 cfg.vocab, prompts, streams_a, streams_b)
+    del eng_b
+    # (c) int8 pages through paged_gqa_q8, against the gather read
+    _reconfigure(model, paged_impl="kernel", kv_dtype="int8")
+    eng_c, streams_c, (n_c, q_c), _ = measured("(c) int8 kernel")
+    if n_c or q_c == 0 or q_c != cfg.n_layers * eng_c.n_steps:
+        fail(f"mistral_serve (c): (paged_gqa, paged_gqa_q8) launches "
+             f"{(n_c, q_c)} != (0, {cfg.n_layers} layers x "
+             f"{eng_c.n_steps} decode steps)")
+    same = sum(int(np.sum(np.asarray(a) == np.asarray(b)))
+               for a, b in zip(streams_a, streams_c))
+    print(f"mistral_serve: int8 greedy tokens equal bf16's (a) at {same}/"
+          f"{len(prompts) * gen} positions; first divergence per request "
+          f"{[_first_divergence(a, b) for a, b in zip(streams_a, streams_c)]}"
+          , flush=True)
+    del eng_c
+
+    # (3) one 4-slot bf16 decode step at position 543, its device time
+    # beside the dry-run's memory_s (the decode cell's eager bytes over
+    # the data-sheet HBM rate)
+    _reconfigure(model, kv_dtype="bf16")
+    n_chain = max_len // 16
+    state = model.init_paged_cache(4 * n_chain, 16)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    pos = torch.full((4,), max_len - 1, dtype=torch.int32, device=dev)
+    bt = torch.arange(4 * n_chain, dtype=torch.int32,
+                      device=dev).reshape(4, n_chain)
+    act = torch.ones(4, dtype=torch.bool, device=dev)
+    rows = torch.arange(4, device=dev)
+
+    def step():
+        model.decode_step_paged(tok, state, pos, bt, act, max_len, rows=rows)
+    with torch.inference_mode():
+        step_eager = eager_ms(torch, step, 3)
+        step_dev = device_ms(torch, step, 3)
+    print(f"mistral_serve: decode_step_paged (4 slots, pos {max_len - 1}, "
+          f"bf16 pages): device {step_dev:.3f} ms against the dry-run's "
+          f"memory_s {roof['memory_s'] * 1e3:.3f} ms (measured / predicted "
+          f"{step_dev / (roof['memory_s'] * 1e3):.3f}); eager "
+          f"{step_eager:.3f} ms -> card idle "
+          f"{1 - step_dev / step_eager:.1%} of an eager step", flush=True)
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_gqa": n_a, "paged_gqa_q8": q_c}
+
+
+def phase_dryrun_train(torch, dev):
+    """Full-width smollm-360m at batch 4 x 2048 through flash, one AdamW
+    step with remat="none" and one with remat="full" from the same seed:
+    the two first-step losses and gradient norms equal bit for bit, each
+    measured peak printed beside the dry-run's prediction (its meta pass
+    runs the flash stand-in, ``impl="optimized"``: flash itself never
+    sees a meta tensor), and full's peak below none's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticLMDataset
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, param_groups
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(get_config("smollm-360m"),
+                              attention_impl="flash")
+    B, S = 4, 2048
+    one = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab, seq_len=S),
+                        global_batch=B)
+    out, counts = {}, [0, 0]
+    for remat in ("none", "full"):
+        pred = dryrun.lower_cell(cfg.name, "train_4k",
+                                 ShapeMesh(("data", "model"), (1, 1)),
+                                 remat=remat, impl="optimized",
+                                 batch_override=B, seq_override=S)
+        mem = pred["memory_analysis"]
+        want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        model = build_model(cfg, device=dev, remat=remat,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(0))
+        opt = AdamW(param_groups(model), lr=3e-4)
+        step_fn = build_train_step(model, opt)
+        b = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in one.batch_at(0).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_flash_counts()
+        t0 = time.perf_counter()
+        _, met = step_fn({}, b)
+        loss, gn = met["loss"].item(), met["grad_norm"].item()
+        dt = time.perf_counter() - t0
+        ran = _flash_counts()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        counts[0] += ran[0]
+        counts[1] += ran[2]
+        out[remat] = (loss, gn, peak)
+        print(f"dryrun_train: remat={remat} first step {dt * 1e3:.0f} ms, "
+              f"loss {loss!r}, grad norm {gn!r}; peak measured {peak} B = "
+              f"{peak / 2**30:.2f} GiB, predicted {want} B = "
+              f"{want / 2**30:.2f} GiB (arguments "
+              f"{mem['argument_size_in_bytes']} + temp "
+              f"{mem['temp_size_in_bytes']}; measured / predicted "
+              f"{peak / want:.3f}); flash launches (fwd, dq, dkv) "
+              f"{tuple(ran[:3])}", flush=True)
+        want_fwd = cfg.n_layers * (2 if remat == "full" else 1)
+        if tuple(ran[:3]) != (want_fwd, cfg.n_layers, cfg.n_layers):
+            fail(f"dryrun_train: remat={remat} flash launches {ran[:3]}")
+        del model, opt, step_fn, b
+    (l0, g0, p0), (l1, g1, p1) = out["none"], out["full"]
+    if (l0, g0) != (l1, g1):
+        fail(f"dryrun_train: remat full's first step (loss {l1!r}, grad "
+             f"norm {g1!r}) differs from none's ({l0!r}, {g0!r}); bitwise "
+             "equality is expected")
+    if not p1 < p0:
+        fail(f"dryrun_train: remat full's peak {p1} B is not below none's "
+             f"{p0} B")
+    print(f"dryrun_train: loss and grad norm bitwise equal under none and "
+          f"full; peak full / none {p1 / p0:.3f}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd": counts[0], "flash_bwd": counts[1]}
+
+
+def phase_examples(torch, dev):
+    """The quickstart and serving examples on the card, each as a
+    subprocess (``python -m repro_torch.examples.<name>``): a non-zero
+    exit fails the script."""
+    import os
+
+    del dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for name in ("quickstart", "serve_batch"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               f"repro_torch.examples.{name}"], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[-4:]:
+            print(f"  examples {name}: {line}")
+        if proc.returncode:
+            fail(f"examples: {name} exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        print(f"examples: {name} exited 0 in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {}
+
+
 # phase mesh_serve: the archs it serves (a rehearsal on the CPU maps them
 # to their smoke variants) and the flash training shape of its part (c)
 MESH_LM, MESH_GQA = "minimalist-lm-360m", "smollm-360m"
@@ -4331,7 +4628,8 @@ def main():
     # the serving phases drive kernels of earlier phases: counts add up
     for phase in (phase_sched, phase_spec, phase_mamba_serve,
                   phase_moe_serve, phase_whisper, phase_vlm,
-                  phase_stablelm_serve, phase_mesh_serve):
+                  phase_stablelm_serve, phase_mistral_serve,
+                  phase_dryrun_train, phase_mesh_serve, phase_examples):
         for name, n in timed(phase).items():
             launches[name] += n
     launches["imc_mvm"] = timed(phase_imc)

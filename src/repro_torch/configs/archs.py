@@ -8,16 +8,19 @@ Qwen3-MoE-30B-A3B (GQA with 128 routed experts top-8), DeepSeek-V3-671B
 (attention-free Mamba-1), Jamba-1.5-Large-398B (Mamba and attention 7:1,
 MoE every other layer), the paper's technique at LM scale at 360M and
 100M and their hardware-mode twins, the paper's sMNIST network dims,
-``ASSIGNED``, ``reduced()`` and ``get_config``.  Values are the
-reference's own.  ``input_specs``, ``shape_supported`` and
-``LONG_CONTEXT_OK`` belong to the dry-run, which is not ported."""
+``ASSIGNED``, ``reduced()`` and ``get_config``, and the dry-run's
+``LONG_CONTEXT_OK``, ``DECODE_OK``, ``shape_supported`` and
+``input_specs`` (``meta`` tensors in place of ``jax.ShapeDtypeStruct``).
+Values are the reference's own."""
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MAMBA, MINGRU, MLA,
-                                      LayerSpec, MambaConfig, MLAConfig,
-                                      ModelConfig, MoEConfig)
+                                      SHAPES, LayerSpec, MambaConfig,
+                                      MLAConfig, ModelConfig, MoEConfig)
 
 QWEN3_MOE_30B = ModelConfig(
     # [hf:Qwen/Qwen3-30B-A3B; hf]
@@ -164,6 +167,20 @@ ASSIGNED = [c.name for c in [
     JAMBA_15_LARGE_398B,
 ]]
 
+# long_500k eligibility: sub-quadratic decode
+LONG_CONTEXT_OK = {"gemma3-4b", "falcon-mamba-7b", "jamba-1.5-large-398b",
+                   "minimalist-lm-360m", "minimalist-lm-360m-hw"}
+# encoder-prefill-only archs with no 32k self-decode regime (none)
+DECODE_OK = set(ARCHS)
+
+
+def shape_supported(cfg: ModelConfig, shape: str) -> bool:
+    """Whether the dry-run lowers ``cfg`` at ``shape`` (the reference's
+    rule: long_500k only for the sub-quadratic archs)."""
+    if shape == "long_500k":
+        return cfg.name in LONG_CONTEXT_OK
+    return True
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config for CPU smoke tests, preserving structure
@@ -203,3 +220,39 @@ def get_config(name: str) -> ModelConfig:
     if name.endswith("-smoke"):
         return reduced(ARCHS[name[:-len("-smoke")]])
     return ARCHS[name]
+
+
+def input_specs(cfg: ModelConfig, shape: str, *, batch_override=None,
+                seq_override=None):
+    """``meta`` stand-ins for every model input (no allocation), with the
+    reference's shapes and dtypes.
+
+    train:   {"tokens", "labels"} (+ "embeds" for vlm/audio stubs)
+    prefill: {"tokens"} (or {"embeds"} for audio encoder prefill)
+    decode:  {"tokens" (B, 1), "pos" scalar}; the cache comes from the
+             model (see ``launch.dryrun``), seq_len = the cache length.
+    """
+    sh = SHAPES[shape]
+    B = batch_override or sh["global_batch"]
+    S = seq_override or sh["seq_len"]
+
+    def sds(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    frames = (B, cfg.frontend_seq, cfg.d_model)
+    if sh["kind"] == "train":
+        spec = {"tokens": sds((B, S)), "labels": sds((B, S))}
+        if cfg.arch_type in ("vlm", "audio"):
+            spec["embeds"] = sds(frames, torch.bfloat16)
+        return spec
+    if sh["kind"] == "prefill":
+        if cfg.arch_type == "audio":
+            # encoder prefill over S frames (stub embeddings)
+            return {"embeds": sds((B, S, cfg.d_model), torch.bfloat16)}
+        spec = {"tokens": sds((B, S))}
+        if cfg.arch_type == "vlm":
+            spec["embeds"] = sds(frames, torch.bfloat16)
+        return spec
+    if sh["kind"] == "decode":
+        return {"tokens": sds((B, 1)), "pos": sds(())}
+    raise ValueError(shape)

@@ -38,9 +38,10 @@ PAGED_IMPLS = ("gather", "kernel")
 #:   naive — the masked softmax over the full (S, S) scores
 #:   flash — the flash-attention op: the hand-written CUDA forward and
 #:           backward kernels on CUDA tensors, their plain versions on CPU
-#:           tensors (the reference's ``stub`` belongs to the dry-run,
-#:           which is not ported)
-ATTENTION_IMPLS = ("naive", "flash")
+#:           tensors
+#:   stub  — the dry-run's O(S·d) stand-in (``launch.dryrun`` adds the
+#:           flash kernels' analytic cost in its place)
+ATTENTION_IMPLS = ("naive", "flash", "stub")
 
 #: Legal values of :attr:`ModelConfig.kv_dtype`.
 KV_DTYPES = ("bf16", "int8")
@@ -51,9 +52,10 @@ KV_DTYPES = ("bf16", "int8")
 #:           linear scan over the (B, T, d_inner·d_state) discretized terms
 #:   fused — the fused selective-scan op: the hand-written CUDA forward and
 #:           backward kernels on CUDA tensors, their plain versions on CPU
-#:           tensors (the reference's ``stub`` belongs to the dry-run,
-#:           which is not ported)
-SSM_IMPLS = ("xla", "fused")
+#:           tensors
+#:   stub  — the dry-run's O(T·d_inner) stand-in (``launch.dryrun`` adds
+#:           the fused scan's analytic cost in its place)
+SSM_IMPLS = ("xla", "fused", "stub")
 
 #: Legal values of :attr:`ModelConfig.scan_backend`:
 #:   kernel — the hand-written CUDA scan on CUDA tensors, its plain
@@ -308,3 +310,12 @@ class SamplingParams:
         if not 0 <= self.seed <= 2**32 - 1:
             raise ValueError("seed must be a uint32 (in [0, 2**32))")
         return self
+
+
+# The four assigned input-shape regimes
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}

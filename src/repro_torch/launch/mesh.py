@@ -1,18 +1,50 @@
-"""Local mesh construction (port of ``repro.launch.mesh``).
+"""Mesh construction (port of ``repro.launch.mesh``).
 
 Functions only: importing this module opens no process group and touches
 no device.  :func:`make_local_mesh` builds a ("data", "model")
 ``DeviceMesh`` over the process group the caller has already opened —
 one rank a device: gloo ranks with ``device="cpu"``, NCCL ranks with one
-card each on ``cuda``.  The production layouts (16 x 16 and 2 x 16 x 16,
-``make_production_mesh``) come with the dry-run.
+card each on ``cuda``.  :func:`make_production_mesh` gives the production
+layouts (16 x 16 and 2 x 16 x 16) as a :class:`ShapeMesh`: axis names and
+sizes only, which the rule tables (``parallel.sharding``) and
+:func:`mesh_info` read as they read a ``DeviceMesh``; the dry-run
+(``launch.dryrun``) places nothing on it.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeMesh:
+    """A mesh as the rule tables see it: dimension names and sizes, no
+    devices and no ranks (``DeviceMesh``'s ``mesh_dim_names`` and
+    ``shape``)."""
+
+    mesh_dim_names: tuple
+    shape: tuple
+
+    def __post_init__(self):
+        if len(self.mesh_dim_names) != len(self.shape) or any(
+                int(n) < 1 for n in self.shape):
+            raise ValueError(f"mesh axes {self.mesh_dim_names} need one "
+                             f"size >= 1 each, got {self.shape}")
+
+    @property
+    def size(self) -> int:
+        return int(math.prod(self.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """16 x 16 single-pod (256 devices) or 2 x 16 x 16 two-pod (512
+    devices) mesh, shape only."""
+    if multi_pod:
+        return ShapeMesh(("pod", "data", "model"), (2, 16, 16))
+    return ShapeMesh(("data", "model"), (16, 16))
 
 
 def make_local_mesh(model: int = 1, data: int = 1, *, device="cuda",

@@ -10,6 +10,8 @@
         --smoke --device cpu --ssm-impl fused --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --layers 8 --ssm-impl fused --batch 4 --seq 2048 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --smoke --device cpu --remat full --steps 3
 
 Runs on one CUDA device unless ``--device`` names another.  Uses the
 synthetic structured-token pipeline, AdamW + cosine with the reference's
@@ -31,6 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ATTENTION_IMPLS, SSM_IMPLS
 from repro_torch.data import ShardedLoader, SyntheticLMDataset
 from repro_torch.models import build_model
+from repro_torch.models.transformer import REMAT_MODES
 from repro_torch.optim import AdamW, cosine_schedule, param_groups
 from repro_torch.train import TrainConfig, Trainer
 from repro_torch.train.loop import DEFAULT_CKPT_DIR
@@ -53,17 +56,22 @@ def main(argv=None):
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the parameter initialisation")
+    # the dry-run's "stub" stand-ins train nothing: not offered here
     ap.add_argument("--attention-impl", default=None,
-                    choices=ATTENTION_IMPLS,
+                    choices=[i for i in ATTENTION_IMPLS if i != "stub"],
                     help="attention LMs: the naive softmax or the flash-"
                     "attention kernels (default: the config's own)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the stack to this many layers (default: the "
                     "config's own; falcon-mamba-7b's 64 need ~116 GB of "
                     "fp32 AdamW state, 8 fit one 80 GB card)")
-    ap.add_argument("--ssm-impl", default=None, choices=SSM_IMPLS,
+    ap.add_argument("--ssm-impl", default=None,
+                    choices=[i for i in SSM_IMPLS if i != "stub"],
                     help="Mamba LMs: the materializing scan or the fused "
                     "selective-scan kernels (default: the config's own)")
+    ap.add_argument("--remat", default="none", choices=REMAT_MODES,
+                    help="rematerialise each pattern unit in the backward "
+                    "(full) or all but its projections (dots_saveable)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch + ("-smoke" if args.smoke else ""))
@@ -73,7 +81,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, ssm_impl=args.ssm_impl)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    model = build_model(cfg, device=args.device,
+    model = build_model(cfg, device=args.device, remat=args.remat,
                         generator=torch.Generator(
                             device=args.device).manual_seed(args.seed))
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq)

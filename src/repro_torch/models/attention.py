@@ -19,7 +19,8 @@ Execution regimes, as in the reference:
 
 ``forward`` runs the naive softmax (``attention_impl="naive"``) or the
 flash-attention op (``"flash"``: the CUDA forward and backward kernels on
-the card, their plain versions on the CPU).  Parameter shapes are the
+the card, their plain versions on the CPU), or the dry-run's O(S·d)
+stand-in (``"stub"``, also in :class:`MLAAttention`).  Parameter shapes are the
 reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd,
 d), so the bridge maps them by path; :class:`MLAAttention` keeps the
 reference's MLA leaves and layouts as well.
@@ -325,13 +326,17 @@ class GQAAttention(nn.Module):
         flash-attention op on the (B, S, H, hd) projections passed as
         (B, H, S, hd) views (no copies; its output comes back in the same
         layout); as in the reference, rope is applied at ``positions`` but
-        the causal and window mask is on the sequence index 0..S-1.  (The
-        config admits no other value: the dry-run's ``stub`` is not
-        ported.)"""
+        the causal and window mask is on the sequence index 0..S-1.
+        ``stub``: the dry-run's O(S·d) stand-in with gradients to q, k and
+        v (``launch.dryrun`` adds the flash kernels' cost analytically)."""
         B, S, _ = x.shape
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q, k, v = self._qkv(x, positions)
+        if self.cfg.attention_impl == "stub":
+            out = q + (k.mean(1, keepdim=True) + v.mean(1, keepdim=True)
+                       ).mean(2, keepdim=True)
+            return self._out(out, x)
         if self.cfg.attention_impl == "flash":
             k, v = self._kv(k, v)
             out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -689,6 +694,13 @@ class MLAAttention(nn.Module):
         q_nope, q_rope, ckv, k_rope = self._latents(x, positions)
         kv = torch.einsum("bsr,rhk->bshk", ckv, self.w_ukv.to(x.dtype))
         k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+        if self.cfg.attention_impl == "stub":
+            # the dry-run's stand-in (see GQAAttention.forward)
+            out = (v + q_nope.mean(-1, keepdim=True)
+                   + q_rope.mean(-1, keepdim=True)
+                   + k_nope.mean(-1, keepdim=True)
+                   + k_rope.mean(-1, keepdim=True)[:, :, None, :])
+            return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
         pos = positions.expand(B, S) if positions.dim() == 1 else positions
         mask = causal_mask(pos, pos)[:, None]
         scores = (torch.einsum("bshk,blhk->bhsl", q_nope, k_nope)

@@ -8,7 +8,8 @@ Execution regimes, as in the reference:
     d_inner·d_state) discretized terms); ``"fused"`` runs the fused
     selective-scan op (the CUDA forward and backward kernels on the card,
     their plain versions on the CPU), which never builds a (B, T,
-    d_inner, d_state) tensor
+    d_inner, d_state) tensor; ``"stub"`` is the dry-run's O(B·T·d_inner)
+    stand-in
   * ``prefill`` — one chunk against the O(1) carry {"ssm": (B, di, n),
     "conv": (B, d_conv - 1, di)}: ``"xla"`` scans the chunk's
     discretized terms with the linear scan, as the reference does under
@@ -157,6 +158,13 @@ class MambaBlock(nn.Module):
                                              self.d_inner))
         xc = _silu(pre)
         dt, Bm, Cm, A = self._ssm_raw(xc)
+        if self.cfg.ssm_impl == "stub":
+            # the dry-run's O(B·T·di) stand-in with gradients to dt, xc,
+            # B, C and A (``launch.dryrun`` adds the fused scan's cost)
+            y = ((dt * xc) * Bm.sum(-1, keepdim=True)
+                 + xc * Cm.sum(-1, keepdim=True)
+                 + xc * A.sum(1)[None, None, :].to(x.dtype))
+            return self._out(y, xc, z, x)
         return self._out(selective_scan(dt, xc, Bm, Cm, A), xc, z, x)
 
     # --- prefill: whole chunk against the O(1) carry ---

@@ -32,10 +32,24 @@ a bf16 decode cache.  Cache layouts:
     beside its attention layers' page pools.
 
 Stacks that mix minGRU and attention layers are not ported yet.
+
+Rematerialisation (``remat``, the reference's three values) applies to
+each pattern unit of the full-sequence forward when gradients are on;
+head and tail layers run plain, as outside the reference's scan:
+
+  * ``none`` — every activation is kept for the backward;
+  * ``full`` — ``torch.utils.checkpoint`` around each unit: only its
+    input is kept, the unit runs again in the backward
+    (``nothing_saveable``);
+  * ``dots_saveable`` — a selective checkpoint that keeps the outputs of
+    the products with no batch dimension (the projections: ``mm``, and
+    ``bmm`` over a batch of one, as einsum lowers them) and recomputes
+    the rest (``dots_with_no_batch_dims_saveable``).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch import nn
@@ -222,11 +236,26 @@ class DecoderLayer(nn.Module):
         return self._mlp_tail(x + h, "decode"), block
 
 
-def _rows_sharded(t) -> bool:
-    """Whether ``t`` is a DTensor with its dim 0 sharded."""
-    from torch.distributed.tensor import Shard
-    return spmd.is_dtensor(t) and any(
-        isinstance(pl, Shard) and pl.dim == 0 for pl in t.placements)
+#: Legal values of :class:`DecoderLM`'s ``remat``.
+REMAT_MODES = ("none", "full", "dots_saveable")
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots_saveable"``: keep the
+    products with no batch dimension, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default) or (
+            func is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layers(layers, x, positions):
+    for layer in layers:
+        x = layer(x, positions)
+    return x
 
 
 class DecoderLM(nn.Module):
@@ -235,8 +264,12 @@ class DecoderLM(nn.Module):
     ``decode_step``, ``init_cache``)."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, device=None,
-                 generator=None):
+                 generator=None, remat: str = "none"):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{remat!r}")
+        self.remat = remat
         specs = cfg.layer_specs()
         for spec in specs:             # refuse before allocating anything
             check_ported(spec)
@@ -323,9 +356,40 @@ class DecoderLM(nn.Module):
             parts.append(self.embed(tokens))
         x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
         x = x.to(self.compute_dtype)
-        for layer in self.layers:
-            x = layer(x, positions)
-        return self._head(x)
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return self._head(_run_layers(self.layers, x, positions))
+        return self._head(self._remat_layers(x, positions))
+
+    def _remat_layers(self, x, positions):
+        """The stack with each pattern unit checkpointed per
+        ``self.remat`` (head and tail layers plain)."""
+        from torch.utils.checkpoint import (checkpoint,
+                                            create_selective_checkpoint_contexts)
+
+        if spmd.binding(self) is not None:
+            raise NotImplementedError(
+                "remat on a model bound to a mesh is not ported: its "
+                "recomputation would run outside spmd.local_view")
+        cfg = self.cfg
+        h, u = len(cfg.head_layers), len(cfg.pattern)
+        end = h + cfg.n_repeats * u
+        kw = {} if self.remat == "full" else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+        s = spmd.current()
+        rows = s.rows_sharded if s is not None else False
+
+        def unit(layers, x, positions):
+            # the recomputation runs in the backward, outside the caller's
+            # Spmd.data_rows: restore the flag it ran under
+            with s.data_rows(rows) if s is not None \
+                    else contextlib.nullcontext():
+                return _run_layers(layers, x, positions)
+
+        x = _run_layers(self.layers[:h], x, positions)
+        for i in range(h, end, u):
+            x = checkpoint(unit, self.layers[i:i + u], x, positions,
+                           use_reentrant=False, **kw)
+        return _run_layers(self.layers[end:], x, positions)
 
     def loss(self, batch):
         """batch: {"tokens": (B, S), "labels": (B, S), optional "embeds"
@@ -342,11 +406,11 @@ class DecoderLM(nn.Module):
             with spmd.local_view(self):
                 return self.loss(batch)
         s = spmd.current()
-        if s is not None and s.dp > 1 and not _rows_sharded(batch["labels"]):
+        sharded = s is not None and s.batch_sharded(batch["labels"])
+        if s is not None and s.dp > 1 and not sharded:
             raise ValueError("on a mesh with data > 1 the batch rows must "
                              "shard over 'data' (sharding.batch_specs; "
                              "the batch size must divide by it)")
-        sharded = _rows_sharded(batch["labels"])
         batch = {k: spmd.local(v) for k, v in batch.items()}
         with s.data_rows(sharded) if s is not None \
                 else contextlib.nullcontext():

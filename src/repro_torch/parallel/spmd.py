@@ -184,6 +184,13 @@ class Spmd:
         return _all_reduce(x.detach(), self.model_group, dist.ReduceOp.MAX)
 
     # --- data parallelism ------------------------------------------------
+    def batch_sharded(self, t) -> bool:
+        """Whether the batch tensor ``t`` came with its rows sharded over
+        "data" (a DTensor with dim 0 sharded)."""
+        from torch.distributed.tensor import Shard
+        return is_dtensor(t) and any(
+            isinstance(pl, Shard) and pl.dim == 0 for pl in t.placements)
+
     def dp_sharded(self, n: int) -> bool:
         """Whether a slot-leading array of ``n`` rows shards over "data"
         (``sharding.dim0_dp_spec``'s rule)."""

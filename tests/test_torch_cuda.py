@@ -1972,3 +1972,75 @@ def test_mesh_1x1_nccl_paged_streams_bitwise(cuda, kv_dtype, tmp_path):
     finally:
         dist.destroy_process_group()
     assert got == ref
+
+
+@pytest.mark.cuda
+def test_remat_modes_bitwise_and_full_lower_peak(cuda):
+    """remat none / full / dots_saveable on the card through flash:
+    smollm-360m-smoke at 8 x 1024, the loss and every gradient bitwise
+    equal across modes (recomputation reruns the same kernels on the same
+    inputs), and full's peak below none's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import REMAT_MODES
+
+    cfg = dataclasses.replace(get_config("smollm-360m-smoke"),
+                              attention_impl="flash")
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(8, 1024))).to(cuda)
+    out = {}
+    for remat in REMAT_MODES:
+        m = build_model(cfg, device=cuda, remat=remat,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        loss, _ = m.loss({"tokens": tok, "labels": tok})
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(cuda) - base
+        out[remat] = (loss.detach(), [p.grad for p in m.parameters()], peak)
+        del m, loss
+    for remat in ("full", "dots_saveable"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(out[remat][1], out["none"][1]))
+    assert out["full"][2] < out["none"][2]
+
+
+@pytest.mark.cuda
+def test_dryrun_prediction_holds_on_the_card(cuda):
+    """The dry-run's meta pass runs on the card's machine (no JAX) and
+    predicts smollm-360m's dense decode cell at batch 4 x 544 on a 1x1
+    mesh: the parameter bytes exactly, and the measured peak of one
+    decode step (parameters, cache and temporaries) within 5 %."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.models import build_model
+
+    cfg = get_config("smollm-360m")
+    pred = dryrun.lower_cell("smollm-360m", "decode_32k",
+                             ShapeMesh(("data", "model"), (1, 1)),
+                             batch_override=4, seq_override=544)
+    mem = pred["memory_analysis"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert n_bytes == mem["argument_parts"]["params"]
+    step = dryrun.build_serve_step(model)
+    with torch.no_grad():
+        cache = model.init_cache(4, 544)
+        tok = torch.zeros(4, 1, dtype=torch.int32, device=cuda)
+        pos = torch.full((4,), 543, dtype=torch.int32, device=cuda)
+        nxt, cache = step(cache, tok, pos)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    assert nxt.shape == (4,)
+    assert abs(peak / want - 1) <= 0.05, (peak, want)

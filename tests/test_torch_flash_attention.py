@@ -158,13 +158,15 @@ def test_strided_views_give_the_contiguous_result():
 
 
 def test_config_admits_naive_and_flash_only():
+    """The config takes the naive softmax, the flash op and the dry-run's
+    stand-in ("stub", the reference's third value), nothing else."""
     from repro_torch.configs import get_config
     cfg = get_config("smollm-360m-smoke")
-    for impl in ("naive", "flash"):
+    for impl in ("naive", "flash", "stub"):
         assert dataclasses.replace(cfg, attention_impl=impl).attention_impl \
             == impl
     with pytest.raises(ValueError, match="attention_impl"):
-        dataclasses.replace(cfg, attention_impl="stub")
+        dataclasses.replace(cfg, attention_impl="pallas")
 
 
 def test_wrappers_raise_on_other_devices():

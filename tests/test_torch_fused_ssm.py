@@ -145,7 +145,8 @@ def test_wrappers_refuse_mixed_devices():
 
 def test_config_admits_xla_and_fused_only():
     """falcon-mamba-7b carries the reference's values, and ssm_impl takes
-    the materializing "xla" and the fused op, not the dry-run's "stub"."""
+    the materializing "xla", the fused op and the dry-run's "stub" (the
+    reference's three values), nothing else."""
     import dataclasses
 
     from repro.configs import get_config as jget
@@ -159,10 +160,10 @@ def test_config_admits_xla_and_fused_only():
     assert cfg.mamba.d_inner(cfg.d_model) == 8192 and cfg.mamba.d_state == 16
     assert str(get_config("falcon-mamba-7b-smoke").mamba) == \
         str(jget("falcon-mamba-7b-smoke").mamba)
-    for impl in ("xla", "fused"):
+    for impl in ("xla", "fused", "stub"):
         assert dataclasses.replace(cfg, ssm_impl=impl).ssm_impl == impl
     with pytest.raises(ValueError, match="ssm_impl"):
-        dataclasses.replace(cfg, ssm_impl="stub")
+        dataclasses.replace(cfg, ssm_impl="pallas")
 
 
 @pytest.mark.parametrize("B,T,di,n", [(2, 2 * ops.CHUNK, 64, 16),
