@@ -21,7 +21,11 @@ Phases, each fatal on failure:
                odd tail, the chunk shape timed; paged_gqa(_q8) at
                stablelm-12b's and mistral-large-123b's decode shapes and
                flash_fwd/flash_bwd at whisper-small's and llava-next-34b's
-               training shapes (PAGED_MODEL_ROWS, FLASH_MODEL_ROWS).
+               training shapes (PAGED_MODEL_ROWS, FLASH_MODEL_ROWS);
+               at a tensor-parallel rank's widths, paged_mla(_q8) at H 64
+               and 32 (deepseek-v3-671b at TP 2 and 4) and fused_ssm_fwd
+               (carry form) and fused_ssm_bwd at d_inner 4096
+               (falcon-mamba-7b at TP 2).
   3. lm     — serve full-width minimalist-lm-360m (random weights from a
                seed) through ServeEngine: 8 greedy requests, 4 slots,
                prefill through the linear_scan kernel; then the same
@@ -171,7 +175,9 @@ Phases, each fatal on failure:
  19. dryrun_train — full-width smollm-360m at batch 4 x 2048 through flash,
                one AdamW step with remat "none" and one with "full" from
                the same seed: losses and gradient norms bitwise equal,
-               each peak beside the dry-run's prediction, full's below.
+               each peak beside the dry-run's prediction, full's below;
+               (c) the full step again on a model bound to a world-1 1x1
+               mesh: bitwise the unbound one, its peak beside it.
  20. mesh_serve — a world-1 process group (NCCL, through a FileStore
                under build/) and a 1x1 DeviceMesh: (a) full-width
                minimalist-lm-360m dense, phase lm's traffic greedy and
@@ -186,9 +192,26 @@ Phases, each fatal on failure:
                spawned NCCL ranks when two are visible, (a) greedy and (b)
                bf16 against the no-mesh streams under the margin rule (else
                a line says it did not run).
- 21. examples — repro_torch.examples.quickstart and .serve_batch on the
+ 21. tp_serve — TP 2 on two spawned ranks: NCCL with a card each where
+               two are visible, else gloo with both ranks on card 0 (the
+               transport is printed).  With mistral_serve's traffic (8
+               requests, prompts 64-512, 32 new): falcon-mamba-7b fused,
+               dense slots (all 64 layers on two cards, 16 on one: each
+               rank first builds the whole fp32 model); deepseek-v3-671b's
+               3 dense MLA layers from bf16 and int8 latent pages (64
+               heads a rank reach paged_mla(_q8)); whisper-small (x32)
+               decoded greedily after the encoder; one AdamW step of
+               falcon-mamba-7b (8 layers, 1 x 2048) with gradients under
+               remat none and full (losses bitwise).  The parent runs the
+               same with no mesh: streams under the margin rule, the TP
+               loss within TP_LOSS_TOL, decode-step p50 with and without
+               the mesh, launches of fused_ssm_* and paged_mla*.
+ 22. mixed   — a stack mixing minGRU and attention at minimalist-lm-360m's
+               widths (x32) from bf16 pages with phase lm's traffic: the
+               paged_gqa read against the gather read (margin rule).
+ 23. examples — repro_torch.examples.quickstart and .serve_batch on the
                card as subprocesses; a non-zero exit fails the script.
- 22. imc     — the paper's IMC projection (Eq. 6) through its entry point
+ 24. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
                against its plain version, and Eq. 6's all-ones and
@@ -565,6 +588,7 @@ def phase_kernels(torch, dev):
     rows.update(_kernel_rows_imc(torch, dev, g))
     rows["fused_ssm_fwd"].update(_ssm_carry_against_plain(torch, dev, g))
     _kernel_rows_model_shapes(torch, dev, rows)
+    _kernel_rows_tp(torch, dev, rows)
     return rows
 
 
@@ -871,6 +895,27 @@ def _kernel_rows_model_shapes(torch, dev, rows):
         rows["flash_bwd"].update(_prefixed(label, bwd))
 
 
+def _kernel_rows_tp(torch, dev, rows):
+    """The kernels at a tensor-parallel rank's widths (phase tp_serve):
+    paged_mla(_q8) at MLA_TP_ROWS (:func:`_mla_row`), fused_ssm_fwd in
+    carry form at SSM_TP_CARRY (:func:`_ssm_carry_against_plain`) and
+    both SSM kernels at SSM_TP_TRAIN (:func:`_ssm_rows`), added to
+    ``rows`` under their labels; a generator of their own leaves the
+    other rows' inputs as they were."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    for q8 in (False, True):
+        name = "paged_mla_q8" if q8 else "paged_mla"
+        for label, H in MLA_TP_ROWS:
+            rows[name].update(_prefixed(label, _mla_row(
+                torch, dev, g, q8, label, 4, H, 1056, [1055] * 4,
+                simt=False)))
+    rows["fused_ssm_fwd"].update(_ssm_carry_against_plain(
+        torch, dev, g, [SSM_TP_CARRY], "tp2_carry_"))
+    fwd, bwd = _ssm_rows(torch, dev, g, *SSM_TP_TRAIN)
+    rows["fused_ssm_fwd"].update(_prefixed("tp2", fwd))
+    rows["fused_ssm_bwd"].update(_prefixed("tp2", bwd))
+
+
 def _ssm_err_within(name, got, want, atol, rtol):
     """max |got - want|; fails past atol x max|want| + rtol x |want|."""
     err = (got - want).abs()
@@ -880,18 +925,26 @@ def _ssm_err_within(name, got, want, atol, rtol):
     return err.max().item()
 
 
-def _ssm_carry_against_plain(torch, dev, g):
+#: fused_ssm_fwd's carry form (mamba_serve's prefill): the path's chunk
+#: (timed) and an odd tail
+SSM_CARRY_SHAPES = [(1, 256, 8192, 16), (1, 77, 8192, 16)]
+#: falcon-mamba-7b at TP 2 (d_inner 8192 / 2): the carry form's chunk and
+#: the training shape of both kernels
+SSM_TP_CARRY, SSM_TP_TRAIN = (1, 256, 4096, 16), (4, 2048, 4096, 16)
+
+
+def _ssm_carry_against_plain(torch, dev, g, shapes=SSM_CARRY_SHAPES,
+                             prefix="carry_"):
     """fused_ssm_fwd in the form mamba_serve's prefill calls it (from a
-    carried state h0, the final state written to h_last) at the path's
-    prefill chunk (B 1, T 256, d_inner 8192, d_state 16) and at an odd
-    tail (T 77): y, the entry states and h_last against the plain version
-    from the same h0 at the forward's atol 2e-5 x max|plain| / rtol
-    2e-5; the chunk shape timed too.  Returns its ``carry_*`` numbers for
+    carried state h0, the final state written to h_last) at ``shapes``:
+    y, the entry states and h_last against the plain version from the
+    same h0 at the forward's atol 2e-5 x max|plain| / rtol 2e-5; the first
+    shape timed too.  Returns its numbers under ``prefix`` for
     fused_ssm_fwd's JSON row."""
     from repro_torch.kernels.fused_ssm import ops as ssm_ops
     from repro_torch.kernels.fused_ssm import ref as ssm_ref
 
-    for B, T, di, n in [(1, 256, 8192, 16), (1, 77, 8192, 16)]:
+    for k, (B, T, di, n) in enumerate(shapes):
         dt = torch.nn.functional.softplus(
             torch.randn(B, T, di, device=dev, generator=g)) * 0.2
         x = torch.randn(B, T, di, device=dev, generator=g)
@@ -915,7 +968,7 @@ def _ssm_carry_against_plain(torch, dev, g):
               + " / ".join(f"{w.abs().max().item():.3g}"
                            for w in (yp, entp, want_last))
               + " + 2e-5 rel)", flush=True)
-        if T == 256:
+        if k == 0:
             ins = (dt, x, Bm, Cm, A)
 
             def kernel():
@@ -935,10 +988,10 @@ def _ssm_carry_against_plain(torch, dev, g):
                   f"library none, bound {b_ms:.5f} ms ({by}; "
                   f"{flops / 1e9:.3f} GFLOP, {bytes_ / 1e6:.1f} MB; "
                   f"{b_ms / ms:.1%} of it)", flush=True)
-            row = dict(carry_ms=ms, carry_eager_ms=call_ms,
-                       carry_plain_ms=plain_ms, carry_bound_ms=b_ms,
-                       carry_bound_by=by, carry_library_ms=None,
-                       carry_max_abs_err=max(errs.values()))
+            row = {f"{prefix}{key}": v for key, v in dict(
+                ms=ms, eager_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=None,
+                max_abs_err=max(errs.values())).items()}
         del dt, x, Bm, Cm, A, h0, h_last, want_last, y, ent, yp, entp
     return row
 
@@ -981,89 +1034,97 @@ def _ssm_errs_line(errs, scale):
             + " (tol 5e-5 x max|plain| + 5e-4 rel)")
 
 
-def _kernel_rows_ssm(torch, dev, g):
-    """fused_ssm_fwd and fused_ssm_bwd at the mamba_train phase's shape
-    (falcon-mamba-7b: batch 4, seq 2048, d_inner 8192, d_state 16, fp32)
-    and at an odd one (T and d_inner off the kernels' 32-step chunks and
-    256-channel blocks), against their plain versions on the same inputs
-    (_ssm_against_plain), with what the build made of each kernel
-    (registers, local bytes, resident blocks an SM) and the dB/dC partial
-    bytes a backward call writes."""
+def _ssm_rows(torch, dev, g, B, T, di, n):
+    """fused_ssm_fwd and fused_ssm_bwd at (B, T, d_inner, d_state), fp32,
+    against their plain versions on the same inputs
+    (_ssm_against_plain), timed beside them and their bounds, with what
+    the build made of each kernel (registers, local bytes, resident blocks
+    an SM) and the dB/dC partial bytes a backward call writes -> (the
+    forward's row, the backward's)."""
     from repro_torch.kernels.fused_ssm import ops as ssm_ops
     from repro_torch.kernels.fused_ssm import ref as ssm_ref
 
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, di, device=dev, generator=g)) * 0.2
+    x = torch.randn(B, T, di, device=dev, generator=g)
+    Bm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+    Cm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
+    A = -torch.exp(torch.randn(di, n, device=dev, generator=g) * 0.3)
+    dy = torch.randn(B, T, di, device=dev, generator=g)
+    ins = (dt, x, Bm, Cm, A)
+    tag = f"(B {B}, T {T}, d_inner {di}, d_state {n}) fp32"
+    errs, scale, ent = _ssm_against_plain(torch, ins, dy, tag)
+
+    def fwd():
+        ssm_ops.fused_ssm_fwd_kernel(*ins)
+
+    def bwd():
+        ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy)
+    f_ms, f_call = device_ms(torch, fwd, 10), eager_ms(torch, fwd, 10)
+    b_ms, b_call = device_ms(torch, bwd, 5), eager_ms(torch, bwd, 5)
+    f_plain = device_ms(torch, lambda: ssm_ref.fused_ssm_fwd_ref(
+        *ins, ssm_ops.CHUNK), 1)
+    b_plain = device_ms(torch, lambda: ssm_ref.fused_ssm_bwd_ref(
+        *ins, ent, dy, ssm_ops.CHUNK), 1)
+    # bounds from the reference's cost model at 4 bytes an element: each
+    # input read and each output written once, the residual states at the
+    # reference's 256-step spacing (not this kernel's CHUNK, a design
+    # choice); the backward is the training totals less the forward's.
+    # Flops 6 per (t, d, n) forward, 15 backward
+    ff, f_bytes = ssm_ops.cost_model(B, T, di, n, train=False,
+                                     dtype_bytes=4)
+    tf, t_bytes = ssm_ops.cost_model(B, T, di, n, train=True,
+                                     dtype_bytes=4)
+    b_bytes = t_bytes - f_bytes
+    fb_ms, f_by = bound(f_bytes, ff)
+    bb_ms, b_by = bound(b_bytes, tf - ff)
+    built = {}
+    for which in ("fwd", "bwd"):
+        i = ssm_ops.kernel_info(which, n)
+        built[which] = (f"{i['registers']} registers, {i['local_bytes']} "
+                        f"local bytes a thread, {i['blocks_per_sm']} "
+                        f"resident block(s) an SM of {i['threads']} "
+                        f"threads, {i['smem_bytes']} B shared")
+    p_mb = ssm_ops.partial_bytes(B, T, di, n) / 1e6
+    print(f"kernel fused_ssm_fwd {tag}: kernel {f_ms:.4f} ms (eager "
+          f"call {f_call:.4f} ms), plain {f_plain:.4f} ms, library none, "
+          f"bound {fb_ms:.5f} ms ({f_by}; {ff / 1e9:.2f} GFLOP, "
+          f"{f_bytes / 1e6:.1f} MB; {fb_ms / f_ms:.1%} of it); build: "
+          f"{built['fwd']}", flush=True)
+    print(f"kernel fused_ssm_bwd {tag}: kernel {b_ms:.4f} ms (eager "
+          f"call {b_call:.4f} ms, partial sums included), plain "
+          f"{b_plain:.4f} ms, library none, bound {bb_ms:.5f} ms "
+          f"({b_by}; {(tf - ff) / 1e9:.2f} GFLOP, {b_bytes / 1e6:.1f} "
+          f"MB; {bb_ms / b_ms:.1%} of it); dB/dC partials {p_mb:.1f} MB "
+          f"a call ({ssm_ops.d_blocks(di, n)} rows a batch row); build: "
+          f"{built['bwd']}", flush=True)
+    print(f"kernel fused_ssm {tag}: {_ssm_errs_line(errs, scale)}",
+          flush=True)
+    del dt, x, Bm, Cm, A, dy, ins, ent
+    torch.cuda.empty_cache()
+    # no single PyTorch call computes a selective scan: library none
+    return (dict(max_abs_err=max(errs["y"], errs["h_entries"]), ms=f_ms,
+                 eager_ms=f_call, plain_ms=f_plain, bound_ms=fb_ms,
+                 bound_by=f_by, library_ms=None),
+            dict(max_abs_err=max(errs[k] for k in ("ddt", "dx", "dB", "dC",
+                                                   "dA")),
+                 ms=b_ms, eager_ms=b_call, plain_ms=b_plain, bound_ms=bb_ms,
+                 bound_by=b_by, library_ms=None))
+
+
+def _kernel_rows_ssm(torch, dev, g):
+    """fused_ssm_fwd and fused_ssm_bwd (:func:`_ssm_rows`) at the
+    mamba_train phase's shape (falcon-mamba-7b: batch 4, seq 2048,
+    d_inner 8192, d_state 16, fp32), the JSON rows, and at an odd one (T
+    and d_inner off the kernels' 32-step chunks and 256-channel
+    blocks)."""
     rows = {}
-    for B, T, di, n in [(4, 2048, 8192, 16), (3, 1000, 1000, 16)]:
-        path = B == 4
-        dt = torch.nn.functional.softplus(
-            torch.randn(B, T, di, device=dev, generator=g)) * 0.2
-        x = torch.randn(B, T, di, device=dev, generator=g)
-        Bm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
-        Cm = torch.randn(B, T, n, device=dev, generator=g) * 0.5
-        A = -torch.exp(torch.randn(di, n, device=dev, generator=g) * 0.3)
-        dy = torch.randn(B, T, di, device=dev, generator=g)
-        ins = (dt, x, Bm, Cm, A)
-        tag = f"(B {B}, T {T}, d_inner {di}, d_state {n}) fp32"
-        errs, scale, ent = _ssm_against_plain(torch, ins, dy, tag)
-
-        def fwd():
-            ssm_ops.fused_ssm_fwd_kernel(*ins)
-
-        def bwd():
-            ssm_ops.fused_ssm_bwd_kernel(*ins, ent, dy)
-        f_ms, f_call = device_ms(torch, fwd, 10), eager_ms(torch, fwd, 10)
-        b_ms, b_call = device_ms(torch, bwd, 5), eager_ms(torch, bwd, 5)
-        f_plain = device_ms(torch, lambda: ssm_ref.fused_ssm_fwd_ref(
-            *ins, ssm_ops.CHUNK), 1)
-        b_plain = device_ms(torch, lambda: ssm_ref.fused_ssm_bwd_ref(
-            *ins, ent, dy, ssm_ops.CHUNK), 1)
-        # bounds from the reference's cost model at 4 bytes an element:
-        # each input read and each output written once, the residual
-        # states at the reference's 256-step spacing (not this kernel's
-        # CHUNK, a design choice); the backward is the training totals
-        # less the forward's.  Flops 6 per (t, d, n) forward, 15 backward
-        ff, f_bytes = ssm_ops.cost_model(B, T, di, n, train=False,
-                                         dtype_bytes=4)
-        tf, t_bytes = ssm_ops.cost_model(B, T, di, n, train=True,
-                                         dtype_bytes=4)
-        b_bytes = t_bytes - f_bytes
-        fb_ms, f_by = bound(f_bytes, ff)
-        bb_ms, b_by = bound(b_bytes, tf - ff)
-        built = {}
-        for which in ("fwd", "bwd"):
-            i = ssm_ops.kernel_info(which, n)
-            built[which] = (f"{i['registers']} registers, {i['local_bytes']} "
-                            f"local bytes a thread, {i['blocks_per_sm']} "
-                            f"resident block(s) an SM of {i['threads']} "
-                            f"threads, {i['smem_bytes']} B shared")
-        p_mb = ssm_ops.partial_bytes(B, T, di, n) / 1e6
-        print(f"kernel fused_ssm_fwd {tag}: kernel {f_ms:.4f} ms (eager "
-              f"call {f_call:.4f} ms), plain {f_plain:.4f} ms, library none, "
-              f"bound {fb_ms:.5f} ms ({f_by}; {ff / 1e9:.2f} GFLOP, "
-              f"{f_bytes / 1e6:.1f} MB; {fb_ms / f_ms:.1%} of it); build: "
-              f"{built['fwd']}", flush=True)
-        print(f"kernel fused_ssm_bwd {tag}: kernel {b_ms:.4f} ms (eager "
-              f"call {b_call:.4f} ms, partial sums included), plain "
-              f"{b_plain:.4f} ms, library none, bound {bb_ms:.5f} ms "
-              f"({b_by}; {(tf - ff) / 1e9:.2f} GFLOP, {b_bytes / 1e6:.1f} "
-              f"MB; {bb_ms / b_ms:.1%} of it); dB/dC partials {p_mb:.1f} MB "
-              f"a call ({ssm_ops.d_blocks(di, n)} rows a batch row); build: "
-              f"{built['bwd']}", flush=True)
-        print(f"kernel fused_ssm {tag}: {_ssm_errs_line(errs, scale)}",
-              flush=True)
-        if path:
-            # no single PyTorch call computes a selective scan: library none
-            rows["fused_ssm_fwd"] = dict(
-                max_abs_err=max(errs["y"], errs["h_entries"]), ms=f_ms,
-                plain_ms=f_plain, bound_ms=fb_ms, bound_by=f_by,
-                library_ms=None)
-            rows["fused_ssm_bwd"] = dict(
-                max_abs_err=max(errs[k] for k in ("ddt", "dx", "dB", "dC",
-                                                  "dA")),
-                ms=b_ms, plain_ms=b_plain, bound_ms=bb_ms, bound_by=b_by,
-                library_ms=None)
-        del dt, x, Bm, Cm, A, dy, ins, ent
-        torch.cuda.empty_cache()
+    for shape in [(4, 2048, 8192, 16), (3, 1000, 1000, 16)]:
+        fwd, bwd = _ssm_rows(torch, dev, g, *shape)
+        if shape[0] == 4:
+            for row in (fwd, bwd):
+                row.pop("eager_ms")
+            rows["fused_ssm_fwd"], rows["fused_ssm_bwd"] = fwd, bwd
     return rows
 
 
@@ -1132,21 +1193,117 @@ def _mla_simt_f32(torch, kern, tag, inputs, kw, sk, q8):
     return err
 
 
-def _kernel_rows_mla(torch, dev, g):
-    """paged_mla and paged_mla_q8 at mla_shapes.MLA_SHAPES (kv_lora 512,
-    rope 64, page 16, bf16 queries: the tc route) against the plain
-    version: one bf16 ulp of the output plus 2e-6; the build's registers,
-    spills and resident CTAs of each tc instantiation first.  At the path
-    and odd shapes the simt route too, on bf16 queries (:func:`_mla_simt`)
-    and on fp32 queries against fp64 sums (:func:`_mla_simt_f32`)."""
+def _mla_row(torch, dev, g, q8, label, B, H, length, pos, simt):
+    """One paged MLA kernel row (kv_lora 512, rope 64, page 16, bf16
+    queries: the tc route) against the plain version at one bf16 ulp of
+    the output plus 2e-6, timed beside the plain version, one SDPA call
+    over the dense latent view and the bound; with ``simt`` the simt
+    route too, on bf16 queries (:func:`_mla_simt`) and on fp32 queries
+    against fp64 sums (:func:`_mla_simt_f32`)."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
-    from repro_torch.launch.mla_shapes import MLA_SHAPES, mla_inputs
+    from repro_torch.launch.mla_shapes import mla_inputs
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {}
     r, dr, ps = 512, 64, 16
     scale = 1.0 / (128 + 64) ** 0.5      # 1 / sqrt(nope + rope)
+    name = "paged_mla_q8" if q8 else "paged_mla"
+    kern = pa_ops.paged_mla_q8_kernel if q8 else pa_ops.paged_mla_kernel
+    qa, qr, pc, pr, sc, bt, pos_t = mla_inputs(
+        dev, g, B, H, length, pos, q8, ps=ps, r=r, dr=dr)
+    route = pa_ops.mla_route(
+        qa.dtype, pc.dtype, r, dr, ps,
+        all(t.data_ptr() % 16 == 0 for t in (qa, qr, pc, pr)))
+    kw = dict(length=length, scale=scale)
+    sk = dict(zip(("ckv_scale", "krope_scale"), sc))
+    tc0 = kern.launches_tc
+    got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+    if route != "tc" or kern.launches_tc - tc0 != 1:
+        fail(f"{name} {label}: not on the tc route ({route}; "
+             f"launches_tc moved by {kern.launches_tc - tc0})")
+    want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos_t, **kw, **sk)
+    torch.cuda.synchronize()
+    n_bad, err = _past_bf16_ulp(torch, got, want)
+    del got, want
+    tag = (f"{name} {label} (B {B}, H {H}, r {r}, dr {dr}, page {ps}, "
+           f"length {length}, pos {pos if B < 8 else pos[0]}) bf16 "
+           f"q, {route} route")
+    if n_bad:
+        fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
+             f"at {n_bad} outputs (max {err})")
+    row = {}
+    if simt:
+        inputs = (qa, qr, pc, pr, sc, bt, pos_t)
+        simt_err, simt_call = _mla_simt(torch, kern, f"{name} {label}",
+                                        inputs, kw, sk)
+        row["simt_max_abs_err"] = simt_err
+        row["simt_f32_max_abs_err_fp64"] = _mla_simt_f32(
+            torch, kern, f"{name} {label}", inputs, kw, sk, q8)
+        row["simt_ms"] = device_ms(torch, simt_call, 50)
+        print(f"kernel {name} {label} simt route (unaligned bf16 q): "
+              f"{row['simt_ms']:.4f} ms", flush=True)
+        del simt_call
+
+    def kernel():
+        kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
+    ms = device_ms(torch, kernel, 100)
+    call_ms = eager_ms(torch, kernel, 100)
+    plain_ms = device_ms(torch, lambda: pa_ref.paged_mla_ref(
+        qa, qr, pc, pr, bt, pos_t, **kw, **sk), 10)
+    # yardstick the port never calls: one SDPA call over the gathered
+    # dense (dequantized) latent view, q = [q_abs, q_rope], k = [ckv,
+    # krope], v = ckv: one head, the H query heads (which share the
+    # latent) along the query axis
+    if q8:
+        cd = pa_ref.gather_dequant(pc, sc[0], bt, length, torch.bfloat16)
+        rd = pa_ref.gather_dequant(pr, sc[1], bt, length, torch.bfloat16)
+    else:
+        cd = pa_ref.gather_pages(pc, bt, length)
+        rd = pa_ref.gather_pages(pr, bt, length)
+    qd = torch.cat([qa, qr], dim=-1)[:, None]
+    kd = torch.cat([cd, rd], dim=-1)[:, None]
+    vd = cd[:, None]
+    _kp, valid = pa_ref.paged_positions(pos_t, length)
+    mask = valid[:, None, None, :]
+    library_ms = device_ms(torch, lambda: sdpa(
+        qd, kd, vd, attn_mask=mask, scale=scale), 100 if B < 8 else 20)
+    # bytes and flops that this run's positions need: each row's live
+    # latent pages, q and out, the block table
+    flops = bytes_ = 0
+    for p in pos:
+        f, b = pa_ops.cost_model_mla(
+            1, H, r, dr, live_tokens=p + 1, page_size=ps,
+            dtype_bytes=1 if q8 else 2, scale_bytes=4 if q8 else 0)
+        flops, bytes_ = flops + f, bytes_ + b
+    b_ms, by = bound(bytes_, flops, PEAK_BF16_TENSOR_FLOPS)
+    print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp "
+          f"+ 2e-6) kernel {ms:.4f} ms (eager call {call_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, library (SDPA on the "
+          f"dense latent view) {library_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({by}, bf16 tensor peak; "
+          f"{flops / 1e9:.2f} GFLOP, {bytes_ / 1e6:.2f} MB; "
+          f"{b_ms / ms:.1%} of it)", flush=True)
+    del qa, qr, pc, pr, sc, bt, pos_t, cd, rd, qd, kd, vd, mask
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, eager_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                mla_route=route, **row)
+
+
+#: the paged MLA rows at a tensor-parallel rank's heads: deepseek-v3-671b
+#: at TP 2 and TP 4 (128 heads / 2, / 4) at the path's B 4, cache 1056
+MLA_TP_ROWS = [("tp2", 64), ("tp4", 32)]
+
+
+def _kernel_rows_mla(torch, dev, g):
+    """paged_mla and paged_mla_q8 at mla_shapes.MLA_SHAPES
+    (:func:`_mla_row`; the simt route at the path and odd shapes), the
+    build's registers, spills and resident CTAs of each tc
+    instantiation first."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch.mla_shapes import MLA_SHAPES
+
+    rows = {}
     for q8 in (False, True):
         name = "paged_mla_q8" if q8 else "paged_mla"
         info = pa_ops.mla_kernel_info(q8)
@@ -1159,95 +1316,16 @@ def _kernel_rows_mla(torch, dev, g):
             fail(f"{name}: the tc route spills ({info})")
     for q8 in (False, True):
         name = "paged_mla_q8" if q8 else "paged_mla"
-        kern = pa_ops.paged_mla_q8_kernel if q8 else pa_ops.paged_mla_kernel
         for label, B, H, length, pos in MLA_SHAPES:
-            qa, qr, pc, pr, sc, bt, pos_t = mla_inputs(
-                dev, g, B, H, length, pos, q8, ps=ps, r=r, dr=dr)
-            route = pa_ops.mla_route(
-                qa.dtype, pc.dtype, r, dr, ps,
-                all(t.data_ptr() % 16 == 0 for t in (qa, qr, pc, pr)))
-            kw = dict(length=length, scale=scale)
-            sk = dict(zip(("ckv_scale", "krope_scale"), sc))
-            tc0 = kern.launches_tc
-            got = kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
-            if route != "tc" or kern.launches_tc - tc0 != 1:
-                fail(f"{name} {label}: not on the tc route ({route}; "
-                     f"launches_tc moved by {kern.launches_tc - tc0})")
-            want = pa_ref.paged_mla_ref(qa, qr, pc, pr, bt, pos_t, **kw, **sk)
-            torch.cuda.synchronize()
-            n_bad, err = _past_bf16_ulp(torch, got, want)
-            del got, want
-            tag = (f"{name} {label} (B {B}, H {H}, r {r}, dr {dr}, page {ps}, "
-                   f"length {length}, pos {pos if B < 8 else pos[0]}) bf16 "
-                   f"q, {route} route")
-            if n_bad:
-                fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
-                     f"at {n_bad} outputs (max {err})")
-            simt = {}
-            if label != "long":
-                inputs = (qa, qr, pc, pr, sc, bt, pos_t)
-                simt_err, simt_call = _mla_simt(torch, kern, f"{name} {label}",
-                                                inputs, kw, sk)
-                simt["simt_max_abs_err"] = simt_err
-                simt["simt_f32_max_abs_err_fp64"] = _mla_simt_f32(
-                    torch, kern, f"{name} {label}", inputs, kw, sk, q8)
-                simt["simt_ms"] = device_ms(torch, simt_call, 50)
-                print(f"kernel {name} {label} simt route (unaligned bf16 q): "
-                      f"{simt['simt_ms']:.4f} ms", flush=True)
-                del simt_call
-
-            def kernel():
-                kern(qa, qr, pc, pr, *sc, bt, pos_t, **kw)
-            ms = device_ms(torch, kernel, 100)
-            call_ms = eager_ms(torch, kernel, 100)
-            plain_ms = device_ms(torch, lambda: pa_ref.paged_mla_ref(
-                qa, qr, pc, pr, bt, pos_t, **kw, **sk), 10)
-            # yardstick the port never calls: one SDPA call over the
-            # gathered dense (dequantized) latent view, q = [q_abs, q_rope],
-            # k = [ckv, krope], v = ckv: one head, the H query heads (which
-            # share the latent) along the query axis
-            if q8:
-                cd = pa_ref.gather_dequant(pc, sc[0], bt, length,
-                                           torch.bfloat16)
-                rd = pa_ref.gather_dequant(pr, sc[1], bt, length,
-                                           torch.bfloat16)
-            else:
-                cd = pa_ref.gather_pages(pc, bt, length)
-                rd = pa_ref.gather_pages(pr, bt, length)
-            qd = torch.cat([qa, qr], dim=-1)[:, None]
-            kd = torch.cat([cd, rd], dim=-1)[:, None]
-            vd = cd[:, None]
-            _kp, valid = pa_ref.paged_positions(pos_t, length)
-            mask = valid[:, None, None, :]
-            library_ms = device_ms(torch, lambda: sdpa(
-                qd, kd, vd, attn_mask=mask, scale=scale),
-                100 if B < 8 else 20)
-            # bytes and flops that this run's positions need: each row's
-            # live latent pages, q and out, the block table
-            flops = bytes_ = 0
-            for p in pos:
-                f, b = pa_ops.cost_model_mla(
-                    1, H, r, dr, live_tokens=p + 1, page_size=ps,
-                    dtype_bytes=1 if q8 else 2, scale_bytes=4 if q8 else 0)
-                flops, bytes_ = flops + f, bytes_ + b
-            b_ms, by = bound(bytes_, flops, PEAK_BF16_TENSOR_FLOPS)
-            print(f"kernel {tag}: max_abs_err {err:.3g} (tol one bf16 ulp "
-                  f"+ 2e-6) kernel {ms:.4f} ms (eager call {call_ms:.4f} "
-                  f"ms), plain {plain_ms:.4f} ms, library (SDPA on the "
-                  f"dense latent view) {library_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms ({by}, bf16 tensor peak; "
-                  f"{flops / 1e9:.2f} GFLOP, {bytes_ / 1e6:.2f} MB; "
-                  f"{b_ms / ms:.1%} of it)", flush=True)
+            row = _mla_row(torch, dev, g, q8, label, B, H, length, pos,
+                           simt=label != "long")
             if label == "path":
-                rows[name] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=by, library_ms=library_ms, mla_route=route,
-                    **simt)
+                row.pop("eager_ms")
+                rows[name] = row
             elif label == "long":
-                rows[name].update(long_ms=ms, long_bound_ms=b_ms,
-                                  long_library_ms=library_ms)
-            del qa, qr, pc, pr, sc, bt, pos_t, cd, rd, qd, kd, vd, mask
-            torch.cuda.empty_cache()
+                rows[name].update(long_ms=row["ms"],
+                                  long_bound_ms=row["bound_ms"],
+                                  long_library_ms=row["library_ms"])
     return rows
 
 
@@ -3093,16 +3171,19 @@ MOE_HYBRID = "jamba-1.5-large-398b-smoke"
 
 
 def _serve_engine(torch, model, prompts, gen_tokens, *, max_len,
-                  kv_layout="paged", prefill_chunk=256):
+                  kv_layout="paged", prefill_chunk=256, num_pages=0,
+                  mesh=None):
     """One greedy run of ``prompts`` through build_engine (4 slots, page
-    16; an MoE model's dispatch as configured)."""
+    16; an MoE model's dispatch as configured; on ``mesh`` when one is
+    given)."""
     from repro_torch.configs import ServeConfig
     from repro_torch.launch.serve import build_engine
     from repro_torch.serve import Telemetry
 
     eng = build_engine(model, ServeConfig(
         slots=4, max_len=max_len, prefill_chunk=prefill_chunk,
-        kv_layout=kv_layout, page_size=16), telemetry=Telemetry())
+        kv_layout=kv_layout, page_size=16, num_pages=num_pages),
+        telemetry=Telemetry(), mesh=mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=gen_tokens) for p in prompts]
@@ -3200,8 +3281,8 @@ def _routing_replay(torch, model, prompt, toks, *, max_len, kv_layout,
     record, step = [], [0]
     route, sample = MoEMLP._route, sm._sample
 
-    def recording(self, xt):
-        out = route(self, xt)
+    def recording(self, xt, par=None):
+        out = route(self, xt, par)
         logits = (xt @ self.router.to(xt.dtype)).float()
         record.append((step[0], len(record), out[1][0].cpu(),
                        logits[0].cpu()))
@@ -4128,7 +4209,8 @@ def phase_dryrun_train(torch, dev):
     the two first-step losses and gradient norms equal bit for bit, each
     measured peak printed beside the dry-run's prediction (its meta pass
     runs the flash stand-in, ``impl="optimized"``: flash itself never
-    sees a meta tensor), and full's peak below none's."""
+    sees a meta tensor), and full's peak below none's; (c) the full step
+    on a model bound to a world-1 1x1 mesh, bitwise the unbound one."""
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedLoader, SyntheticLMDataset
     from repro_torch.launch import dryrun
@@ -4194,6 +4276,51 @@ def phase_dryrun_train(torch, dev):
              f"{p0} B")
     print(f"dryrun_train: loss and grad norm bitwise equal under none and "
           f"full; peak full / none {p1 / p0:.3f}", flush=True)
+
+    # (c) remat="full" on a model bound to a world-1 1x1 mesh: the unit's
+    # recomputation replays the local view, so the step is the unbound
+    # full step's bit for bit
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import spmd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _mesh_group(torch, dev, name="dryrun_train_store")
+    try:
+        mesh = make_local_mesh(model=1, data=1, device=dev.type)
+        base = torch.cuda.memory_allocated(dev)
+        model = build_model(cfg, device=dev, remat="full",
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(0))
+        spmd.bind(model, mesh)
+        opt = AdamW(param_groups(model), lr=3e-4)
+        step_fn = build_train_step(model, opt)
+        b = {k: torch.from_numpy(v).to(dev, torch.int64)
+             for k, v in one.batch_at(0).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_flash_counts()
+        _, met = step_fn({}, b)
+        l2, g2 = met["loss"].item(), met["grad_norm"].item()
+        ran = _flash_counts()
+        p2 = torch.cuda.max_memory_allocated(dev) - base
+        del model, opt, step_fn, b
+    finally:
+        dist.destroy_process_group()
+    counts[0] += ran[0]
+    counts[1] += ran[2]
+    print(f"dryrun_train (c): remat=full bound to a world-1 1x1 mesh "
+          f"({dist.Backend.NCCL if dev.type == 'cuda' else 'gloo'}): loss "
+          f"{l2!r}, grad norm {g2!r}; peak {p2} B = {p2 / 2**30:.2f} GiB "
+          f"bound, {p1} B = {p1 / 2**30:.2f} GiB unbound; flash launches "
+          f"(fwd, dq, dkv) {tuple(ran[:3])}", flush=True)
+    if (l2, g2) != (l1, g1):
+        fail(f"dryrun_train (c): the bound full step (loss {l2!r}, grad norm "
+             f"{g2!r}) differs from the unbound one ({l1!r}, {g1!r})")
+    if tuple(ran[:3]) != (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers):
+        fail(f"dryrun_train (c): flash launches {ran[:3]}")
     gc.collect()
     torch.cuda.empty_cache()
     return {"flash_fwd": counts[0], "flash_bwd": counts[1]}
@@ -4532,6 +4659,364 @@ def _mesh_tp2(torch, dev):
           "above", flush=True)
 
 
+# phase tp_serve: falcon-mamba-7b's depth by the cards the ranks have (a
+# gloo rank sharing the one card first builds the whole fp32 model: 16
+# layers are 8.7 GB), the depth of its train step, whisper's decode length
+TP_MAMBA_LAYERS = {1: 16, 2: 64}
+TP_TRAIN_LAYERS, TP_TRAIN_SEQ = 8, 2048
+TP_WHISPER_GEN = 32
+# the train step's loss on the TP 2 mesh against no mesh, relative: the
+# row-parallel sums reassociate in fp32 and the bf16 compute rounds them;
+# one bf16 flip of a label's logit moves the mean NLL over 2048 tokens by
+# about 1.3e-6 (falcon-mamba-7b's 8-layer step on an H100 read 1.58e-6;
+# the CPU smoke stacks agree to 1e-6, tests/test_torch_tp_layers.py)
+TP_LOSS_TOL = 1e-5
+
+
+def _tp_traffic(vocab):
+    """mistral_serve's traffic: 8 prompts of 512 down to 64 tokens, 32 new
+    tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, vocab, size=p)
+            for p in [512, 448, 384, 320, 256, 192, 128, 64]], 32
+
+
+def _tp_serve_rank(rank, world, transport, layers, out_path):
+    """One rank of phase tp_serve: TP ``world`` over "model" on
+    ``transport`` (NCCL, a card a rank; gloo, every rank on card 0),
+    :func:`_tp_parts` on the mesh; rank 0 writes its results."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common import resolve_device
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = resolve_device(f"cuda:{rank if transport == 'nccl' else 0}")
+    torch.cuda.set_device(dev)
+    dist.init_process_group(transport, store=dist.FileStore(
+        str(ROOT / "build" / "tp_serve_store"), world), rank=rank,
+        world_size=world)
+    try:
+        mesh = make_local_mesh(model=world, data=1, device="cuda")
+        out = _tp_parts(torch, dev, mesh, layers, verbose=rank == 0)
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_parts(torch, dev, mesh, layers, got=None, verbose=True):
+    """Phase tp_serve's work, on ``mesh`` (the ranks) or with no mesh (the
+    parent, ``got`` = rank 0's results, each part checked against them
+    while its no-mesh model is at hand): (a) falcon-mamba-7b cut to
+    ``layers`` layers, ssm_impl fused, dense slots; (b) deepseek-v3-671b's
+    3 dense MLA layers from bf16 and int8 latent pages; (c) whisper-small
+    (output projections x32) greedy from the encoder's cross-K/V cache;
+    (d) falcon-mamba-7b cut to TP_TRAIN_LAYERS layers, one AdamW step at
+    1 x TP_TRAIN_SEQ, its gradients taken under remat none and full.
+    Returns streams, launch counts, decode-step p50s and losses; prints
+    when ``verbose``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_ssm import ops as ssm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, param_groups
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import spmd
+
+    tag = "tp_serve " + ("TP 2" if mesh is not None else "no mesh")
+    res = {}
+    say = print if verbose else (lambda *a, **k: None)
+
+    def seeded(cfg, seed=0):
+        return build_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def served(eng, reqs, dt, **extra):
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        return dict(streams=[r.tokens.tolist() for r in reqs],
+                    p50=stp["p50"], steps=eng.n_steps, s=dt, **extra)
+
+    # (a) falcon-mamba-7b, fused, dense slots
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=layers,
+                              ssm_impl="fused")
+    model = seeded(cfg)
+    prompts, gen = _tp_traffic(cfg.vocab)
+    kw = dict(max_len=512 + gen, kv_layout="dense", mesh=mesh)
+    _serve_engine(torch, model, prompts[:2], 2, **kw)       # warm-up
+    ssm_ops.fused_ssm_fwd_kernel.launches = 0
+    eng, reqs, dt = _serve_engine(torch, model, prompts, gen, **kw)
+    res["mamba"] = served(eng, reqs, dt,
+                          fused_ssm_fwd=ssm_ops.fused_ssm_fwd_kernel.launches,
+                          chunks=eng.sm.n_prefill_chunks)
+    say(f"{tag} (a): {cfg.name} {layers} of 64 layers, fused, dense: 8 "
+        f"requests in {dt:.2f} s, decode step p50 {res['mamba']['p50']:.2f}"
+        f" ms ({eng.n_steps} steps), fused_ssm_fwd launches "
+        f"{res['mamba']['fused_ssm_fwd']} ({eng.sm.n_prefill_chunks} "
+        f"prefill chunks x {layers} layers); distinct tokens per stream "
+        f"{[len(set(t)) for t in res['mamba']['streams']]}", flush=True)
+    if got is not None:
+        _margin_rule(torch, f"{tag} (a) vs TP 2", eng.sm, cfg.vocab, prompts,
+                     got["mamba"]["streams"], res["mamba"]["streams"])
+    del model, eng, reqs
+    free()
+
+    # (b) deepseek-v3-671b's dense MLA layers, bf16 and int8 latent pages
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    model = seeded(cfg)
+    kw = dict(max_len=512 + gen, num_pages=4 * 34 + 36, mesh=mesh)
+    _serve_engine(torch, model, prompts[:2], 2, **kw)       # warm-up
+    for kv, kern in (("bf16", pa_ops.paged_mla_kernel),
+                     ("int8", pa_ops.paged_mla_q8_kernel)):
+        _reconfigure(model, kv_dtype=kv)
+        for k in (pa_ops.paged_mla_kernel, pa_ops.paged_mla_q8_kernel):
+            k.launches = k.launches_tc = 0
+        eng, reqs, dt = _serve_engine(torch, model, prompts, gen, **kw)
+        r = res[f"mla_{kv}"] = served(eng, reqs, dt, launches=kern.launches,
+                                      tc=kern.launches_tc)
+        say(f"{tag} (b): {cfg.name} {MLA_LAYERS} dense MLA layers, {kv} "
+            f"latent pages: 8 requests in {dt:.2f} s, decode step p50 "
+            f"{r['p50']:.2f} ms ({eng.n_steps} steps), {kern.__name__} "
+            f"launches {kern.launches} ({kern.launches_tc} on the tc "
+            f"route) with {spmd.local(model.layers[0].mixer.w_uq).shape[1]}"
+            f" heads a rank; distinct tokens per stream "
+            f"{[len(set(t)) for t in r['streams']]}", flush=True)
+        if got is not None:
+            _margin_rule(torch, f"{tag} (b) {kv} vs TP 2", eng.sm, cfg.vocab,
+                         prompts, got[f"mla_{kv}"]["streams"], r["streams"])
+        del eng, reqs
+    del model
+    free()
+
+    # (c) whisper-small: encode once, greedy decode from the cross cache
+    cfg = get_config("whisper-small")
+    model = _sharpen(torch, seeded(cfg, 1))
+    if mesh is not None:
+        spmd.bind(model, mesh)
+    g = torch.Generator(device=dev).manual_seed(2)
+    frames = 0.1 * torch.randn(4, cfg.frontend_seq, cfg.d_model, device=dev,
+                               generator=g)
+    start = torch.randint(0, cfg.vocab, (4, 1), device=dev, generator=g)
+    with torch.inference_mode():
+        cache = model.init_cache(4, TP_WHISPER_GEN, frame_embeds=frames)
+        tok, toks, dts = start, [], []
+        for t in range(TP_WHISPER_GEN):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(tok, cache, t)
+            tok = lg[:, :, :cfg.vocab].argmax(-1)
+            toks.append(tok)
+            torch.cuda.synchronize()
+            dts.append((time.perf_counter() - t0) * 1e3)
+        stream = torch.cat(toks, 1)
+    dts = sorted(dts[1:])
+    res["whisper"] = dict(streams=stream.tolist(), p50=dts[len(dts) // 2])
+    say(f"{tag} (c): {cfg.name} x32, 4 requests encoded once, "
+        f"{TP_WHISPER_GEN} greedy decode steps p50 "
+        f"{res['whisper']['p50']:.2f} ms; distinct tokens per stream "
+        f"{[len(set(t)) for t in res['whisper']['streams']]}", flush=True)
+    if got is not None:
+        # where TP 2's stream parts from this one, the teacher-forced
+        # forward's top-2 margin there must be <= 0.1
+        other = torch.as_tensor(got["whisper"]["streams"], device=dev)
+        with torch.inference_mode():
+            full = model(torch.cat([start, stream[:, :-1]], 1), embeds=frames)
+        top2 = torch.topk(full[..., :cfg.vocab], 2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1])
+        for i in range(4):
+            j = _first_divergence(other[i].tolist(), stream[i].tolist())
+            if j is not None and margin[i, j].item() > 0.1:
+                fail(f"{tag} (c) vs TP 2: request {i} parts at token {j} "
+                     f"where the top-2 margin is {margin[i, j].item():.3f}")
+        say(f"{tag} (c) vs TP 2: "
+            f"{sum(a == b for a, b in zip(other.tolist(), stream.tolist()))}"
+            "/4 streams equal end to end, the rest part at a top-2 margin "
+            "<= 0.1", flush=True)
+    del model, cache
+    free()
+
+    # (d) one AdamW step, gradients under remat none and full
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=TP_TRAIN_LAYERS, ssm_impl="fused")
+    model = seeded(cfg)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab,
+                                             (1, TP_TRAIN_SEQ + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+    if mesh is not None:
+        spmd.bind(model, mesh)
+        batch = shd.distribute_tree(batch, shd.batch_specs(batch, mesh), mesh)
+    opt = AdamW(param_groups(model), lr=3e-4)
+    train = {}
+    for remat in ("none", "full"):
+        model.remat = remat
+        opt.zero_grad(set_to_none=True)
+        for k in (ssm_ops.fused_ssm_fwd_kernel, ssm_ops.fused_ssm_bwd_kernel):
+            k.launches = 0
+        loss, _ = model.loss(batch)
+        loss.backward()
+        spmd.sync_grads(model)
+        torch.cuda.synchronize()
+        train[remat] = (loss.item(), ssm_ops.fused_ssm_fwd_kernel.launches,
+                        ssm_ops.fused_ssm_bwd_kernel.launches)
+    gn = float(opt.step()["grad_norm"])
+    res["train"] = dict(train, grad_norm=gn)
+    say(f"{tag} (d): {cfg.name} {TP_TRAIN_LAYERS} of 64 layers at 1 x "
+        f"{TP_TRAIN_SEQ}, one AdamW step (grad norm {gn!r}): loss, "
+        f"fused_ssm_fwd and fused_ssm_bwd launches under remat none "
+        f"{train['none']} and full {train['full']}", flush=True)
+    if train["none"][0] != train["full"][0]:
+        fail(f"{tag} (d): remat full's loss {train['full'][0]!r} is not "
+             f"none's {train['none'][0]!r}")
+    if got is not None:
+        a, b = got["train"]["none"][0], train["none"][0]
+        rel = abs(a - b) / abs(b)
+        ga = got["train"]["grad_norm"]
+        say(f"{tag} (d) vs TP 2: loss {a!r} on the mesh, {b!r} without "
+            f"(relative difference {rel:.3g}, tol {TP_LOSS_TOL}); grad norm "
+            f"{ga!r} / {gn!r} (relative difference {abs(ga - gn) / gn:.3g})",
+            flush=True)
+        if rel > TP_LOSS_TOL:
+            fail(f"{tag} (d): the TP loss is {rel:.3g} off the no-mesh one")
+    del model, opt, batch
+    free()
+    return res
+
+
+def phase_tp_serve(torch, dev):
+    """TP 2 on two ranks: spawned NCCL ranks with a card each when two are
+    visible, else two spawned gloo ranks sharing card 0 (gloo carries the
+    CUDA tensors through the host).  The ranks run :func:`_tp_parts` on a
+    1x2 mesh (Mamba on its d_inner slice, the fused scan at d_inner / 2;
+    MLA on half the heads, the paged MLA kernels at H 64; whisper's
+    attention on half its heads); the parent runs it with no mesh and
+    holds each part's streams to the TP ones under the margin rule, the
+    train step's loss to 1e-6 relative.  Returns rank 0's launches."""
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    transport = "nccl" if n >= 2 else "gloo"
+    layers = TP_MAMBA_LAYERS[min(n, 2)]
+    print(f"tp_serve: TP 2 over {transport} ({n} card(s) visible: "
+          + ("one a rank" if transport == "nccl" else
+             "both ranks on card 0") + f"), falcon-mamba-7b at {layers} "
+          "layers", flush=True)
+    out = ROOT / "build" / "tp_serve.json"
+    out.unlink(missing_ok=True)
+    (ROOT / "build" / "tp_serve_store").unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(_tp_serve_rank, args=(2, transport, layers, str(out)),
+                       nprocs=2, start_method="spawn")
+    print(f"tp_serve: the two ranks ran in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    got = json.loads(out.read_text())
+    ref = _tp_parts(torch, dev, None, layers, got=got)
+    for part, what in (("mamba", "(a) falcon-mamba"),
+                       ("mla_bf16", "(b) MLA bf16"),
+                       ("mla_int8", "(b) MLA int8"),
+                       ("whisper", "(c) whisper")):
+        print(f"tp_serve {what}: decode step p50 {got[part]['p50']:.2f} ms "
+              f"on the TP 2 mesh ({transport}), {ref[part]['p50']:.2f} ms "
+              "with no mesh", flush=True)
+    chunks, want = got["mamba"]["chunks"], got["mamba"]["chunks"] * layers
+    if got["mamba"]["fused_ssm_fwd"] != want:
+        fail(f"tp_serve (a): fused_ssm_fwd launches "
+             f"{got['mamba']['fused_ssm_fwd']} != {chunks} chunks x {layers}")
+    for kv in ("bf16", "int8"):
+        r = got[f"mla_{kv}"]
+        if r["launches"] == 0 or r["tc"] != r["launches"] \
+                or r["launches"] != MLA_LAYERS * r["steps"]:
+            fail(f"tp_serve (b) {kv}: paged MLA launches {r['launches']} "
+                 f"({r['tc']} tc) != {MLA_LAYERS} layers x {r['steps']} "
+                 "steps, all on the tc route")
+    tr = got["train"]
+    want = {"none": (TP_TRAIN_LAYERS, TP_TRAIN_LAYERS),
+            "full": (2 * TP_TRAIN_LAYERS, TP_TRAIN_LAYERS)}
+    for remat, (nf, nb) in want.items():
+        if tuple(tr[remat][1:]) != (nf, nb):
+            fail(f"tp_serve (d) remat {remat}: (fused_ssm_fwd, "
+                 f"fused_ssm_bwd) launches {tr[remat][1:]} != {(nf, nb)}")
+    print(f"tp_serve: TP 2 ({transport}) launches on rank 0: fused_ssm_fwd "
+          f"{got['mamba']['fused_ssm_fwd']} serving + "
+          f"{tr['none'][1] + tr['full'][1]} training, fused_ssm_bwd "
+          f"{tr['none'][2] + tr['full'][2]}, paged_mla "
+          f"{got['mla_bf16']['launches']}, paged_mla_q8 "
+          f"{got['mla_int8']['launches']}", flush=True)
+    return {"fused_ssm_fwd": got["mamba"]["fused_ssm_fwd"] + tr["none"][1]
+            + tr["full"][1],
+            "fused_ssm_bwd": tr["none"][2] + tr["full"][2],
+            "paged_mla": got["mla_bf16"]["launches"],
+            "paged_mla_q8": got["mla_int8"]["launches"]}
+
+
+def phase_mixed(torch, dev):
+    """A stack mixing minGRU and attention at minimalist-lm-360m's widths
+    (pattern (minGRU, attention) x 16, seeded weights, output projections
+    x32) served from bf16 pages with phase lm's traffic: the paged_gqa
+    kernel read against the gather read under the margin rule, the
+    minGRU layers' prefill through linear_scan."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, MINGRU, LayerSpec
+    from repro_torch.kernels.linear_scan.ops import linear_scan_kernel
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("minimalist-lm-360m"), pattern=(
+        LayerSpec(MINGRU), LayerSpec(ATTN)))
+    model = _sharpen(torch, build_model(cfg, device=dev, generator=torch
+                                        .Generator(device=dev).manual_seed(0)))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=p)
+               for p in [192, 192, 192, 192, 64, 96, 128, 160]]
+    kw = dict(max_len=512, kv_layout="paged")
+    _serve_engine(torch, model, prompts[:2], 2, **kw)        # warm-up
+    runs = {}
+    for impl in ("kernel", "gather"):
+        _reconfigure(model, paged_impl=impl)
+        linear_scan_kernel.launches = pa_ops.paged_gqa_kernel.launches = 0
+        eng, reqs, dt = _serve_engine(torch, model, prompts, 32, **kw)
+        runs[impl] = (eng.sm, [r.tokens.tolist() for r in reqs],
+                      linear_scan_kernel.launches,
+                      pa_ops.paged_gqa_kernel.launches)
+        stp = eng.telemetry.registry.histograms["step_ms"].summary()
+        print(f"mixed: {cfg.name} pattern (minGRU, attention) x "
+              f"{cfg.n_repeats}, bf16 pages, {impl} read: 8 requests in "
+              f"{dt:.2f} s, decode step p50 {stp['p50']:.2f} ms, "
+              f"linear_scan launches {runs[impl][2]} "
+              f"({eng.sm.n_prefill_chunks} chunks x {cfg.n_layers // 2} "
+              f"minGRU layers), paged_gqa launches {runs[impl][3]}; distinct "
+              f"tokens per stream {[len(set(t)) for t in runs[impl][1]]}",
+              flush=True)
+        want = (eng.sm.n_prefill_chunks * cfg.n_layers // 2,
+                cfg.n_layers // 2 * eng.n_steps if impl == "kernel" else 0)
+        if runs[impl][2:] != want:
+            fail(f"mixed {impl}: (linear_scan, paged_gqa) launches "
+                 f"{runs[impl][2:]} != {want}")
+        del eng, reqs
+    _margin_rule(torch, "mixed kernel vs gather", runs["gather"][0],
+                 cfg.vocab, prompts, runs["kernel"][1], runs["gather"][1])
+    launches = {"linear_scan": runs["kernel"][2] + runs["gather"][2],
+                "paged_gqa": runs["kernel"][3]}
+    runs.clear()
+    _reconfigure(model, paged_impl="kernel")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_imc(torch, dev):
     """The paper's IMC projection through its entry point on the card, at
     the kernel rows' shapes and with leading dimensions, and Eq. 6's
@@ -4629,7 +5114,8 @@ def main():
     for phase in (phase_sched, phase_spec, phase_mamba_serve,
                   phase_moe_serve, phase_whisper, phase_vlm,
                   phase_stablelm_serve, phase_mistral_serve,
-                  phase_dryrun_train, phase_mesh_serve, phase_examples):
+                  phase_dryrun_train, phase_mesh_serve, phase_tp_serve,
+                  phase_mixed, phase_examples):
         for name, n in timed(phase).items():
             launches[name] += n
     launches["imc_mvm"] = timed(phase_imc)

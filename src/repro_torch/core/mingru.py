@@ -63,13 +63,13 @@ class MinGRUBlock(nn.Module):
 
     def projections(self, x):
         """Return (h̃, z) for input x: (B, T, in_dim), in x.dtype.  Under
-        a "model"-sharded hidden dim: this rank's columns of both."""
+        a "model"-sharded hidden dim: this rank's columns of both
+        (``Spmd.column``)."""
         cfg = self.qcfg
         s = self._sharded()
-        if s is not None:
-            x = s.enter(x)
         bh = quant.maybe_quant_bias(self.bh, cfg).to(x.dtype)
         bz = quant.maybe_quant_gate_bias(self.bz, cfg).to(x.dtype)
+        delta = None
         if cfg.quantize_weights:
             # one quantization scale per layer, shared by the interleaved
             # h and z synapses (paper Fig. 2A; analog.export_layer)
@@ -82,20 +82,19 @@ class MinGRUBlock(nn.Module):
                 # then scale by Δ once.  Exact for binary inputs in any
                 # summation order, so this path, the fused step kernel and
                 # cuBLAS agree bit for bit on the hardware network.
-                lh = quant.quantize_levels_2b(self.wh, scale)
-                lz = quant.quantize_levels_2b(self.wz, scale)
-                pre_h = (x @ lh) * scale + bh
-                pre_z = (x @ lz) * scale + bz
+                wh = quant.quantize_levels_2b(self.wh, scale)
+                wz = quant.quantize_levels_2b(self.wz, scale)
+                delta = scale
             else:
                 # low-precision compute: the reference's x @ (levels·Δ)
-                wh = quant.quantize_weights_2b(self.wh, scale)[0]
-                wz = quant.quantize_weights_2b(self.wz, scale)[0]
-                pre_h = x @ wh.to(x.dtype) + bh
-                pre_z = x @ wz.to(x.dtype) + bz
+                wh = quant.quantize_weights_2b(self.wh, scale)[0].to(x.dtype)
+                wz = quant.quantize_weights_2b(self.wz, scale)[0].to(x.dtype)
         else:
-            pre_h = x @ self.wh.to(x.dtype) + bh
-            pre_z = x @ self.wz.to(x.dtype) + bz
-        return pre_h, quant.gate_fn(cfg)(pre_z)
+            wh, wz = self.wh.to(x.dtype), self.wz.to(x.dtype)
+        ph, pz = s.column(x, wh, wz) if s is not None else (x @ wh, x @ wz)
+        if delta is not None:
+            ph, pz = ph * delta, pz * delta
+        return ph + bh, quant.gate_fn(cfg)(pz + bz)
 
     def forward(self, x, h0=None, *, backend=None):
         """x: (B, T, in_dim) -> (out (B,T,dim), h (B,T,dim)).

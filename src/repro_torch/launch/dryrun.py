@@ -25,8 +25,9 @@ but every aten op of the eager step is seen.  For each cell (into
     (:func:`unit_extrapolated_costs` stays, and equals it);
   * ``collectives`` — the modules run on their local shards through
     ``parallel.spmd``; the collectives there (``_all_gather``,
-    ``_all_reduce``) are replaced by a recorder that returns ``meta``
-    tensors of the right shape and logs kind, count and operand bytes,
+    ``_all_reduce``, ``_all_to_all``: Mamba's ``w_in`` regroup) are
+    replaced by a recorder that returns ``meta`` tensors of the right
+    shape and logs kind, count and operand bytes,
     plus the gradient sum over "data" (and over "model" for the partial
     gradients) that ``spmd.sync_grads`` makes.  All-reduce wire bytes
     count 2x the operand (ring);
@@ -34,11 +35,6 @@ but every aten op of the eager step is seen.  For each cell (into
     (dense, 700 W): 989e12 FLOP/s bf16, 3.35e12 B/s HBM, 450e9 B/s
     NVLink each way.  A 16-wide "model" axis spans more than one 8-card
     host, so the collective term is optimistic there.
-
-Layers whose tensor-parallel form is not ported (Mamba, MLA, Whisper's
-cross attention: ``spmd._refuse_unported_tp``) cannot run under
-"model" > 1: such a cell reports its memory arguments (from the tables
-alone) and ``{"error": <the refusal>}`` as its cost.
 
 ``--impl optimized`` runs the stand-ins (``attention_impl``/``ssm_impl``
 ``"stub"``) and adds the flash and fused-scan kernels' analytic cost
@@ -105,7 +101,8 @@ def _nbytes(t) -> int:
 # --- the collective recorder ---------------------------------------------
 
 class Collectives:
-    """Stands in for ``spmd._all_gather``/``spmd._all_reduce``: returns
+    """Stands in for ``spmd._all_gather``/``_all_reduce``/``_all_to_all``:
+    returns
     ``meta`` tensors of the collective's result shape and logs each call
     (the group is the mesh axis name, its size from ``sizes``)."""
 
@@ -127,6 +124,11 @@ class Collectives:
         del group, op
         self._add("all-reduce", t)
         return t.clone()
+
+    def all_to_all(self, t, group, in_splits, out_splits):
+        del group, in_splits
+        self._add("all-to-all", t)
+        return t.new_empty((sum(out_splits),) + tuple(t.shape[1:]))
 
     def summary(self) -> dict:
         """The reference's ``collectives`` layout."""
@@ -163,13 +165,16 @@ class DrySpmd(spmd.Spmd):
 def recording(s: DrySpmd, coll: Collectives):
     """Run the modules as rank ``s`` with ``coll`` in place of the
     collectives of ``parallel.spmd``; both are restored on exit."""
-    saved = (spmd._CURRENT, spmd._all_gather, spmd._all_reduce)
+    saved = (spmd._CURRENT, spmd._all_gather, spmd._all_reduce,
+             spmd._all_to_all)
     spmd._CURRENT = s
-    spmd._all_gather, spmd._all_reduce = coll.all_gather, coll.all_reduce
+    spmd._all_gather, spmd._all_reduce, spmd._all_to_all = \
+        coll.all_gather, coll.all_reduce, coll.all_to_all
     try:
         yield s
     finally:
-        spmd._CURRENT, spmd._all_gather, spmd._all_reduce = saved
+        (spmd._CURRENT, spmd._all_gather, spmd._all_reduce,
+         spmd._all_to_all) = saved
 
 
 # --- the meta pass ---------------------------------------------------------
@@ -366,7 +371,6 @@ class Cell:
     kind: str
     arg_bytes: dict
     specs: dict
-    refusal: str | None
 
 
 def _cell(model, cfg, shape, mesh, *, zero1, rules, batch_override=None,
@@ -376,11 +380,6 @@ def _cell(model, cfg, shape, mesh, *, zero1, rules, batch_override=None,
     axes = mesh_info(mesh)["axes"]
     ptree = module_tree(model)
     p_spec = shd.param_specs(model, ptree, mesh, rules)
-    refusal = None
-    try:
-        spmd._refuse_unported_tp(model, p_spec)
-    except NotImplementedError as e:
-        refusal = f"{type(e).__name__}: {e}"
     local_bytes = lambda tree, specs: tree_size_bytes(  # noqa: E731
         _local_tree(tree, specs, axes))
     args = {"params": local_bytes(ptree, p_spec)}
@@ -409,7 +408,7 @@ def _cell(model, cfg, shape, mesh, *, zero1, rules, batch_override=None,
         args["batch"] = local_bytes(ispec, b_spec)
         specs["batch"] = b_spec
     specs["inputs"] = ispec
-    return Cell(sh["kind"], args, specs, refusal)
+    return Cell(sh["kind"], args, specs)
 
 
 def _localize(model, p_spec, axes):
@@ -571,14 +570,18 @@ def unit_extrapolated_costs(cfg, shape, mesh, *, remat, zero1, rules):
 
 def cell_config(cfg, mesh, impl="baseline"):
     """The config a cell runs: MoE pinned to the pooled dispatch, and the
-    kernel variant under ``impl="optimized"``."""
+    kernel variant under ``impl="optimized"``; the baseline's Mamba
+    layers scan with the plain associative scan (the scan kernels refuse
+    meta tensors)."""
     if cfg.moe is not None:
         # cost cells model the pooled capacity dispatch on every route
         # (decode included): the serving-side gather-GEMM / per-request
         # paths exist for batch invariance, not as a production lowering
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dispatch="pooled"))
-    return optimized_cfg(cfg, mesh) if impl == "optimized" else cfg
+    if impl == "optimized":
+        return optimized_cfg(cfg, mesh)
+    return dataclasses.replace(cfg, scan_backend="assoc")
 
 
 def lower_cell(arch: str, shape: str, mesh, *, remat="full", zero1=False,
@@ -600,11 +603,7 @@ def lower_cell(arch: str, shape: str, mesh, *, remat="full", zero1=False,
     mem_d = {"argument_size_in_bytes": int(sum(cell.arg_bytes.values())),
              "argument_parts": cell.arg_bytes}
     coll = Collectives({}).summary()
-    if cell.refusal is not None:
-        cost_d = {"error": cell.refusal}
-        mem_d["temp_size_in_bytes"] = None
-        mem_d["output_size_in_bytes"] = None
-    elif skip_full:
+    if skip_full:
         cost_d = {}
     else:
         cost_d, coll, temp, out_b = _meta_step(model, cfg, shape, mesh, cell,
@@ -615,7 +614,7 @@ def lower_cell(arch: str, shape: str, mesh, *, remat="full", zero1=False,
     del model
 
     kadj = {"flops": 0.0, "bytes": 0.0}
-    if impl == "optimized" and "error" not in cost_d:
+    if impl == "optimized" and not skip_full:
         kf, kb = kernel_costs(cfg, shape, mesh)
         kadj = {"flops": kf, "bytes": kb}
         cost_d["flops"] = cost_d.get("flops", 0.0) + kf
@@ -642,8 +641,8 @@ def lower_cell(arch: str, shape: str, mesh, *, remat="full", zero1=False,
         "remat": remat, "zero1": zero1, "impl": impl,
         "kernel_adjustment": kadj,
     }
-    if "error" in cost_d or skip_full:
-        result["roofline"] = {"error": cost_d.get("error", "skipped")}
+    if skip_full:
+        result["roofline"] = {"error": "skipped"}
         result["useful_flops_ratio"] = result["roofline_fraction"] = None
         return result
     flops_dev = cost_d["flops"]
@@ -752,12 +751,9 @@ def main(argv=None):
             line = (f"      memory_analysis: args="
                     f"{mem['argument_size_in_bytes']/1e9:.2f}GB temp="
                     + (f"{temp/1e9:.2f}GB" if temp is not None else "-"))
-            if "error" in cost:
-                line += f" | cost_analysis: {cost['error'][:100]}"
-            else:
-                line += (f" | cost_analysis: flops={cost['flops']:.3e} "
-                         f"bytes={cost['bytes accessed']:.3e} | coll_wire="
-                         f"{res['collectives']['total_wire_bytes']:.3e}B")
+            line += (f" | cost_analysis: flops={cost['flops']:.3e} "
+                     f"bytes={cost['bytes accessed']:.3e} | coll_wire="
+                     f"{res['collectives']['total_wire_bytes']:.3e}B")
             print(line, flush=True)
     return n_bad
 

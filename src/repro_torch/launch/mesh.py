@@ -53,8 +53,9 @@ def make_local_mesh(model: int = 1, data: int = 1, *, device="cuda",
     ranks of the current process group (or over ``ranks``).
 
     Raises the reference's ValueErrors when an axis is below 1 or when
-    the mesh needs more ranks than the world has — or, on ``cuda``, more
-    cards than this host shows."""
+    the mesh needs more ranks than the world has — or, on ``cuda`` under
+    NCCL, more cards than this host shows (NCCL takes one card a rank;
+    gloo ranks on ``cuda`` may share a card)."""
     if model < 1 or data < 1:
         raise ValueError(f"mesh axes must be >= 1, got data={data} "
                          f"model={model}")
@@ -63,17 +64,17 @@ def make_local_mesh(model: int = 1, data: int = 1, *, device="cuda",
 
     device_type = torch.device(device).type
     need = model * data
-    if device_type == "cuda":
-        n_cards = torch.cuda.device_count()
-        if need > n_cards:
-            raise ValueError(
-                f"mesh data={data} x model={model} needs {need} devices but "
-                f"only {n_cards} are available (one card a rank)")
     if not dist.is_initialized():
         raise RuntimeError(
             "make_local_mesh needs an open process group: call "
             "torch.distributed.init_process_group first (the serve "
             "launcher starts and joins its ranks itself)")
+    if device_type == "cuda" and dist.get_backend() == "nccl":
+        n_cards = torch.cuda.device_count()
+        if need > n_cards:
+            raise ValueError(
+                f"mesh data={data} x model={model} needs {need} devices but "
+                f"only {n_cards} are available (one card a rank)")
     n = dist.get_world_size()
     if need > n:
         raise ValueError(

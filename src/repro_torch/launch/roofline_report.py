@@ -5,9 +5,9 @@ Per (arch x shape x mesh [x impl]): the three terms (compute / memory /
 collective, seconds a step against the H100 data-sheet peaks that
 ``launch.dryrun`` names), the dominant one, the model-FLOPs ratio and the
 roofline fraction, one CSV line each (``name,us_per_call,derived``).
-These are predictions from the meta pass, not measurements.  A cell whose
-cost part carries the tensor-parallel refusal prints it instead.  Run the
-sweep first:
+These are predictions from the meta pass, not measurements.  A cell
+without a cost (``lower_cell(skip_full=True)``) prints its error
+instead.  Run the sweep first:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
     PYTHONPATH=src python -m repro_torch.launch.roofline_report

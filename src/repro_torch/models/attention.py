@@ -123,6 +123,20 @@ def _decode_mask(pos, L, window=None):
                        _neg_inf(pos))[:, None, None, :]
 
 
+def head_products(s, x, *ws):
+    """``einsum("bsd,dhk->bshk", x, w)`` for each ``w`` (d, H, k), in x's
+    dtype: x through every head of w.  Under tensor parallelism (``s``,
+    the runtime of a layer whose heads shard) the rank's heads of w as
+    2-D products through ``Spmd.column``, x's gradient summed over
+    "model" in fp32."""
+    ws = [w.to(x.dtype) for w in ws]
+    if s is None:
+        return [torch.einsum("bsd,dhk->bshk", x, w) for w in ws]
+    d = x.shape[-1]
+    return [y.unflatten(-1, w.shape[1:]) for y, w in zip(
+        s.column(x, *(w.reshape(d, -1) for w in ws)), ws)]
+
+
 def _refuse_q8(cfg):
     if cfg.kv_dtype == "int8":
         raise NotImplementedError(
@@ -297,13 +311,7 @@ class GQAAttention(nn.Module):
         return _sdpa(q, *self._kv(k, v), mask)
 
     def _qkv(self, x, positions):
-        dt = x.dtype
-        s = self._tp()
-        if s is not None:
-            x = s.enter(x)
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt))
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt))
+        q, k, v = head_products(self._tp(), x, self.wq, self.wk, self.wv)
         theta = self.cfg.rope_theta
         return apply_rope(q, positions, theta), apply_rope(k, positions,
                                                            theta), v
@@ -580,7 +588,17 @@ class MLAAttention(nn.Module):
     Parameter names and layouts are the reference's: ``w_dq`` (d, q_lora),
     ``w_uq`` (q_lora, H, nope + rope), ``w_dkv`` (d, r), ``w_kr`` (d, dr),
     ``w_ukv`` (r, H, nope + v), ``wo`` (H, v, d), ``q_norm`` (q_lora,),
-    ``kv_norm`` (r,)."""
+    ``kv_norm`` (r,).
+
+    Tensor parallelism shards ``w_uq``, ``w_ukv`` and ``wo`` on heads:
+    each rank runs its heads (the paged MLA kernels then see H / tp of
+    them) and ``wo``'s partial products are summed over "model".  The
+    latent projections and norms (``w_dq``, ``q_norm``, ``w_dkv``,
+    ``kv_norm``, ``w_kr``) replicate, so every rank computes the same
+    latents and writes the same (replicated) latent pools.  Where a
+    latent meets this rank's heads its gradient is summed over "model"
+    (``Spmd.column``, ``Spmd.shared``: fp32, rounded once), so the
+    replicated leaves get whole gradients on every rank."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32, device=None):
         super().__init__()
@@ -646,13 +664,20 @@ class MLAAttention(nn.Module):
         v = torch.mean(torch.square(xf), -1, keepdim=True)
         return (xf * torch.rsqrt(v + eps) * scale.float()).to(x.dtype)
 
+    def _tp(self):
+        """The runtime when this layer's heads are sharded."""
+        s = spmd.current()
+        return s if s is not None and \
+            self.w_uq.shape[1] < self.cfg.n_heads else None
+
     def _latents(self, x, positions):
         """(q_nope (B,S,H,nope), q_rope (B,S,H,dr), ckv (B,S,r),
-        k_rope (B,S,dr)) of x (B, S, D) at ``positions``."""
+        k_rope (B,S,dr)) of x (B, S, D) at ``positions`` (H: this rank's
+        heads)."""
         c, m = self.cfg, self.m
         dt = x.dtype
         cq = self._rms(x @ self.w_dq.to(dt), self.q_norm)
-        q = torch.einsum("bsr,rhk->bshk", cq, self.w_uq.to(dt))
+        q, = head_products(self._tp(), cq, self.w_uq)
         q_nope = q[..., :m.qk_nope_head_dim]
         q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                             c.rope_theta)
@@ -681,6 +706,17 @@ class MLAAttention(nn.Module):
         """Latent output (B, S, H, r) through W^{UV} and ``wo``."""
         w_uv = self.w_ukv[:, :, self.m.qk_nope_head_dim:].to(x.dtype)
         out = torch.einsum("bshr,rhk->bshk", o_latent, w_uv)
+        return self._wo(out, x)
+
+    def _wo(self, out, x):
+        """Heads' output (B, S, H, v) through ``wo``; sharded heads sum
+        their fp32 partial products over "model", rounded once (see
+        :meth:`GQAAttention._out`)."""
+        s = self._tp()
+        if s is not None:
+            return s.reduce(torch.einsum(
+                "bshk,hkd->bsd", out.float(),
+                self.wo.to(x.dtype).float())).to(x.dtype)
         return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
 
     def forward(self, x, positions=None):
@@ -692,23 +728,28 @@ class MLAAttention(nn.Module):
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q_nope, q_rope, ckv, k_rope = self._latents(x, positions)
-        kv = torch.einsum("bsr,rhk->bshk", ckv, self.w_ukv.to(x.dtype))
+        s = self._tp()
+        kv, = head_products(s, ckv, self.w_ukv)
         k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
         if self.cfg.attention_impl == "stub":
             # the dry-run's stand-in (see GQAAttention.forward)
+            if s is not None:
+                k_rope = s.enter(k_rope)
             out = (v + q_nope.mean(-1, keepdim=True)
                    + q_rope.mean(-1, keepdim=True)
                    + k_nope.mean(-1, keepdim=True)
                    + k_rope.mean(-1, keepdim=True)[:, :, None, :])
-            return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
+            return self._wo(out, x)
         pos = positions.expand(B, S) if positions.dim() == 1 else positions
         mask = causal_mask(pos, pos)[:, None]
+        rope = lambda k, q: torch.einsum("bshk,blk->bhsl", q, k)  # noqa
         scores = (torch.einsum("bshk,blhk->bhsl", q_nope, k_nope)
-                  + torch.einsum("bshk,blk->bhsl", q_rope, k_rope))
+                  + (rope(k_rope, q_rope) if s is None
+                     else s.shared(k_rope, rope, q_rope)))
         w = torch.softmax(scores.float() * self.scale + mask,
                           -1).to(x.dtype)
         out = torch.einsum("bhsl,blhk->bshk", w, v)
-        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
+        return self._wo(out, x)
 
     # --- dense latent cache ----------------------------------------------
     def cache_spec(self, batch, length, dtype=torch.bfloat16):

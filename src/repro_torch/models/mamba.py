@@ -26,6 +26,16 @@ mixed product; PyTorch needs the promotion spelled out).  The conv is the
 reference's Python sum of d_conv shifted products plus ``conv_b``, in that
 order (``F.conv1d`` sums in another).  JAX clamps the carry gathers of
 ``prefill`` with ``length``; here the indices are clamped explicitly.
+
+Tensor parallelism (a model bound to a mesh whose "model" axis divides
+``d_inner``): every parameter holds this rank's ``d_inner`` slice and
+the block runs on it, carries included.  ``w_in`` keeps the reference's
+(d, 2·di) [x | z] layout, sharded contiguously, so a rank's product
+holds pieces of either half; :meth:`Spmd.halves` regroups them into the
+rank's (xr, z) columns.  ``w_bcdt`` and ``w_out`` are row-parallel: B,
+C, dt_in and the output are fp32 partial sums over "model", rounded
+once after the sum.  The conv, ``w_dt``, ``dt_bias``, ``a_log`` and
+``d_skip`` are the rank's own channels.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from repro_torch.kernels.fused_ssm.ops import (fused_ssm_fwd_kernel,
                                               selective_scan)
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.models.module import fan_in_init
+from repro_torch.parallel import spmd
 
 
 def _silu(v):
@@ -104,9 +115,34 @@ class MambaBlock(nn.Module):
                 device=self.a_log.device)).expand(self.d_inner, n))
             self.d_skip.fill_(1.0)
 
+    @property
+    def _di(self):
+        """The channels this block runs on: ``d_inner``, or this rank's
+        slice of it inside ``spmd.local_view``."""
+        return self.d_skip.shape[0]
+
+    def _tp(self):
+        """The runtime when ``d_inner`` is sharded over "model"."""
+        s = spmd.current()
+        return s if s is not None and self._di < self.d_inner else None
+
     def _in(self, x):
-        """(xr, z) halves of the input projection, in x.dtype."""
+        """(xr, z) halves of the input projection, in x.dtype (this
+        rank's channels of each under tensor parallelism)."""
+        s = self._tp()
+        if s is not None:
+            return s.halves(s.column(x, self.w_in.to(x.dtype))[0])
         return (x @ self.w_in.to(x.dtype)).chunk(2, dim=-1)
+
+    def _rows(self, v, w):
+        """v @ w (w in v's dtype) for a weight whose rows shard with
+        ``d_inner``: the fp32 partial products summed over "model" and
+        rounded once (their gradient summed back: every rank's channels
+        read the sum)."""
+        s = self._tp()
+        if s is None:
+            return v @ w
+        return s.enter(s.reduce(v.float() @ w.float()).to(v.dtype))
 
     def _conv(self, xr, tail):
         """Causal depthwise conv of xr (B, T, di) warmed by the cached
@@ -121,7 +157,7 @@ class MambaBlock(nn.Module):
     def _ssm_raw(self, xc):
         """(dt, B, C, A) from xc (B, T, di), post conv and silu."""
         n = self.mc.d_state
-        bcdt = xc @ self.w_bcdt.to(xc.dtype)
+        bcdt = self._rows(xc, self.w_bcdt.to(xc.dtype))
         Bm, Cm, dt_in = bcdt.split([n, n, self.dt_rank], dim=-1)
         dt = _softplus(dt_in @ self.w_dt.to(xc.dtype)
                        + self.dt_bias.to(xc.dtype))
@@ -141,7 +177,11 @@ class MambaBlock(nn.Module):
         product is JAX's promoted one."""
         y = y + self.d_skip.to(x.dtype) * xc
         y = y * _silu(z)
-        return (y @ self.w_out.to(x.dtype).to(y.dtype)).to(x.dtype)
+        w = self.w_out.to(x.dtype).to(y.dtype)
+        s = self._tp()
+        if s is not None:       # each rank's rows, as GQA's wo
+            return s.reduce(y.float() @ w.float()).to(x.dtype)
+        return (y @ w).to(x.dtype)
 
     def forward(self, x, positions=None):
         """x: (B, T, D) -> (B, T, D)."""
@@ -154,8 +194,7 @@ class MambaBlock(nn.Module):
             return y
         xr, z = self._in(x)
         pre, _ = self._conv(xr, xr.new_zeros(x.shape[0],
-                                             self.mc.d_conv - 1,
-                                             self.d_inner))
+                                             self.mc.d_conv - 1, self._di))
         xc = _silu(pre)
         dt, Bm, Cm, A = self._ssm_raw(xc)
         if self.cfg.ssm_impl == "stub":
@@ -176,7 +215,7 @@ class MambaBlock(nn.Module):
         them)."""
         del pos0
         B, T, _ = x.shape
-        di, n, K = self.d_inner, self.mc.d_state, self.mc.d_conv
+        di, n, K = self._di, self.mc.d_state, self.mc.d_conv
         xr, z = self._in(x)
         pre, hist = self._conv(xr, cache["conv"])
         xc = _silu(pre)
@@ -214,12 +253,12 @@ class MambaBlock(nn.Module):
         dt, Bm, Cm, A = self._ssm_raw(xc)
         v = last + 1
         ins = [t[:, :v].float().contiguous() for t in (dt, xc, Bm, Cm)]
-        h_last = torch.empty(B, self.d_inner, self.mc.d_state,
+        h_last = torch.empty(B, self._di, self.mc.d_state,
                              dtype=torch.float32, device=x.device)
         y_v, _ = fused_ssm_fwd_kernel(*ins, A.contiguous(),
                                       h0=cache["ssm"].float().contiguous(),
                                       h_last=h_last)
-        y = y_v.new_zeros(B, T, self.d_inner)
+        y = y_v.new_zeros(B, T, self._di)
         y[:, :v] = y_v
         y = self._out(y.to(xc.dtype), xc, z, x)
         return y, self._carry(h_last, hist[:, s:s + self.mc.d_conv - 1],
@@ -239,10 +278,10 @@ class MambaBlock(nn.Module):
     # --- decode: O(1) state ---
     def init_cache(self, batch, length=0, dtype=torch.float32):
         del length
-        dev = self.w_in.device
-        return {"ssm": torch.zeros(batch, self.d_inner, self.mc.d_state,
-                                   dtype=dtype, device=dev),
-                "conv": torch.zeros(batch, self.mc.d_conv - 1, self.d_inner,
+        dev, di = self.w_in.device, self._di
+        return {"ssm": torch.zeros(batch, di, self.mc.d_state, dtype=dtype,
+                                   device=dev),
+                "conv": torch.zeros(batch, self.mc.d_conv - 1, di,
                                     dtype=dtype, device=dev)}
 
     def decode(self, x, cache, pos=None):

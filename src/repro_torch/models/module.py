@@ -75,7 +75,7 @@ class Embedding(nn.Module):
         s = spmd.current()
         if s is not None and self.table.shape[0] < self.vocab:
             # vocab-sharded head: each rank's columns, gathered whole
-            logits = s.gather(s.enter(x) @ self.table.to(x.dtype).T)
+            logits = s.gather(s.column(x, self.table.to(x.dtype).T)[0])
         else:
             logits = x @ self.table.to(x.dtype).T
         return logits.float() / torch.full((), math.sqrt(self.dim),

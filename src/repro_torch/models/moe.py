@@ -98,16 +98,14 @@ class DenseMLP(nn.Module):
         return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
                 "w_down": ("mlp", "embed")}
 
-    def forward(self, x, entered=False):
+    def forward(self, x):
         """Under a "model"-sharded hidden dim each rank runs its columns
-        of gate/up and its rows of down, and the partial products are
-        summed; ``entered``: the caller already marked ``x`` as the input
-        of its parallel region (:meth:`MoEMLP.forward`)."""
+        of gate/up (``Spmd.column``) and its rows of down, and the
+        partial products are summed."""
         s = spmd.current()
         if s is not None and self.w_gate.shape[1] < self.d_ff:
-            x = x if entered else s.enter(x)
-            g = x @ self.w_gate.to(x.dtype)
-            u = x @ self.w_up.to(x.dtype)
+            g, u = s.column(x, self.w_gate.to(x.dtype),
+                            self.w_up.to(x.dtype))
             # fp32 partial products, summed, rounded once (see
             # GQAAttention._out)
             return s.reduce((_silu(g) * u).float()
@@ -162,9 +160,12 @@ class MoEMLP(nn.Module):
                        max(1, round(NL * e.top_k / e.n_experts
                                     * e.capacity_factor))))
 
-    def _route(self, xt):
+    def _route(self, xt, par=None):
         """xt (N, D) -> (renormalised top-k gates (N, k) fp32, expert ids
-        (N, k), full probabilities (N, E) fp32)."""
+        (N, k), full probabilities (N, E) fp32).  Every rank routes every
+        token; with the experts ``par``-sharded the gates' gradient (each
+        rank's experts' part) is summed over "model", so the router's is
+        whole on every rank."""
         k = self.moe.top_k
         logits = (xt @ self.router.to(xt.dtype)).float()
         probs = torch.softmax(logits, dim=-1)
@@ -172,6 +173,8 @@ class MoEMLP(nn.Module):
         gate, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
         gate, ids = gate[:, :k], ids[:, :k]
         gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+        if par is not None:
+            gate = par.enter(gate)
         return gate, ids, probs
 
     def _experts_here(self):
@@ -182,12 +185,14 @@ class MoEMLP(nn.Module):
             return 0, el
         return s.tp_rank * el, el
 
-    def _gather_ffn(self, xt):
+    def _gather_ffn(self, xt, par=None):
         """Capacity-free gather-GEMM dispatch over one token a row: each
         token's k expert slices, gathered in fp32 and then cast.  With the
         experts sharded, a rank computes the choices among its own
         experts and the others' gates count zero (a partial sum)."""
-        gate, ids, probs = self._route(xt)
+        gate, ids, probs = self._route(xt, par)
+        if par is not None:     # the tokens' gradient sums over "model"
+            xt = par.enter(xt)
         dt = xt.dtype
         e0, el = self._experts_here()
         loc = ids - e0
@@ -208,7 +213,7 @@ class MoEMLP(nn.Module):
         out = (gate.to(dt)[:, None, :] @ y)[:, 0]            # (N, D)
         return out, probs, ids
 
-    def _grouped_ffn(self, x, G, C):
+    def _grouped_ffn(self, x, G, C, par=None):
         """Sort-based dispatch of (B, S, D) over G groups of NL = B·S/G
         tokens at capacity C: (out (B, S, D), probs (G, NL, E), flat
         expert ids (G, NL·k), kept (G, NL·k) bool)."""
@@ -218,7 +223,9 @@ class MoEMLP(nn.Module):
         NL = B * S // G
         dt, dev = x.dtype, x.device
         xt = x.reshape(G * NL, D)
-        gate, ids, probs = self._route(xt)
+        gate, ids, probs = self._route(xt, par)
+        if par is not None:     # the tokens' gradient sums over "model"
+            xt = par.enter(xt)
         flat_e = ids.reshape(G, NL * k)
         order = torch.argsort(flat_e, dim=1, stable=True)    # stable!
         sorted_e = torch.gather(flat_e, 1, order)
@@ -282,10 +289,8 @@ class MoEMLP(nn.Module):
         par = s if s is not None and (
             self.w_gate.shape[0] < e.n_experts
             or self.w_gate.shape[2] < e.d_ff_expert) else None
-        if par is not None:
-            x = par.enter(x)
         if mode == "gather":
-            out, probs, flat_e = self._gather_ffn(x.reshape(B * S, D))
+            out, probs, flat_e = self._gather_ffn(x.reshape(B * S, D), par)
             out = out.reshape(B, S, D)
             me = probs.mean(0)                                # (E,)
             dropped = torch.zeros((), device=x.device)
@@ -303,7 +308,7 @@ class MoEMLP(nn.Module):
                 # groups must divide the batch; the clamp guards B < groups
                 G = max(1, e.groups if B % max(e.groups, 1) == 0 else 1)
                 C = self.capacity(B * S // G, e)
-            out, probs, flat_e, valid = self._grouped_ffn(x, G, C)
+            out, probs, flat_e, valid = self._grouped_ffn(x, G, C, par)
             if mode == "pooled" and s is not None:
                 out, x = s.my_rows(out), s.my_rows(x)
             me = probs.mean((0, 1))
@@ -315,7 +320,7 @@ class MoEMLP(nn.Module):
         if par is not None:
             out = par.reduce(out).to(x.dtype)
         if self.shared is not None:
-            out = out + self.shared(x, entered=par is not None)
+            out = out + self.shared(x)
         flat = flat_e.reshape(-1)
         ce = torch.zeros(e.n_experts, device=x.device).scatter_add_(
             0, flat, torch.ones(flat.shape, device=x.device)) / flat.numel()

@@ -27,11 +27,12 @@ a bf16 decode cache.  Cache layouts:
     (P, page, kv_lora) and (P, page, rope) (int8 pools add ``ckv_scale``
     and ``krope_scale`` (P,), one scale per page);
   * a Mamba layer keeps one ``{"ssm": (B, d_inner, d_state),
-    "conv": (B, d_conv - 1, d_inner)}`` carry; under the paged layout a
-    hybrid stack (jamba: Mamba and attention) keeps these per-slot carries
-    beside its attention layers' page pools.
-
-Stacks that mix minGRU and attention layers are not ported yet.
+    "conv": (B, d_conv - 1, d_inner)}`` carry, and a minGRU layer of a
+    stack that mixes it with other kinds one ``{"h": (B, d_model)}``
+    carry (the reference's unscanned layout); under the paged layout a
+    hybrid stack (jamba: Mamba and attention; minGRU and attention)
+    keeps these per-slot carries beside its attention layers' page
+    pools.
 
 Rematerialisation (``remat``, the reference's three values) applies to
 each pattern unit of the full-sequence forward when gradients are on;
@@ -45,6 +46,10 @@ head and tail layers run plain, as outside the reference's scan:
     the products with no batch dimension (the projections: ``mm``, and
     ``bmm`` over a batch of one, as einsum lowers them) and recomputes
     the rest (``dots_with_no_batch_dims_saveable``).
+
+On a model bound to a mesh the recomputation runs as the unit's forward
+did: on the same local tensors and with ``spmd.current()`` set
+(``Spmd.replay``), so every mode gives the same bits.
 """
 from __future__ import annotations
 
@@ -99,11 +104,21 @@ class MinGRUMixer(nn.Module):
         out, _h = self.block(x)
         return out
 
+    def init_cache(self, batch, length=0, dtype=torch.bfloat16):
+        """The ``{"h": (B, d)}`` carry of this layer in a mixed stack (d:
+        this rank's hidden columns in ``spmd.local_view``)."""
+        del length
+        return {"h": torch.zeros(batch, self.block.bh.shape[0], dtype=dtype,
+                                 device=self.block.bh.device)}
+
+    # the carry is the bare (B, d) state in a pure minGRU stack's stacked
+    # tensor, {"h": state} in a mixed stack's list
     def decode(self, x, h, pos=None):
-        """x: (B, 1, D); h: (B, D) -> (out (B, 1, D), new h); position-free."""
+        """x: (B, 1, D); h: the (B, D) carry -> (out (B, 1, D), new
+        carry); position-free."""
         del pos
-        out, h = self.block.step(x[:, 0, :], h)
-        return out[:, None, :], h
+        out, new = self.block.step(x[:, 0, :], _state(h))
+        return out[:, None, :], _carry(h, new)
 
     def prefill(self, x, h, pos0=0, length=None):
         """Chunk prefill: ONE linear scan over the chunk, O(1) carry.
@@ -111,9 +126,18 @@ class MinGRUMixer(nn.Module):
         tail is grid padding (the scan is causal: padding never reaches
         h[length-1])."""
         del pos0
-        out, hs = self.block(x, h0=h.to(x.dtype))
+        h0 = _state(h)
+        out, hs = self.block(x, h0=h0.to(x.dtype))
         carry = hs[:, -1] if length is None else hs[:, length - 1]
-        return out, carry.to(h.dtype)
+        return out, _carry(h, carry.to(h0.dtype))
+
+
+def _state(carry):
+    return carry["h"] if isinstance(carry, dict) else carry
+
+
+def _carry(like, h):
+    return {"h": h} if isinstance(like, dict) else h
 
 
 def check_ported(spec: LayerSpec):
@@ -258,6 +282,33 @@ def _run_layers(layers, x, positions):
     return x
 
 
+def masked_nll(logits, labels, s=None):
+    """Mean next-token NLL of ``logits`` (fp32) at ``labels`` (−1
+    masked) -> (loss, unmasked count); with a runtime ``s`` the NLL sum
+    and the count are summed over "data" (the global batch's mean)."""
+    logits = logits.float()
+    mask = labels >= 0
+    lab = labels.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    total, count = ((logz - ll) * mask).sum(), mask.sum()
+    if s is not None:
+        total, count = s.sum_data(total), s.sum_data(count)
+    return total / count.clamp(min=1), count
+
+
+def local_batch(s, batch):
+    """(this rank's rows of ``batch``, whether they shard over "data"):
+    on a mesh with data > 1 the rows must come sharded
+    (``sharding.batch_specs``)."""
+    sharded = s is not None and s.batch_sharded(batch["labels"])
+    if s is not None and s.dp > 1 and not sharded:
+        raise ValueError("on a mesh with data > 1 the batch rows must "
+                         "shard over 'data' (sharding.batch_specs; "
+                         "the batch size must divide by it)")
+    return {k: spmd.local(v) for k, v in batch.items()}, sharded
+
+
 class DecoderLM(nn.Module):
     """Embedding + the layer stack + final norm + tied (or separate) head
     (``transformer.DecoderLM``: ``__call__``, ``loss``, ``prefill``,
@@ -273,11 +324,6 @@ class DecoderLM(nn.Module):
         specs = cfg.layer_specs()
         for spec in specs:             # refuse before allocating anything
             check_ported(spec)
-        kinds = {s.kind for s in specs}
-        if MINGRU in kinds and len(kinds) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: stacks that mix minGRU and attention layers "
-                "are not ported yet")
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device)
         self.embed = Embedding(cfg.vocab_padded, cfg.d_model, **kw)
@@ -336,19 +382,17 @@ class DecoderLM(nn.Module):
 
     @property
     def stacked_cache(self) -> bool:
-        """True for a minGRU stack: its decode cache is ONE (n_layers, B,
-        d_model) tensor, else a list of per-layer attention caches."""
-        return self.cfg.layer_specs()[0].kind == MINGRU
+        """True for a pure minGRU stack: its decode cache is ONE
+        (n_layers, B, d_model) tensor, else a list of per-layer caches."""
+        return all(s.kind == MINGRU for s in self.cfg.layer_specs())
 
+    @spmd.on_local_shards
     def forward(self, tokens=None, positions=None, embeds=None):
         """tokens: (B, S) int, or embeds: (B, P, D) (the VLM's stubbed
         patch embeddings); both may be given, the embeds then prepended
         in the compute dtype (``DecoderLM.__call__``).  Returns logits
         (B, P + S, V_pad) fp32.  A model bound to a mesh
         (``parallel.spmd.bind``) runs on its local shards."""
-        if spmd.binding(self) is not None and spmd.current() is None:
-            with spmd.local_view(self):
-                return self.forward(tokens, positions, embeds)
         parts = []
         if embeds is not None:
             parts.append(embeds.to(self.compute_dtype))
@@ -366,10 +410,6 @@ class DecoderLM(nn.Module):
         from torch.utils.checkpoint import (checkpoint,
                                             create_selective_checkpoint_contexts)
 
-        if spmd.binding(self) is not None:
-            raise NotImplementedError(
-                "remat on a model bound to a mesh is not ported: its "
-                "recomputation would run outside spmd.local_view")
         cfg = self.cfg
         h, u = len(cfg.head_layers), len(cfg.pattern)
         end = h + cfg.n_repeats * u
@@ -378,19 +418,22 @@ class DecoderLM(nn.Module):
         s = spmd.current()
         rows = s.rows_sharded if s is not None else False
 
-        def unit(layers, x, positions):
+        def unit(layers, params, x, positions):
             # the recomputation runs in the backward, outside the caller's
-            # Spmd.data_rows: restore the flag it ran under
-            with s.data_rows(rows) if s is not None \
-                    else contextlib.nullcontext():
+            # local view and Spmd.data_rows: replay both as they were
+            if s is None:
+                return _run_layers(layers, x, positions)
+            with s.replay(params), s.data_rows(rows):
                 return _run_layers(layers, x, positions)
 
         x = _run_layers(self.layers[:h], x, positions)
         for i in range(h, end, u):
-            x = checkpoint(unit, self.layers[i:i + u], x, positions,
-                           use_reentrant=False, **kw)
+            layers = self.layers[i:i + u]
+            x = checkpoint(unit, layers, spmd.local_params(layers), x,
+                           positions, use_reentrant=False, **kw)
         return _run_layers(self.layers[end:], x, positions)
 
+    @spmd.on_local_shards
     def loss(self, batch):
         """batch: {"tokens": (B, S), "labels": (B, S), optional "embeds"
         (B, P, D)}; labels −1 are masked.  Mean next-token NLL over the
@@ -402,30 +445,13 @@ class DecoderLM(nn.Module):
         by ``sharding.batch_specs`` as DTensors) each rank scores its own
         rows and the NLL sum and token count are summed over "data": the
         loss is the global batch's."""
-        if spmd.binding(self) is not None and spmd.current() is None:
-            with spmd.local_view(self):
-                return self.loss(batch)
         s = spmd.current()
-        sharded = s is not None and s.batch_sharded(batch["labels"])
-        if s is not None and s.dp > 1 and not sharded:
-            raise ValueError("on a mesh with data > 1 the batch rows must "
-                             "shard over 'data' (sharding.batch_specs; "
-                             "the batch size must divide by it)")
-        batch = {k: spmd.local(v) for k, v in batch.items()}
+        batch, sharded = local_batch(s, batch)
         with s.data_rows(sharded) if s is not None \
                 else contextlib.nullcontext():
             logits = self(batch.get("tokens"), embeds=batch.get("embeds"))
         labels = batch["labels"]
-        logits = logits[:, -labels.shape[1]:, :].float()
-        mask = labels >= 0
-        lab = labels.clamp(min=0).long()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
-        nll = (logz - ll) * mask
-        total, count = nll.sum(), mask.sum()
-        if s is not None:
-            total, count = s.sum_data(total), s.sum_data(count)
-        loss = total / count.clamp(min=1)
+        loss, count = masked_nll(logits[:, -labels.shape[1]:, :], labels, s)
         return loss, {"loss": loss, "tokens": count}
 
     def init_cache(self, batch, length=0, dtype=torch.bfloat16):

@@ -20,6 +20,13 @@ Decode cache: a list with one entry per decoder layer, ``{"self": {"k",
 "v"} (B, L, KV, hd), "xk", "xv" (B, T_frames, H, hd)}``; the cross K/V
 are computed once from the encoder's output by :meth:`EncDecLM.init_cache`
 (the reference stacks the same leaves on a layer axis).
+
+A model bound to a mesh (``parallel.spmd.bind``) runs its entry points
+on its local shards: the encoder's and decoder's self-attention and the
+cross-attention on this rank's heads (the cross K/V cache holds them),
+the MLPs on their hidden columns, each output projection's fp32
+partial products summed over "model"; the loss sums over "data" as
+``DecoderLM.loss`` does.
 """
 from __future__ import annotations
 
@@ -27,9 +34,12 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import GQAAttention, _sdpa, no_mask
+from repro_torch.models.attention import (GQAAttention, _sdpa,
+                                          head_products, no_mask)
 from repro_torch.models.module import Embedding, RMSNorm, fan_in_init
 from repro_torch.models.moe import DenseMLP
+from repro_torch.models.transformer import local_batch, masked_nll
+from repro_torch.parallel import spmd
 
 
 class CrossAttention(nn.Module):
@@ -59,11 +69,16 @@ class CrossAttention(nn.Module):
                 "wv": ("embed", "heads", "head_dim"),
                 "wo": ("heads", "head_dim", "embed")}
 
+    def _tp(self):
+        """The runtime when the heads are sharded over "model"."""
+        s = spmd.current()
+        return s if s is not None and \
+            self.wq.shape[1] < self.cfg.n_heads else None
+
     def kv(self, memory):
-        """memory: (B, L, D) -> (k, v), each (B, L, H, hd) in its dtype."""
-        dt = memory.dtype
-        k = torch.einsum("bld,dhk->blhk", memory, self.wk.to(dt))
-        v = torch.einsum("bld,dhk->blhk", memory, self.wv.to(dt))
+        """memory: (B, L, D) -> (k, v), each (B, L, H, hd) in its dtype
+        (H: this rank's heads)."""
+        k, v = head_products(self._tp(), memory, self.wk, self.wv)
         return k, v
 
     def forward(self, x, memory=None, kv_cache=None):
@@ -73,8 +88,13 @@ class CrossAttention(nn.Module):
             k, v = self.kv(memory)
         else:
             k, v = (t.to(x.dtype) for t in kv_cache)
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(x.dtype))
+        q, = head_products(self._tp(), x, self.wq)
         out = _sdpa(q, k, v, no_mask(q, k))
+        s = self._tp()
+        if s is not None:       # see GQAAttention._out
+            return s.reduce(torch.einsum(
+                "bshk,hkd->bsd", out.float(),
+                self.wo.to(x.dtype).float())).to(x.dtype)
         return torch.einsum("bshk,hkd->bsd", out, self.wo.to(x.dtype))
 
 
@@ -193,6 +213,7 @@ class EncDecLM(nn.Module):
         dt = self.embed.table.dtype
         return torch.bfloat16 if dt == torch.float32 else dt
 
+    @spmd.on_local_shards
     def encode(self, frame_embeds):
         """frame_embeds: (B, T, D) -> the encoder's output (B, T, D) in
         the compute dtype."""
@@ -201,6 +222,7 @@ class EncDecLM(nn.Module):
             x = layer(x)
         return self.enc_norm(x)
 
+    @spmd.on_local_shards
     def forward(self, tokens=None, embeds=None, positions=None):
         """embeds: (B, T, D) stub frame embeddings; tokens: (B, S) ->
         logits (B, S, V_pad) fp32, or the encoder's output when no tokens
@@ -214,20 +236,20 @@ class EncDecLM(nn.Module):
             x = layer(x, memory)
         return self.embed.attend(self.final_norm(x))
 
+    @spmd.on_local_shards
     def loss(self, batch):
         """batch: {"tokens", "labels"} (B, S) and "embeds" (B, T, D);
-        labels −1 are masked.  Mean next-token NLL from fp32 logits.
-        Returns (scalar loss, {"loss"})."""
-        logits = self(batch["tokens"], embeds=batch["embeds"]).float()
-        labels = batch["labels"]
-        mask = labels >= 0
-        lab = labels.clamp(min=0).long()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
-        loss = ((logz - ll) * mask).sum() / mask.sum().clamp(min=1)
+        labels −1 are masked.  Mean next-token NLL from fp32 logits (on a
+        mesh: the global batch's, as ``DecoderLM.loss``).  Returns (scalar
+        loss, {"loss"})."""
+        s = spmd.current()
+        batch, _sharded = local_batch(s, batch)
+        logits = self(batch["tokens"], embeds=batch["embeds"])
+        loss, _count = masked_nll(logits, batch["labels"], s)
         return loss, {"loss": loss}
 
     # --- decode ---------------------------------------------------------
+    @spmd.on_local_shards
     def init_cache(self, batch, length, dtype=torch.bfloat16,
                    frame_embeds=None):
         """Decode cache for ``batch`` rows and ``length`` decoder
@@ -239,8 +261,9 @@ class EncDecLM(nn.Module):
         memory = None if frame_embeds is None else self.encode(frame_embeds)
         cache = []
         for layer in self.dec:
-            if memory is None:
-                shape = (batch, c.frontend_seq, c.n_heads, c.head_dim)
+            if memory is None:         # this rank's heads
+                shape = (batch, c.frontend_seq, layer.cross.wq.shape[1],
+                         c.head_dim)
                 xk = torch.zeros(shape, dtype=dtype, device=self.device)
                 xv = torch.zeros_like(xk)
             else:
@@ -250,6 +273,7 @@ class EncDecLM(nn.Module):
                           "xk": xk, "xv": xv})
         return cache
 
+    @spmd.on_local_shards
     def decode_step(self, tokens, cache, pos=0):
         """tokens: (B, 1); pos: an int or per-row positions (B,) ->
         (logits (B, 1, V_pad), new cache)."""

@@ -9,11 +9,22 @@ the placements.  The modules themselves compute on LOCAL shards: inside
 DTensors), and :func:`current` hands the modules an :class:`Spmd` with
 the mesh coordinates and the explicit collectives they need:
 
-  * a column-parallel projection (heads, MLP hidden, experts, vocab,
-    minGRU hidden) reads its local columns; :meth:`Spmd.enter` marks the
-    replicated input (identity forward, all-reduce of the gradient);
-  * a row-parallel product (``wo``, ``w_down``, the expert combine) ends
-    in :meth:`Spmd.reduce` (all-reduce forward, identity backward);
+  * a column-parallel projection (heads, MLP hidden, vocab, minGRU
+    hidden, Mamba ``d_inner``) reads its local columns through
+    :meth:`Spmd.column`: the products as without a mesh, and in the
+    backward the replicated input's gradient as fp32 partial products
+    summed over "model" and rounded once (the mirror of ``reduce``);
+    :meth:`Spmd.shared` does the same for any other use of a replicated
+    tensor by this rank's heads, and :meth:`Spmd.enter` marks an input
+    whose gradient is summed as it comes (identity forward);
+  * a row-parallel product (``wo``, ``w_down``, the expert combine,
+    Mamba's ``w_bcdt`` and ``w_out``) ends in :meth:`Spmd.reduce`
+    (all-reduce forward, identity backward), its partial products kept
+    in fp32 and rounded once after the sum;
+  * a matrix whose columns are two halves (Mamba's ``w_in`` = [x | z])
+    shards its columns contiguously, so a rank's product holds whole
+    pieces of either half: :meth:`Spmd.halves` regroups them over
+    "model" into this rank's columns of each half (an all-to-all);
   * vocab-sharded logits and the minGRU hidden are gathered whole with
     :meth:`Spmd.gather` before anything reads them (greedy argmax and the
     counter-hash sampler then see global vocab indices);
@@ -22,9 +33,13 @@ the mesh coordinates and the explicit collectives they need:
 
 No DTensor op runs inside a model: nothing all-gathers a weight or a
 pool implicitly, and every kernel is called on local tensors with the
-local head counts.  Layers whose tensor-parallel form is not ported
-(Mamba, MLA, Whisper's cross attention) refuse a mesh that would shard
-them; data parallelism needs nothing of a layer and works for all.
+local head counts.  Every layer kind has its local-shard form: GQA and
+MLA and Whisper's cross attention on their heads (MLA's latent
+projections and pools replicate), MLPs and experts on their hidden
+dim, minGRU on its hidden, Mamba on ``d_inner``; data parallelism needs
+nothing of a layer.  A rematerialised unit recomputes in the backward
+on the local tensors its forward ran on (:func:`local_params`,
+:meth:`Spmd.replay`).
 
 The serving side (``serve.protocol``) adds data parallelism: slot arrays
 shard dim 0 over "data" when it divides, and :meth:`Spmd.gather_rows`
@@ -34,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -89,6 +105,32 @@ def _all_reduce(t, group, op=None):
     return w if back is None else w.to(back)
 
 
+def _all_to_all(t, group, in_splits, out_splits):
+    """Rows of ``t`` (dim 0, ``in_splits[k]`` of them to rank k of
+    ``group``) exchanged: the rows every rank sent here, by source rank
+    (``out_splits[k]`` from rank k)."""
+    import torch.distributed as dist
+
+    w, back = _wire(t.contiguous())
+    out = w.new_empty((sum(out_splits),) + tuple(w.shape[1:]))
+    dist.all_to_all_single(out, w, list(out_splits), list(in_splits),
+                           group=group)
+    return out if back is None else out.to(back)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, in_splits, out_splits):
+        ctx.args = group, in_splits, out_splits
+        return _all_to_all(x, group, in_splits, out_splits)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, in_splits, out_splits = ctx.args
+        return _all_to_all(g, group, out_splits, in_splits), None, None, \
+            None
+
+
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -120,6 +162,43 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, \
             None, None
+
+
+def _sum_grad(d, group, dtype):
+    """A gradient's fp32 partial sums over ``group``, rounded once."""
+    return _all_reduce(d, group).to(dtype)
+
+
+class _Column(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, y, group):
+        ctx.save_for_backward(w)
+        ctx.group, ctx.dtype = group, x.dtype
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, = ctx.saved_tensors
+        dx = g.float() @ w.float().transpose(-1, -2)
+        return _sum_grad(dx, ctx.group, ctx.dtype), None, g, None
+
+
+class _Shared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, fn, group, *operands):
+        ctx.save_for_backward(x, *operands)
+        ctx.fn, ctx.group = fn, group
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *operands = ctx.saved_tensors
+        with torch.enable_grad():
+            x32 = x.detach().float().requires_grad_()
+            y32 = ctx.fn(x32, *(o.detach().float() for o in operands))
+            dx, = torch.autograd.grad(y32, x32, g.float())
+        return (_sum_grad(dx, ctx.group, x.dtype), g, None, None) \
+            + (None,) * len(operands)
 
 
 class Spmd:
@@ -159,6 +238,29 @@ class Spmd:
             self.rows_sharded = prev
 
     # --- tensor parallelism ----------------------------------------------
+    def column(self, x, *ws):
+        """``x @ w`` for each ``w`` (K, N): a replicated x times this
+        rank's columns.  The products are the single-device ones (their
+        weights' gradients as autograd takes them); x's gradient from each
+        is g @ wᵀ in fp32, summed over "model" and rounded once to x's
+        dtype -- what the single-device product's gradient is, up to fp32
+        reassociation -- and autograd adds the products' parts as it
+        would without a mesh (one node a product)."""
+        if self.tp == 1:
+            return tuple(x @ w for w in ws)
+        return tuple(_Column.apply(x, w.detach(), x.detach() @ w,
+                                   self.model_group) for w in ws)
+
+    def shared(self, x, fn, *operands):
+        """``fn(x, *operands)`` for a replicated x that this rank's heads
+        read (``fn`` linear in x): the same value, and x's gradient taken
+        from ``fn`` in fp32 (recomputed in the backward), summed over
+        "model" and rounded once."""
+        if self.tp == 1:
+            return fn(x, *operands)
+        return _Shared.apply(x, fn(x.detach(), *operands), fn,
+                             self.model_group, *operands)
+
     def enter(self, x):
         """Identity; the gradient is summed over "model" (the input of a
         column-parallel region)."""
@@ -174,6 +276,49 @@ class Spmd:
             return x
         return _Gather.apply(x, self.model_group, dim % x.dim(),
                              self.tp_rank, self.tp)
+
+    def halves(self, p):
+        """This rank's columns of each half of a product whose weight's
+        columns are two halves [a | b] sharded contiguously over "model":
+        rank s's product ``p`` (..., 2·n) holds the global column pieces
+        2s and 2s + 1 of width n, and piece k is columns of half k // tp
+        owned by rank k % tp.  Each piece goes to its owner (an
+        all-to-all; its backward sends the gradients back), so rank r
+        gets (a_r, b_r), each (..., n), bitwise the columns of the
+        single-device product."""
+        n, tp, r = p.shape[-1] // 2, self.tp, self.tp_rank
+        pieces = p.reshape(-1, 2, n).transpose(0, 1)       # (2, rows, n)
+        dest = [(2 * r + j) % tp for j in (0, 1)]
+        order = sorted((0, 1), key=dest.__getitem__)
+        # piece r (half a) sits on rank r // 2, piece tp + r (half b) on a
+        # later rank, so a arrives first
+        src = [r // 2, (tp + r) // 2]
+        got = _AllToAll.apply(pieces[list(order)], self.model_group,
+                              [dest.count(k) for k in range(tp)],
+                              [src.count(k) for k in range(tp)])
+        lead = p.shape[:-1]
+        return got[0].reshape(*lead, n), got[1].reshape(*lead, n)
+
+    @contextlib.contextmanager
+    def replay(self, params):
+        """Context of a recomputation in the backward (``remat``): the
+        ``(module, name, tensor)`` of :func:`local_params` installed again
+        and :func:`current` set, as the forward ran; a no-op inside a
+        running view."""
+        global _CURRENT
+        if _CURRENT is not None:
+            yield self
+            return
+        held = [(m, n, m._parameters[n]) for m, n, _t in params]
+        for m, n, t in params:
+            m._parameters[n] = t
+        _CURRENT = self
+        try:
+            yield self
+        finally:
+            _CURRENT = None
+            for m, n, t in held:
+                m._parameters[n] = t
 
     def reduce_max(self, x):
         """Elementwise max over "model" (no gradient)."""
@@ -259,32 +404,14 @@ def binding(model) -> Optional[Binding]:
     return getattr(model, "_spmd_binding", None)
 
 
-def _refuse_unported_tp(model, specs):
-    """Mamba, MLA and Whisper cross-attention layers have no local-shard
-    form yet: refuse a mesh that would shard one of their parameters."""
-    from repro_torch.models.attention import MLAAttention
-    from repro_torch.models.mamba import MambaBlock
-    from repro_torch.models.whisper import CrossAttention
-
-    flat = flatten_dict(specs)
-    for name, mod in model.named_modules():
-        if isinstance(mod, (MambaBlock, MLAAttention, CrossAttention)):
-            pre = tuple(name.split(".")) if name else ()
-            for pname, _p in mod.named_parameters(recurse=False):
-                if any(a is not None for a in flat[pre + (pname,)]):
-                    raise NotImplementedError(
-                        f"{type(mod).__name__} ({name}): tensor parallelism "
-                        "is not ported for this layer kind — serve it on a "
-                        "mesh with model=1 (data parallelism only)")
-
-
 def _grad_partial(model, specs):
     """Replicated parameters whose gradient is a partial sum over "model":
     ``wk``/``wv`` of an attention layer whose query heads shard while its
-    KV heads replicate (each rank's queries read every KV head), and the
-    router of an MoE layer whose experts shard."""
+    KV heads replicate (each rank's queries read every KV head).  Other
+    replicated leaves get whole gradients: the replicated activations
+    they make are summed where they meet sharded ones (``Spmd.column``,
+    ``Spmd.shared``, ``Spmd.enter``)."""
     from repro_torch.models.attention import GQAAttention
-    from repro_torch.models.moe import MoEMLP
 
     flat = flatten_dict(specs)
     out = set()
@@ -296,9 +423,6 @@ def _grad_partial(model, specs):
             kv = flat[key + ("wk",)][1]
             if q is not None and kv is None:
                 out |= {pre + "wk", pre + "wv"}
-        elif isinstance(mod, MoEMLP):
-            if any(a is not None for a in flat[key + ("w_gate",)]):
-                out.add(pre + "router")
     return frozenset(out)
 
 
@@ -313,7 +437,6 @@ def bind(model, mesh, rules=None, placed=None) -> Binding:
     if binding(model) is not None and placed is None:
         raise ValueError("model is already bound to a mesh")
     specs = shd.param_specs(model, module_tree(model), mesh, rules)
-    _refuse_unported_tp(model, specs)
     flat = flatten_dict(specs)
     given = flatten_dict(placed) if placed is not None else None
     entries = []
@@ -356,6 +479,24 @@ def local_view(model):
         _CURRENT = None
         for mod, name, p, _alias in b.entries:
             mod._parameters[name] = p
+
+
+def local_params(module):
+    """``(module, name, tensor)`` of every parameter of ``module`` as the
+    running view holds it (the local tensors inside :func:`local_view`),
+    for :meth:`Spmd.replay`."""
+    return [(m, n, t) for m in module.modules()
+            for n, t in m._parameters.items()]
+
+
+def on_local_shards(method):
+    """Decorator of a model's entry point: a model bound to a mesh runs
+    it inside :func:`local_view`."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with local_view(self):
+            return method(self, *args, **kwargs)
+    return run
 
 
 def sync_grads(model):

@@ -13,8 +13,9 @@ corresponding mechanisms here:
   * StragglerMonitor — rolling-median step timing; flags steps slower than
     ``threshold ×`` the median.  On a real fleet the per-host heartbeats
     feed the same interface; the mitigation hook (``on_straggler``) is where
-    a production deployment triggers hot-spare swap / re-mesh (the
-    reference's ``train.elastic``; not ported yet).
+    a production deployment triggers hot-spare swap / re-mesh
+    (``repro_torch.train.elastic``: ``elastic_restart`` plans the smaller
+    mesh and reshards the parameters and optimizer state onto it).
   * FailureInjector — deterministic fault injection for integration tests
     (raise at step k), proving the restore-and-continue path end to end.
 """

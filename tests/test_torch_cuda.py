@@ -950,6 +950,10 @@ SSM_CASES = [
     (2, 64, 256, 1),
     (1, 40, 8, 32),       # one d a warp
     (1, 300, 8192, 16),   # the main path's width
+    # falcon-mamba-7b at TP 2 (d_inner 8192 / 2): the carry form's prefill
+    # chunk and the training step's shape
+    (1, 256, 4096, 16),
+    (4, 2048, 4096, 16),
     # the layout's edges: d_inner one channel below and above a block
     # (256 channels at n <= 16, 128 at n 32), T one step below and above
     # CHUNK (32) and a backward sub-chunk (8), a forward stage (16) + 1
@@ -1153,7 +1157,8 @@ MLA_CASES = [
 # head tile) and H 128 (two) at the path's page 16; H around the 64-head
 # tile and eight tiles; a partial last page; a length that is not a whole
 # 32-row stage at page 8; a single live page at page 16 and page 32; long
-# chains whose many ranges the combine merges (32 ranges at 2 x 4096)
+# chains whose many ranges the combine merges (32 ranges at 2 x 4096);
+# the tensor-parallel ranks' head counts
 MLA_TC_CASES = [
     (2, 64, 16, 200),
     (4, 128, 16, 1056),
@@ -1167,6 +1172,10 @@ MLA_TC_CASES = [
     (2, 16, 32, 30),
     (2, 128, 16, 4096),
     (1, 64, 16, 8192),
+    # deepseek-v3-671b's 128 heads at TP 2 and TP 4 (a rank's heads) at the
+    # mla_paged decode shape
+    (4, 64, 16, 1056),
+    (4, 32, 16, 1056),
 ]
 
 

@@ -182,15 +182,21 @@ def test_argument_bytes_match_reference_specs(arch, shape, zero1):
 
 
 def test_refused_cell_keeps_its_memory_part():
-    """falcon-mamba-7b under "model" 16: the cost carries the refusal,
-    the arguments come from the tables alone."""
+    """falcon-mamba-7b's decode_32k under "model" 16, once refused (its
+    Mamba layers had no tensor-parallel form), now runs the meta pass:
+    a cost, a temp size, a roofline, and the d_inner shards' collectives."""
     res = dryrun.lower_cell("falcon-mamba-7b", "decode_32k",
                             make_production_mesh())
     assert res["status"] == "ok"
-    assert "tensor parallelism is not ported" in res["cost_analysis"]["error"]
-    assert res["roofline"] == {"error": res["cost_analysis"]["error"]}
-    assert res["memory_analysis"]["argument_size_in_bytes"] > 0
-    assert res["memory_analysis"]["temp_size_in_bytes"] is None
+    mem, cost = res["memory_analysis"], res["cost_analysis"]
+    assert "error" not in cost and cost["flops"] > 0
+    assert cost["bytes accessed"] > 0
+    assert mem["temp_size_in_bytes"] > 0 and mem["output_size_in_bytes"] > 0
+    assert res["roofline"]["bound_s"] > 0
+    # per layer: the w_in regroup (all-to-all), the B/C/dt and output sums
+    n = get_config("falcon-mamba-7b").n_layers
+    assert res["collectives"]["all-to-all"]["count"] == n
+    assert res["collectives"]["all-reduce"]["count"] == 2 * n + 1
 
 
 # --- costs -----------------------------------------------------------------
@@ -247,10 +253,11 @@ def test_collectives_of_tp2_dp2_match_a_hand_count():
     8 on 2 x 2: heads, KV heads, MLP and vocab shard over "model", the
     rows over "data" (2 a rank).  Forward: the vocab-sharded embedding's
     sum and each layer's attention and MLP sums, fp32 (B, S, d); the head
-    gathers its bf16 (B, S, V/2) logits.  Backward: the gradient of each
-    column-parallel input (each layer's attention and MLP, and the
-    head), bf16 (B, S, d).  The loss sums its NLL (fp32) and token count
-    (int64) over "data", and every gradient is summed over "data"."""
+    gathers its bf16 (B, S, V/2) logits.  Backward: the input's gradient
+    of each column-parallel product (``Spmd.column``: q, k and v of each
+    layer, the MLP's gate and up, and the head), fp32 (B, S, d).  The
+    loss sums its NLL (fp32) and token count (int64) over "data", and
+    every gradient is summed over "data"."""
     mesh = ShapeMesh(("data", "model"), (2, 2))
     cfg = get_config("smollm-360m-smoke")
     res = dryrun.lower_cell("smollm-360m-smoke", "train_4k", mesh,
@@ -258,9 +265,9 @@ def test_collectives_of_tp2_dp2_match_a_hand_count():
     B, S, d, L = 2, 8, cfg.d_model, cfg.n_layers
     n_params = 1 + 9 * L + 1
     param_bytes = res["memory_analysis"]["argument_parts"]["params"]
-    want_ar = {"count": (1 + 2 * L) + (2 * L + 1) + 2 + n_params,
+    want_ar = {"count": (1 + 2 * L) + (5 * L + 1) + 2 + n_params,
                "operand_bytes": (1 + 2 * L) * B * S * d * 4
-               + (2 * L + 1) * B * S * d * 2 + 4 + 8 + param_bytes}
+               + (5 * L + 1) * B * S * d * 4 + 4 + 8 + param_bytes}
     want_ag = {"count": 1, "operand_bytes": B * S * cfg.vocab_padded // 2 * 2}
     coll = res["collectives"]
     assert coll["all-reduce"] == want_ar
@@ -278,6 +285,66 @@ def test_collectives_of_tp2_dp2_match_a_hand_count():
         "operand_bytes": want_ag["operand_bytes"] + param_bytes // 2}
     assert z1["memory_analysis"]["argument_parts"]["opt_state"] == \
         param_bytes + 4
+
+
+def _coll(arch, **kw):
+    res = dryrun.lower_cell(arch, "train_4k", ShapeMesh(("data", "model"),
+                                                        (2, 2)),
+                            remat="none", batch_override=4, seq_override=8,
+                            **kw)
+    return res["collectives"], res["memory_analysis"]["argument_parts"]
+
+
+def test_collectives_of_mamba_tp2_dp2_match_a_hand_count():
+    """falcon-mamba-7b-smoke (2 layers, d 64, d_inner 128 -> 64 a rank,
+    d_state 4, dt_rank 4, vocab 512 untied) at batch 4 x 8 on 2 x 2.  A
+    layer: forward, the w_in regroup (an all-to-all of the two bf16 (2, B
+    S, 64) column pieces) and the fp32 sums of B/C/dt (B, S, 12) and of
+    the output (B, S, d); backward, the regroup's all-to-all back, the
+    input's gradient of w_in (fp32 (B, S, d)) and B/C/dt's (fp32 (B, S,
+    12)).  Plus the embedding's sum, the head's gather and gradient, the
+    loss's two sums and every gradient over "data"."""
+    coll, args = _coll("falcon-mamba-7b-smoke")
+    B, S, d, dl, w, L = 2, 8, 64, 64, 12, 2
+    n_params = 1 + 10 * L + 1 + 1
+    layer = 2 * (B * S * w * 4) + 2 * (B * S * d * 4)
+    assert coll["all-to-all"] == {"count": 2 * L,
+                                  "operand_bytes": 2 * L * 2 * B * S * dl * 2}
+    assert coll["all-reduce"] == {
+        "count": 1 + 4 * L + 1 + 2 + n_params,
+        "operand_bytes": 2 * B * S * d * 4 + L * layer + 4 + 8
+        + args["params"]}
+    assert coll["all-gather"] == {"count": 1,
+                                  "operand_bytes": B * S * 256 * 2}
+
+
+def test_collectives_of_mla_tp2_dp2_match_a_hand_count():
+    """deepseek-v3-671b-smoke (a dense MLA layer with a d_ff 18432 MLP,
+    then two MLA + MoE layers; d 64, 4 heads, q_lora 32, kv_lora 16, rope
+    8, 4 experts top-2 with one shared, vocab 512 untied) at batch 4 x 8
+    on 2 x 2.  MLA: forward, the wo sum (fp32 (B, S, d)); backward, the
+    latents' gradients where they meet this rank's heads (fp32 cq (B, S,
+    32), ckv (B, S, 16), k_rope (B, S, 8)).  Dense MLP: the w_down sum and
+    gate's and up's input gradients (fp32 (B, S, d)).  MoE (pooled, the
+    batch gathered over "data": 32 tokens): the gates' gradient (fp32
+    (32, 2)), the tokens' (bf16 (32, d)), the experts' bf16 sum (B, S, d)
+    and the shared expert as the dense MLP.  Plus the embedding's sum,
+    the head's gather and gradient, the loss's two sums and the 50
+    gradients over "data"."""
+    coll, args = _coll("deepseek-v3-671b-smoke")
+    B, S, d, N = 2, 8, 64, 32
+    act = B * S * d * 4
+    mla = act + B * S * (32 + 16 + 8) * 4
+    mlp = 3 * act
+    moe = N * 2 * 4 + N * d * 2 + B * S * d * 2 + mlp
+    assert coll["all-reduce"] == {
+        "count": 1 + 3 * 4 + 3 + 2 * 6 + 1 + 2 + 50,
+        "operand_bytes": act + 3 * mla + mlp + 2 * moe + act + 4 + 8
+        + args["params"]}
+    # the head's logits and the MoE layers' gathered batch (bf16)
+    assert coll["all-gather"] == {
+        "count": 3, "operand_bytes": B * S * 256 * 2 + 2 * B * S * d * 2}
+    assert coll["all-to-all"]["count"] == 0
 
 
 # --- remat -------------------------------------------------------------------
