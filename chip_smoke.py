@@ -150,7 +150,15 @@ Phases, each fatal on failure:
                steps at batch 2, 576 seeded patch embeddings before 512
                tokens, through flash (tc route), the first step held to
                naive as in whisper; peak memory under 70 GiB.
- 17. stablelm_serve — full-width stablelm-12b, all 40 layers (48.6 GB of
+ 17. wide_head_train — flash above head dim 128 on its tc route (run at
+               160 and 256): full-width stablelm-12b cut to 4 of its 40
+               layers (heads of 160) and gemma3-4b cut to one 5:1 pattern
+               unit (5 sliding-window layers at window 1024 and 1 global,
+               heads of 256), seeded weights, each 5 AdamW steps at batch 1
+               x 4096 through flash, the first step held to naive as in
+               whisper, every flash launch on the tc route, step p50,
+               tokens/s and peak memory (under 70 GiB) printed.
+ 18. stablelm_serve — full-width stablelm-12b, all 40 layers (48.6 GB of
                fp32 weights, output projections x32) through build_engine:
                8 greedy requests (prompts 64-512, 32 new tokens), 4 slots,
                page 16: (a) bf16 pages through paged_gqa at head dim 160
@@ -159,7 +167,7 @@ Phases, each fatal on failure:
                one bf16 decode step eager against graph replay (idle
                share) and its device time split between attention, the
                MLPs and the rest (one profiler window).
- 18. mistral_serve — full-width mistral-large-123b cut to 8 of its 88
+ 19. mistral_serve — full-width mistral-large-123b cut to 8 of its 88
                layers (launch.dryrun.depth_variant; 47.5 GB of fp32
                weights, output projections x32): first the dry-run's
                prediction for this cell (lower_cell, decode_32k at batch 4
@@ -172,13 +180,13 @@ Phases, each fatal on failure:
                MISTRAL_PEAK_TOL of the predicted peak, and one 4-slot bf16
                decode step's device time is printed beside the predicted
                memory_s.
- 19. dryrun_train — full-width smollm-360m at batch 4 x 2048 through flash,
+ 20. dryrun_train — full-width smollm-360m at batch 4 x 2048 through flash,
                one AdamW step with remat "none" and one with "full" from
                the same seed: losses and gradient norms bitwise equal,
                each peak beside the dry-run's prediction, full's below;
                (c) the full step again on a model bound to a world-1 1x1
                mesh: bitwise the unbound one, its peak beside it.
- 20. mesh_serve — a world-1 process group (NCCL, through a FileStore
+ 21. mesh_serve — a world-1 process group (NCCL, through a FileStore
                under build/) and a 1x1 DeviceMesh: (a) full-width
                minimalist-lm-360m dense, phase lm's traffic greedy and
                sampled, (b) full-width smollm-360m (output projections
@@ -192,7 +200,7 @@ Phases, each fatal on failure:
                spawned NCCL ranks when two are visible, (a) greedy and (b)
                bf16 against the no-mesh streams under the margin rule (else
                a line says it did not run).
- 21. tp_serve — TP 2 on two spawned ranks: NCCL with a card each where
+ 22. tp_serve — TP 2 on two spawned ranks: NCCL with a card each where
                two are visible, else gloo with both ranks on card 0 (the
                transport is printed).  With mistral_serve's traffic (8
                requests, prompts 64-512, 32 new): falcon-mamba-7b fused,
@@ -206,12 +214,12 @@ Phases, each fatal on failure:
                same with no mesh: streams under the margin rule, the TP
                loss within TP_LOSS_TOL, decode-step p50 with and without
                the mesh, launches of fused_ssm_* and paged_mla*.
- 22. mixed   — a stack mixing minGRU and attention at minimalist-lm-360m's
+ 23. mixed   — a stack mixing minGRU and attention at minimalist-lm-360m's
                widths (x32) from bf16 pages with phase lm's traffic: the
                paged_gqa read against the gather read (margin rule).
- 23. examples — repro_torch.examples.quickstart and .serve_batch on the
+ 24. examples — repro_torch.examples.quickstart and .serve_batch on the
                card as subprocesses; a non-zero exit fails the script.
- 24. imc     — the paper's IMC projection (Eq. 6) through its entry point
+ 25. imc     — the paper's IMC projection (Eq. 6) through its entry point
                imc_mvm on the card at the kernel rows' shapes with leading
                dimensions (the 4096 x 1024 x 1024 one on the tc route),
                against its plain version, and Eq. 6's all-ones and
@@ -734,6 +742,36 @@ def _kernel_rows_paged(torch, dev, g):
     return rows
 
 
+def _flash_flops(B, H, S, D, window):
+    """flops of the causal flash forward and backward at (B, H, S, D):
+    q.k^T and p.V (4 D each) over the (query, key) pairs the mask admits,
+    min(i + 1, window) keys in row i; the backward 2.5 times the forward,
+    the reference cost model's ratio (its 3.5 for a training call less the
+    forward).  The reference's cost model counts S^2 / 2 pairs under a
+    causal mask and S x window under a window: at S 2048, window 1024, a
+    third more than the mask admits."""
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    fwd = 4 * B * H * pairs * D
+    return fwd, 2.5 * fwd
+
+
+def _sdpa_bwd_ms(torch, sdpa, qkv, do, kw, rounds=3):
+    """SDPA's backward alone, timed as the kernels are (graph replay):
+    its forward and backward (inputs that need grad) less that forward,
+    ``rounds`` times.  Returns (median, the rounds)."""
+    ql, kl, vl = (t.detach().requires_grad_() for t in qkv)
+
+    def fwd():
+        return sdpa(ql, kl, vl, **kw)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (ql, kl, vl), do)
+    xs = [device_ms(torch, fwd_bwd, 10) - device_ms(torch, fwd, 10)
+          for _ in range(rounds)]
+    return sorted(xs)[len(xs) // 2], xs
+
+
 def _flash_row(torch, dev, g, B, H, KV, S, D, window):
     """flash_fwd and flash_bwd at one shape (causal, bf16) against their
     plain versions (the bounds of _kernel_rows_flash), with kernel, plain
@@ -791,33 +829,30 @@ def _flash_row(torch, dev, g, B, H, KV, S, D, window):
         kw = dict(attn_mask=fa_ref.attend_mask(S, True, window, dev),
                   enable_gqa=True)
     f_lib = device_ms(torch, lambda: sdpa(q, k, v, **kw), 20)
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    ol = sdpa(ql, kl, vl, **kw)
-    b_lib = eager_ms(torch, lambda: torch.autograd.grad(
-        ol, (ql, kl, vl), do, retain_graph=True), 10)
-    del ol, ql, kl, vl
-    # the reference's cost model: the forward is the inference call; the
-    # backward's flops are the training call's less the forward's, its
-    # bytes each input (q, k, v, out, do, lse) read and each gradient
-    # written once
-    ff, fb = fa_ops.cost_model(B, H, KV, S, D, window=window, train=False)
-    tf, _ = fa_ops.cost_model(B, H, KV, S, D, window=window, train=True)
+    b_lib, b_libs = _sdpa_bwd_ms(torch, sdpa, (q, k, v), do, kw)
+    # the forward's bytes from the reference's cost model (the inference
+    # call); the backward's each input (q, k, v, out, do, lse) read and
+    # each gradient written once; the flops of both over the (query, key)
+    # pairs the mask admits (_flash_flops)
+    f_flops, b_flops = _flash_flops(B, H, S, D, window)
+    _, fb = fa_ops.cost_model(B, H, KV, S, D, window=window, train=False)
     el = q.element_size()
     bb = 2 * B * (H + 2 * KV) * S * D * el + 2 * B * H * S * D * el \
         + B * H * S * 4
-    fb_ms, f_by = bound(fb, ff, PEAK_BF16_TENSOR_FLOPS)
-    bb_ms, b_by = bound(bb, tf - ff, PEAK_BF16_TENSOR_FLOPS)
+    fb_ms, f_by = bound(fb, f_flops, PEAK_BF16_TENSOR_FLOPS)
+    bb_ms, b_by = bound(bb, b_flops, PEAK_BF16_TENSOR_FLOPS)
     print(f"kernel flash_fwd {tag}: max_abs_err {err:.3g} (tol one bf16 "
           f"ulp + 2e-6; lse {lse_err:.3g}) kernel {f_ms:.4f} ms (eager "
           f"call {f_call:.4f} ms), plain {f_plain:.4f} ms, library (SDPA) "
           f"{f_lib:.4f} ms, bound {fb_ms:.5f} ms ({f_by}, bf16 tensor "
-          f"peak; {ff / 1e9:.1f} GFLOP, {fb / 1e6:.1f} MB)", flush=True)
+          f"peak; {f_flops / 1e9:.1f} GFLOP, {fb / 1e6:.1f} MB)", flush=True)
     print(f"kernel flash_bwd {tag}: max_abs_err {gerr:.3g} (tol one bf16 "
           f"ulp + 2e-6) kernels dq+dkv {b_ms:.4f} ms (eager call "
-          f"{b_call:.4f} ms), plain {b_plain:.4f} ms, library (SDPA "
-          f"backward on a retained graph) {b_lib:.4f} ms, bound "
-          f"{bb_ms:.5f} ms ({b_by}, bf16 tensor peak; "
-          f"{(tf - ff) / 1e9:.1f} GFLOP, {bb / 1e6:.1f} MB)", flush=True)
+          f"{b_call:.4f} ms), plain {b_plain:.4f} ms, library (SDPA's "
+          f"backward: forward and backward less the forward, graph replay) "
+          f"{b_lib:.4f} ms (rounds {', '.join(f'{x:.4f}' for x in b_libs)})"
+          f", bound {bb_ms:.5f} ms ({b_by}, bf16 tensor peak; "
+          f"{b_flops / 1e9:.1f} GFLOP, {bb / 1e6:.1f} MB)", flush=True)
     del q, k, v, do, out, lse, want, want_lse, grads, wgrads
     torch.cuda.empty_cache()
     return (dict(max_abs_err=err, ms=f_ms, eager_ms=f_call,
@@ -830,10 +865,10 @@ def _flash_row(torch, dev, g, B, H, KV, S, D, window):
 
 def _kernel_rows_flash(torch, dev, g):
     """flash_fwd and flash_bwd at the attn_train phase's shape (smollm-360m:
-    batch 4, 15/5 heads of 64, seq 2048, causal, bf16: the tc route), at
-    gemma3-4b's local layers (8/4 heads of 256, window 1024: the simt
-    route) and at stablelm-12b's 32/8 heads of 160 (seq 1024, causal: the
-    simt route), against their plain versions.  Every bf16 output (out, dq,
+    batch 4, 15/5 heads of 64, seq 2048, causal, bf16), at gemma3-4b's
+    local layers (8/4 heads of 256, window 1024: keys d256_*) and at
+    stablelm-12b's 32/8 heads of 160 (seq 1024, causal: d160_*), all on
+    the tc route, against their plain versions.  Every bf16 output (out, dq,
     dk, dv) within one bf16 ulp of the larger magnitude plus 2e-6; lse
     (fp32) within 2e-5 + 2e-5 |plain|.  out is held to the fp32 plain
     version (both round to bf16 fp32 sums of the same terms, which sum to
@@ -845,7 +880,7 @@ def _kernel_rows_flash(torch, dev, g):
     each is within it of the exact sum."""
     rows = {}
     # the path shape; gemma3-4b's local layers; stablelm-12b's 32/8 heads
-    # of 160 (simt route at its own compiled head dim)
+    # of 160 (run as three 64-column panels)
     for B, H, KV, S, D, window in [(4, 15, 5, 2048, 64, None),
                                    (1, 8, 4, 2048, 256, 1024),
                                    (1, 32, 8, 1024, 160, None)]:
@@ -854,9 +889,9 @@ def _kernel_rows_flash(torch, dev, g):
             for r in (fwd, bwd):
                 r.pop("eager_ms")
             rows["flash_fwd"], rows["flash_bwd"] = fwd, bwd
-        elif D == 160:
+        else:
             for name, r in (("flash_fwd", fwd), ("flash_bwd", bwd)):
-                rows[name].update({f"d160_{k}": r[k] for k in (
+                rows[name].update({f"d{D}_{k}": r[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "library_ms")})
     return rows
@@ -867,16 +902,22 @@ def _kernel_rows_flash(torch, dev, g):
 # of stablelm-12b's decode in phase stablelm_serve (32/8 heads of 160, the
 # scalar route; 4 slots, cache 544 = 512 + 32, page 16) and of
 # mistral-large-123b's heads (96/8 of 128, group 12, the same cache; no
-# phase serves it yet); (label, B, H, KV, S, D) of the decoder's causal
-# self-attention in phase whisper (batch 4, 12/12 heads of 64, 448 tokens)
-# and of phase vlm (llava-next-34b: batch 2, 56/8 heads of 128 over 576
-# patches + 512 tokens), both on the tc route
+# phase serves it yet); (label, B, H, KV, S, D, window) of the decoder's
+# causal self-attention in phase whisper (batch 4, 12/12 heads of 64, 448
+# tokens), of phase vlm (llava-next-34b: batch 2, 56/8 heads of 128 over
+# 576 patches + 512 tokens) and of phase wide_head_train (batch 1 x
+# WIDE_SEQ: stablelm-12b's 32/8 heads of 160, gemma3-4b's 8/4 heads of 256
+# in its local layers, window 1024, and in its global one), all on the tc
+# route
 PAGED_MODEL_ROWS = [
     ("stablelm", 4, 32, 8, 160, 544, None, [543] * 4),
     ("mistral", 4, 96, 8, 128, 544, None, [543] * 4),
 ]
-FLASH_MODEL_ROWS = [("whisper", 4, 12, 12, 448, 64),
-                    ("llava", 2, 56, 8, 1088, 128)]
+FLASH_MODEL_ROWS = [("whisper", 4, 12, 12, 448, 64, None),
+                    ("llava", 2, 56, 8, 1088, 128, None),
+                    ("stablelm_train", 1, 32, 8, 4096, 160, None),
+                    ("gemma3_local", 1, 8, 4, 4096, 256, 1024),
+                    ("gemma3_global", 1, 8, 4, 4096, 256, None)]
 
 
 def _kernel_rows_model_shapes(torch, dev, rows):
@@ -889,8 +930,8 @@ def _kernel_rows_model_shapes(torch, dev, rows):
         for label, *shape in PAGED_MODEL_ROWS:
             rows[name].update(_prefixed(label, _paged_row(
                 torch, dev, g, q8, label, *shape)))
-    for label, B, H, KV, S, D in FLASH_MODEL_ROWS:
-        fwd, bwd = _flash_row(torch, dev, g, B, H, KV, S, D, None)
+    for label, B, H, KV, S, D, window in FLASH_MODEL_ROWS:
+        fwd, bwd = _flash_row(torch, dev, g, B, H, KV, S, D, window)
         rows["flash_fwd"].update(_prefixed(label, fwd))
         rows["flash_bwd"].update(_prefixed(label, bwd))
 
@@ -3701,6 +3742,41 @@ def _check_training(tag, losses, steps, cfg, want_launches):
              f"{launches} != {cfg.n_layers} decoder layers x {steps} steps")
 
 
+def _train_through_flash(torch, dev, tag, model, loader, steps):
+    """``steps`` AdamW steps of ``model`` through build_train_step on
+    ``loader``'s batches, the first step held to naive first
+    (:func:`_flash_against_naive`): every step's loss finite, the flash
+    kernels launched once a layer a step, all on the tc route, and the
+    peak memory at most 70 GiB.  Returns (the checked first loss, losses,
+    step seconds, flash launches, peak GiB, the step function)."""
+    from repro_torch.optim import AdamW, cosine_schedule, param_groups
+    from repro_torch.train import build_train_step
+
+    cfg = model.cfg
+    first = _flash_against_naive(torch, tag, model,
+                                 _on_card(loader.batch_at(0), dev))
+    opt = AdamW(param_groups(model), lr=cosine_schedule(3e-4, warmup=0,
+                                                        total=steps))
+    step_fn = build_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_flash_counts()
+    losses, dts = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        _, met = step_fn({}, _on_card(loader.batch_at(i), dev))
+        losses.append(float(met["loss"]))
+        dts.append(time.perf_counter() - t0)
+    launches = _flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    _check_training(tag, losses, steps, cfg, (launches,
+                                              cfg.n_layers * steps))
+    if peak_gb > 70:
+        fail(f"{tag}: peak memory {peak_gb:.2f} GiB > 70 GiB at "
+             f"{cfg.n_layers} layers")
+    return first, losses, dts, launches, peak_gb, step_fn
+
+
 def phase_whisper(torch, dev):
     """Full-width whisper-small trained through Trainer with flash in the
     decoder, the first step held to naive; then 4 requests encoded once
@@ -3835,8 +3911,6 @@ def phase_vlm(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.data import ShardedLoader, SyntheticLMDataset
     from repro_torch.models import build_model
-    from repro_torch.optim import AdamW, cosine_schedule, param_groups
-    from repro_torch.train import build_train_step
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3859,27 +3933,8 @@ def phase_vlm(torch, dev):
     loader = _WithEmbeds(ShardedLoader(SyntheticLMDataset(
         vocab=cfg.vocab, seq_len=seq), global_batch=batch),
         cfg.frontend_seq, cfg.d_model, steps)
-    first = _flash_against_naive(torch, "vlm", model,
-                                 _on_card(loader.batch_at(0), dev))
-    opt = AdamW(param_groups(model), lr=cosine_schedule(3e-4, warmup=0,
-                                                        total=steps))
-    step_fn = build_train_step(model, opt)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _zero_flash_counts()
-    losses, dts = [], []
-    for i in range(steps):
-        t0 = time.perf_counter()
-        _, met = step_fn({}, _on_card(loader.batch_at(i), dev))
-        losses.append(float(met["loss"]))
-        dts.append(time.perf_counter() - t0)
-    launches = _flash_counts()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    _check_training("vlm", losses, steps, cfg, (launches,
-                                                cfg.n_layers * steps))
-    if peak_gb > 70:
-        fail(f"vlm: peak memory {peak_gb:.2f} GiB > 70 GiB at "
-             f"{cfg.n_layers} layers")
+    first, losses, dts, launches, peak_gb, step_fn = _train_through_flash(
+        torch, dev, "vlm", model, loader, steps)
     p50 = sorted(dts[1:])[(steps - 1) // 2] * 1e3
     tokens = batch * (cfg.frontend_seq + seq)
     print(f"vlm: {steps} AdamW steps (batch {batch} x ({cfg.frontend_seq} "
@@ -3889,10 +3944,115 @@ def phase_vlm(torch, dev):
           f"first step's {first:.4f}) -> {losses[-1]:.4f}; flash launches "
           f"fwd, dq, dkv {launches[:3]} = {cfg.n_layers} layers x {steps} "
           f"steps, all on the tc route", flush=True)
-    del model, opt, step_fn
+    del model, step_fn
     gc.collect()
     torch.cuda.empty_cache()
     return {"flash_fwd": launches[0], "flash_bwd": launches[2]}
+
+
+#: The wide_head_train phase: batch 1 x 4096 tokens, 5 AdamW steps, and
+#: stablelm-12b cut to 4 of its 40 layers (278 M parameters each, with the
+#: untied embedding and head 1.03 B: 2.14 B fp32 parameters, 34 GB with
+#: gradients and AdamW's two moments; all 40 would need 197 GB).  gemma3-4b
+#: is cut to one pattern unit of 6 layers (94 M each and 671 M of tied
+#: embedding: 1.24 B, 20 GB with state).
+WIDE_SEQ, WIDE_STEPS = 4096, 5
+WIDE_CUTS = [("stablelm-12b", dict(n_layers=4)),
+             ("gemma3-4b", dict(n_layers=6, tail_layers=()))]
+
+
+def _flash_device_share(torch, fn):
+    """One call of ``fn`` under the profiler: (device ms of the flash
+    kernels, device ms of every kernel, wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    flash = busy = 0.0
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or []:
+            busy += k.duration / 1e3
+            flash += k.duration / 1e3 if "flash::" in k.name else 0.0
+    return flash, busy, wall
+
+
+def _train_wide(torch, dev, arch, cut):
+    """``arch`` cut by ``cut`` at full width, trained WIDE_STEPS AdamW
+    steps at batch 1 x WIDE_SEQ through flash (first step held to naive,
+    every launch on the tc route, peak under 70 GiB).  Returns the flash
+    launches (fwd, dq, dkv)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedLoader, SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, attention_impl="flash", **cut)
+    kinds = [spec.kind for spec in cfg.layer_specs()]
+    steps, batch, seed = WIDE_STEPS, 1, 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    route = fa_ops.route(torch.bfloat16, cfg.head_dim)
+    local = kinds.count("attn_local")
+    local = (f", {local} of them sliding-window at {cfg.sliding_window}"
+             if local else "")
+    print(f"wide_head_train: {arch} at full width, depth cut to "
+          f"{cfg.n_layers} of its {full.n_layers} layers{local}, d "
+          f"{cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim} (flash {route} "
+          f"route), vocab {cfg.vocab}; {n_params / 1e9:.2f} B fp32 params; "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if route != "tc":
+        fail(f"wide_head_train {arch}: head dim {cfg.head_dim} on the "
+             f"{route} route")
+    loader = ShardedLoader(SyntheticLMDataset(vocab=cfg.vocab,
+                                              seq_len=WIDE_SEQ),
+                           global_batch=batch)
+    tag = f"wide_head_train {arch}"
+    first, losses, dts, launches, peak_gb, step_fn = _train_through_flash(
+        torch, dev, tag, model, loader, steps)
+    p50 = sorted(dts[1:])[(steps - 1) // 2] * 1e3
+    print(f"{tag}: {steps} AdamW steps (batch {batch} x {WIDE_SEQ} tokens): "
+          f"step p50 {p50:.1f} ms (first {dts[0] * 1e3:.0f} ms) -> "
+          f"{batch * WIDE_SEQ / (p50 / 1e3):.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GiB; loss {losses[0]:.4f} (the checked first "
+          f"step's {first:.4f}) -> {losses[-1]:.4f}; flash launches fwd, dq, "
+          f"dkv {launches[:3]} = {cfg.n_layers} layers x {steps} steps, all "
+          f"on the tc route", flush=True)
+    # where a step's time goes: one more step under the profiler, after
+    # the counted run
+    extra = _on_card(loader.batch_at(steps), dev)
+    flash_ms, busy_ms, wall_ms = _flash_device_share(
+        torch, lambda: step_fn({}, extra))
+    print(f"{tag}: one profiled step: device busy {busy_ms:.1f} ms of "
+          f"{wall_ms:.1f} ms wall (idle {1 - busy_ms / wall_ms:.1%}); the "
+          f"flash kernels {flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of "
+          f"the busy time)", flush=True)
+    del model, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[:3]
+
+
+def phase_wide_head_train(torch, dev):
+    """Flash above head dim 128 on the tc route, end to end: WIDE_CUTS
+    trained at full width (:func:`_train_wide`)."""
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+    for arch, cut in WIDE_CUTS:
+        fwd, _, dkv = _train_wide(torch, dev, arch, cut)
+        launches["flash_fwd"] += fwd
+        launches["flash_bwd"] += dkv
+    return launches
 
 
 def phase_stablelm_serve(torch, dev):
@@ -5113,7 +5273,7 @@ def main():
     # the serving phases drive kernels of earlier phases: counts add up
     for phase in (phase_sched, phase_spec, phase_mamba_serve,
                   phase_moe_serve, phase_whisper, phase_vlm,
-                  phase_stablelm_serve, phase_mistral_serve,
+                  phase_wide_head_train, phase_stablelm_serve, phase_mistral_serve,
                   phase_dryrun_train, phase_mesh_serve, phase_tp_serve,
                   phase_mixed, phase_examples):
         for name, n in timed(phase).items():

@@ -148,7 +148,8 @@ cudaError_t allow_smem(K kernel, int smem) {
 // stored); the softmax scale is the true dim's, passed in the params.
 // Tiles are 64 x 64, and 32 x 32 at D = 256 where the backward's six
 // fp32 tiles would not fit in shared memory at 64.  The bf16 head dims of
-// the tc route (16/32/64/128) take flash_tc.cuh unless called here.
+// the tc route (16/32/64/128 and 129-256) take flash_tc.cuh unless called
+// here.
 #define FLASH_DISPATCH_D(D, FN, T, ...)                          \
   if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue); \
   if (D <= 16) return FN<T, 16, 64, 64>(__VA_ARGS__);            \

@@ -30,14 +30,18 @@
 // dk and dv: five products of the forward's size, against its two).
 //
 // Two routes, chosen by the wrapper (ops.route):
-//   * tc (bf16 at D 16/32/64/128, flash_bwd_{dq,dkv}_bf16_tc): one
-//     warpgroup a tile of 64 query rows (dq) or 64 keys (dkv), the block's
-//     own tiles loaded once by TMA and the others streaming through a
-//     two-stage TMA/mbarrier ring; s, dp (dkv: s^T, dp^T) on wgmma from
-//     shared memory, ds and p split into three bf16 parts as the A
-//     operand of dq += ds.K, dv += p^T.do and dk += ds^T.q, each tile's
-//     product added to the fp32 sums in registers (flash_tc.cuh).
-//   * simt (fp32, and bf16 at the other head dims up to 256:
+//   * tc (bf16 at D 16/32/64/128 and 129-256, flash_bwd_{dq,dkv}_bf16_tc):
+//     one warpgroup a tile of 64 query rows (dq) or 64 keys (dkv), the
+//     block's own tiles loaded once by TMA and the others streaming
+//     through a two-stage TMA/mbarrier ring; s, dp (dkv: s^T, dp^T) on
+//     wgmma from shared memory, ds and p split into three bf16 parts as
+//     the A operand of dq += ds.K, dv += p^T.do and dk += ds^T.q, each
+//     tile's product added to the fp32 sums in registers (flash_tc.cuh).
+//     Above D 128 (run at 160 or 256) the products run a 64-column panel
+//     at a time; from D 128 the dkv kernel is two warpgroups, one summing
+//     dV and one dK (dkv_wide_tc_kernel); shared memory of dq at D 256: q
+//     and do 64 KB + 2 stages x (K + V) 128 KB.
+//   * simt (fp32, and bf16 at the other head dims below 128:
 //     flash_bwd_{dq,dkv}_{f32,bf16}; a head dim is run at the next
 //     compiled one, flash_attention.cuh): the first version, on the CUDA
 //     cores with p and ds staged in shared memory as fp32, bound by
@@ -424,17 +428,24 @@ struct BwdArgs {
   __nv_bfloat16* dv;
   Strides so, sdo, sdq, sdk, sdv;
   int H, KV, S, causal, window;
+  int dim;  // the true head dim, <= D
   float scale;
 };
 
-constexpr int kDqBQ = 64, kDqBK = 64, kDkvBK = 64;
+// kDkvBQ: the query rows a dkv block takes at a time (on an H100 the
+// backward at stablelm-12b's D 160 shape took 0.57 ms with 16 rows, 0.44
+// with 32 and 0.36 with 64, profile.py --sections flash).
+constexpr int kDqBQ = 64, kDqBK = 64, kDkvBQ = 64, kDkvBK = 64;
 
-// Query rows a dkv block takes at a time: 16 at D 128, where the dK and
-// dV sums and one tile's product (64 x 128 fp32 each) already hold 192
-// registers a thread.
+// dK/dV in two warpgroups (dkv_wide_tc_kernel) from head dim 128, in one
+// (dkv_tc_kernel) below.  At D 128 one warpgroup's dK and dV sums and a
+// tile's product leave room for a 16-row query slab only: on an H100 the
+// backward at llava-next-34b's D 128 shape took 1.03 ms in one warpgroup
+// and 0.83 in two; at the D 64 path shape, 0.64 in one and 0.92 in two
+// (profile.py --sections flash).
 template <int D>
-constexpr __host__ __device__ int dkv_bq() {
-  return D >= 128 ? 16 : 64;
+constexpr bool dkv_wide() {
+  return D >= 128;
 }
 
 template <int D>
@@ -446,7 +457,7 @@ constexpr int dq_smem() {
 template <int D>
 constexpr int dkv_smem() {
   return 1024 + 2 * Tile<D>::template bytes<kDkvBK>() +
-         2 * kStages * Tile<D>::template bytes<dkv_bq<D>()>();
+         2 * kStages * Tile<D>::template bytes<kDkvBQ>();
 }
 
 // dq (and delta): one warpgroup a (batch, head, 64-row query tile).
@@ -499,6 +510,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int warp = tid / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4, t4 = lane % 4;
+  const int dim = true_dim<D>(p.dim);
 
   // delta = rowsum(out * do) in fp32 for rows r0 and r0 + 8, each of the
   // row's four threads over a quarter of D; written for the dkv kernel
@@ -511,15 +523,22 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + r0 + 8 * i;
     float part = 0.0f;
     if (row < p.S) {
+      const __nv_bfloat16* orow = ob + row * p.so.s;
+      const __nv_bfloat16* grow = dob + row * p.sdo.s;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) {
         const int d = t4 * (D / 4) + 2 * c;
-        const __nv_bfloat162 ov =
-            *reinterpret_cast<const __nv_bfloat162*>(ob + row * p.so.s + d);
-        const __nv_bfloat162 gv =
-            *reinterpret_cast<const __nv_bfloat162*>(dob + row * p.sdo.s + d);
-        part = fmaf(__bfloat162float(ov.x), __bfloat162float(gv.x), part);
-        part = fmaf(__bfloat162float(ov.y), __bfloat162float(gv.y), part);
+        if (d + 1 < dim) {
+          const __nv_bfloat162 ov =
+              *reinterpret_cast<const __nv_bfloat162*>(orow + d);
+          const __nv_bfloat162 gv =
+              *reinterpret_cast<const __nv_bfloat162*>(grow + d);
+          part = fmaf(__bfloat162float(ov.x), __bfloat162float(gv.x), part);
+          part = fmaf(__bfloat162float(ov.y), __bfloat162float(gv.y), part);
+        } else if (d < dim) {
+          part = fmaf(__bfloat162float(orow[d]), __bfloat162float(grow[d]),
+                      part);
+        }
       }
     }
     delta[i] = quad_sum(part);
@@ -527,9 +546,10 @@ __global__ void __launch_bounds__(kThreads)
     if (t4 == 0 && row < p.S) p.delta[row_base + row] = delta[i];
   }
 
-  float dq[D / 2];
+  float dq[T::DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+  for (int i = 0; i < T::DP / 2; ++i) dq[i] = 0.0f;
+  const float one[2] = {1.0f, 1.0f};
 
   mbar_wait(&bar_q, 0);
   for (int j = 0; j < n; ++j) {
@@ -567,15 +587,7 @@ __global__ void __launch_bounds__(kThreads)
     // along the depth)
     uint32_t df[kSplit][BK / 16][4];
     split_frag<BK>(dp, df);
-    float part[D / 2];
-    wg_fence();
-    mma_split<D, BK>(part, df, sk + s * KB);
-    wg_commit();
-    wg_wait();
-    fence_regs(part);
-    keep(df);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] += part[i];
+    add_products<D, BK>(dq, df, sk + s * KB, one);
     __syncthreads();  // every warp's reads of stage s are done
     if (tid == 0 && j + kStages < n) load_stage(j + kStages);
   }
@@ -587,8 +599,8 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= p.S) continue;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
-      store_bf16x2(dqb + row * p.sdq.s + 8 * c + 2 * t4, dq[4 * c + 2 * i],
-                   dq[4 * c + 2 * i + 1]);
+      store_cols(dqb + row * p.sdq.s, c, t4, dim, dq[4 * c + 2 * i],
+                 dq[4 * c + 2 * i + 1]);
   }
 }
 
@@ -605,7 +617,7 @@ __global__ void __launch_bounds__(kThreads)
                   const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tdo, BwdArgs p) {
   using T = Tile<D>;
-  constexpr int BK = kDkvBK, BQ = dkv_bq<D>();
+  constexpr int BK = kDkvBK, BQ = kDkvBQ;
   constexpr int KB = T::template bytes<BK>(), QB = T::template bytes<BQ>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_kv, bar_q[kStages], bar_do[kStages];
@@ -733,17 +745,177 @@ __global__ void __launch_bounds__(kThreads)
 
   __nv_bfloat16* dkb = p.dk + b * p.sdk.b + kvh * p.sdk.h;
   __nv_bfloat16* dvb = p.dv + b * p.sdv.b + kvh * p.sdv.h;
+  const int dim = true_dim<D>(p.dim);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = k0 + r0 + 8 * i;
     if (row >= p.S) continue;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
-      store_bf16x2(dkb + row * p.sdk.s + 8 * c + 2 * t4, dk[4 * c + 2 * i],
-                   dk[4 * c + 2 * i + 1]);
-      store_bf16x2(dvb + row * p.sdv.s + 8 * c + 2 * t4, dv[4 * c + 2 * i],
-                   dv[4 * c + 2 * i + 1]);
+      store_cols(dkb + row * p.sdk.s, c, t4, dim, dk[4 * c + 2 * i],
+                 dk[4 * c + 2 * i + 1]);
+      store_cols(dvb + row * p.sdv.s, c, t4, dim, dv[4 * c + 2 * i],
+                 dv[4 * c + 2 * i + 1]);
     }
+  }
+}
+
+// dk and dv from head dim 128 (dkv_wide): one warpgroup's dK and dV sums
+// (64 keys x D fp32 each) take D registers a thread, all 255 at D 256.
+// So two warpgroups a (batch, kv head, 64-key tile) split them:
+// warpgroup 0 forms s^T = K.q^T and p^T and sums dv += p^T.do, warpgroup
+// 1 forms dp^T = V.do^T, reads p^T from shared memory and sums dk +=
+// ds^T.q.  Each holds one D-wide sum and one product of CP panels
+// (add_products), so the query slab is 64 rows; p^T is computed once,
+// with the numerics of dkv_tc_kernel.  The two warpgroups' accumulator
+// fragments are laid out alike, so a thread of warpgroup 1 reads exactly
+// the p^T entries its namesake in warpgroup 0 wrote.  Two block-wide barriers a
+// step: p^T written, then the stage read.  Shared memory at D 256: K and
+// V 64 KB + 2 stages x (q + do) 128 KB.
+
+template <int D>
+__global__ void __launch_bounds__(2 * kThreads)
+    dkv_wide_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, BwdArgs p) {
+  using T = Tile<D>;
+  constexpr int BK = kDkvBK, BQ = kDkvBQ;
+  constexpr int KB = T::template bytes<BK>(), QB = T::template bytes<BQ>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_kv, bar_q[kStages], bar_do[kStages];
+  __shared__ float lse_s[kStages][BQ], delta_s[kStages][BQ];
+  __shared__ float pt_s[BQ / 2][kThreads];  // p^T entry e of thread t
+  const uint32_t sk = smem_base(smem_raw), sv = sk + KB;
+  const uint32_t sq = sv + KB, sdo = sq + kStages * QB;
+
+  const int ki = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = p.H / p.KV;
+  const int k0 = ki * BK;
+  int lo, hi;
+  q_tiles(k0, BK, BQ, p.S, p.causal, p.window, &lo, &hi);
+  const int nq = hi - lo + 1, n = G * nq;  // steps: (head g, query tile)
+
+  const int tid = threadIdx.x, wg = tid / kThreads, t = tid % kThreads;
+  auto load_stage = [&](int j) {  // step j's q and do tiles into stage j % 2
+    const int s = j % kStages;
+    const int h = kvh * G + j / nq, q0 = (lo + j % nq) * BQ;
+    mbar_expect(&bar_q[s], QB);
+    T::template load<BQ>(sq + s * QB, &tq, &bar_q[s], q0, h, b);
+    mbar_expect(&bar_do[s], QB);
+    T::template load<BQ>(sdo + s * QB, &tdo, &bar_do[s], q0, h, b);
+  };
+  auto stage_rows = [&](int j) {  // lse and delta of step j's query rows
+    const int s = j % kStages;
+    const int h = kvh * G + j / nq, q0 = (lo + j % nq) * BQ;
+    const long long row_base = (static_cast<long long>(b) * p.H + h) * p.S;
+    for (int r = tid; r < 2 * BQ; r += 2 * kThreads) {
+      const int row = q0 + r % BQ;
+      const float* src = r < BQ ? p.lse : p.delta;
+      const float v = row < p.S ? src[row_base + row] : 0.0f;
+      if (r < BQ)
+        lse_s[s][r] = v;
+      else
+        delta_s[s][r - BQ] = v;
+    }
+  };
+  if (tid == 0) {
+    mbar_init(&bar_kv);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_q[s]);
+      mbar_init(&bar_do[s]);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(&bar_kv, 2 * KB);
+    T::template load<BK>(sk, &tk, &bar_kv, k0, kvh, b);
+    T::template load<BK>(sv, &tv, &bar_kv, k0, kvh, b);
+    for (int j = 0; j < kStages && j < n; ++j) load_stage(j);
+  }
+  stage_rows(0);
+  __syncthreads();
+
+  const int warp = t / 32, lane = t % 32;
+  const int r0 = warp * 16 + lane / 4, t4 = lane % 4;  // key rows r0, r0+8
+  float acc[T::DP / 2];  // dv (warpgroup 0) or dk (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < T::DP / 2; ++i) acc[i] = 0.0f;
+  const float one[2] = {1.0f, 1.0f};
+  // s^T against q (warpgroup 0) or dp^T against do (1); then the sum's
+  // product against do (dv += p^T.do) or q (dk += ds^T.q)
+  const uint32_t lhs = wg == 0 ? sk : sv;
+  const uint32_t rows_a = wg == 0 ? sq : sdo, rows_b = wg == 0 ? sdo : sq;
+
+  mbar_wait(&bar_kv, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const int q0 = (lo + j % nq) * BQ;
+    float x[BQ / 2];  // s^T then p^T (warpgroup 0); dp^T then ds^T (1)
+    mbar_wait(&bar_q[s], parity);
+    mbar_wait(&bar_do[s], parity);
+    wg_fence();
+    mma_dot<D, BQ>(x, lhs, rows_a + s * QB);
+    wg_commit();
+    wg_wait();
+    fence_regs(x);
+    if (wg == 0) {
+      // p^T: entry (key r0 + 8 i, query column 8 c + 2 t4 + e)
+      scale_scores<BQ, true>(
+          x, tile_open(q0, BQ, k0, BK, p.S, p.causal, p.window), p.scale,
+          k0 + r0, q0, t4, p.S, p.causal, p.window);
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lse = lse_s[s][8 * c + 2 * t4 + e];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int f = 4 * c + 2 * i + e;
+            x[f] = exp_e(x[f] - lse);
+            pt_s[f][t] = x[f];
+          }
+        }
+    }
+    __syncthreads();  // p^T is in shared memory
+    if (wg == 1) {
+      // ds^T = p^T (dp^T - delta) scale
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float delta = delta_s[s][8 * c + 2 * t4 + e];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int f = 4 * c + 2 * i + e;
+            x[f] = __fmul_rn(__fmul_rn(pt_s[f][t], __fsub_rn(x[f], delta)),
+                             p.scale);
+          }
+        }
+    } else if (j + 1 < n) {
+      stage_rows(j + 1);  // the buffer step j - 1 read
+    }
+    uint32_t xf[kSplit][BQ / 16][4];
+    split_frag<BQ>(x, xf);
+    add_products<D, BQ>(acc, xf, rows_b + s * QB, one);
+    __syncthreads();  // stage s and p^T are read; step j + 1's rows staged
+    if (tid == 0 && j + kStages < n) load_stage(j + kStages);
+  }
+
+  __nv_bfloat16* out = wg == 0 ? p.dv + b * p.sdv.b + kvh * p.sdv.h
+                               : p.dk + b * p.sdk.b + kvh * p.sdk.h;
+  const long long ld = wg == 0 ? p.sdv.s : p.sdk.s;
+  const int dim = true_dim<D>(p.dim);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + r0 + 8 * i;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      store_cols(out + row * ld, c, t4, dim, acc[4 * c + 2 * i],
+                 acc[4 * c + 2 * i + 1]);
   }
 }
 
@@ -752,11 +924,15 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 int bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
              const void* v, const void* dout, const long long* st, int B,
-             int H, int KV, int S, int bq, int bk) {
-  int err = make_map<D>(&maps[0], q, strides_at(st, 0), B, H, S, bq);
-  if (!err) err = make_map<D>(&maps[1], k, strides_at(st, 1), B, KV, S, bk);
-  if (!err) err = make_map<D>(&maps[2], v, strides_at(st, 2), B, KV, S, bk);
-  if (!err) err = make_map<D>(&maps[3], dout, strides_at(st, 4), B, H, S, bq);
+             const BwdArgs& a, int bq, int bk) {
+  const int H = a.H, KV = a.KV, S = a.S, dim = a.dim;
+  int err = make_map<D>(&maps[0], q, strides_at(st, 0), B, H, S, bq, dim);
+  if (!err)
+    err = make_map<D>(&maps[1], k, strides_at(st, 1), B, KV, S, bk, dim);
+  if (!err)
+    err = make_map<D>(&maps[2], v, strides_at(st, 2), B, KV, S, bk, dim);
+  if (!err)
+    err = make_map<D>(&maps[3], dout, strides_at(st, 4), B, H, S, bq, dim);
   return err;
 }
 
@@ -765,8 +941,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const BwdArgs& a, const long long* st, int B,
               cudaStream_t stream) {
   CUtensorMap m[4];
-  const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a.H, a.KV, a.S, kDqBQ,
-                              kDqBK);
+  const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a, kDqBQ, kDqBK);
   if (err) return err;
   auto kernel = dq_tc_kernel<D>;
   constexpr int smem = dq_smem<D>();
@@ -782,15 +957,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const BwdArgs& a, const long long* st, int B,
                cudaStream_t stream) {
   CUtensorMap m[4];
-  const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a.H, a.KV, a.S,
-                              dkv_bq<D>(), kDkvBK);
+  const int err = bwd_maps<D>(m, q, k, v, dout, st, B, a, kDkvBQ,
+                              kDkvBK);
   if (err) return err;
-  auto kernel = dkv_tc_kernel<D>;
-  constexpr int smem = dkv_smem<D>();
-  const cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.S + kDkvBK - 1) / kDkvBK, a.KV, B);
-  kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  constexpr int smem = dkv_smem<D>();
+  if constexpr (dkv_wide<D>()) {
+    auto kernel = dkv_wide_tc_kernel<D>;
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, 2 * kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  } else {
+    auto kernel = dkv_tc_kernel<D>;
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -814,7 +996,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<__nv_bfloat16*>(dv), strides_at(strides, 3),            \
         strides_at(strides, 4), strides_at(strides, 5),                     \
         strides_at(strides, 6), strides_at(strides, 7), H, KV, S, causal,   \
-        window, flash::softmax_scale(D)};                                   \
+        window, D, flash::softmax_scale(D)};                                \
     const auto st = static_cast<cudaStream_t>(stream);                      \
     FLASH_TC_DISPATCH_D(D, flash::tc::FN, q, k, v, dout, a, strides, B, st) \
   }

@@ -18,14 +18,20 @@
 // (B 4, H 15, S 2048, D 64) would take 0.033 ms.
 //
 // Two routes, chosen by the wrapper (ops.route):
-//   * tc (bf16 at D 16/32/64/128, flash_fwd_bf16_tc): one warpgroup a
-//     64-row query tile, q loaded once by TMA, K and V tiles of 64 keys
-//     streaming through a two-stage TMA/mbarrier ring, s = q.k^T and
-//     p.V on wgmma with p split into three bf16 parts, each tile's p.V
-//     added to the rescaled fp32 accumulator in registers (flash_tc.cuh);
-//     the mask is applied only on tiles that cross the diagonal, the
-//     window edge or S.
-//   * simt (fp32, and bf16 at the other head dims up to 256:
+//   * tc (bf16 at D 16/32/64/128 and 129-256, flash_fwd_bf16_tc): one
+//     warpgroup a 64-row query tile, q loaded once by TMA, K and V tiles
+//     of 64 keys streaming through a two-stage TMA/mbarrier ring, s =
+//     q.k^T and p.V on wgmma with p split into three bf16 parts, each
+//     tile's p.V added to the rescaled fp32 accumulator in registers
+//     (flash_tc.cuh); the mask is applied only on tiles that cross the
+//     diagonal, the window edge or S.  Above D 128 (run at 160 or 256,
+//     TMA zero-filling the columns past the true D) p.V runs one 64-column
+//     panel at a time, so o (D / 2 registers a thread) and one panel's
+//     product (32) fit beside p's parts, and a block is two warpgroups on
+//     128 query rows sharing each K and V tile (fwd_wgs): its shared
+//     memory at D 256, q 64 KB + 2 stages x (K + V) 128 KB, leaves one
+//     block to an SM.
+//   * simt (fp32, and bf16 at the other head dims below 128:
 //     flash_fwd_f32, flash_fwd_bf16; a head dim is run at the next
 //     compiled one, flash_attention.cuh): the first version: 256
 //     threads a 64-row tile (32 at D 256), K and V in
@@ -225,24 +231,34 @@ struct FwdArgs {
   float* lse;
   Strides so;
   int H, KV, S, causal, window;
+  int dim;  // the true head dim, <= D
   float scale;
 };
 
-constexpr int kFwdBQ = 64, kFwdBK = 64;
+constexpr int kFwdBK = 64;
+
+// Warpgroups a block: above head dim 128, where a block's shared memory
+// leaves one to an SM, two, each on 64 of its 128 query rows, so one
+// warpgroup's softmax runs beside the other's products and each K and V
+// tile serves twice the rows.
+template <int D>
+constexpr __host__ __device__ int fwd_wgs() {
+  return D > 128 ? 2 : 1;
+}
 
 template <int D>
 constexpr int fwd_smem() {
-  return 1024 + Tile<D>::template bytes<kFwdBQ>() +
+  return 1024 + Tile<D>::template bytes<64 * fwd_wgs<D>()>() +
          2 * kStages * Tile<D>::template bytes<kFwdBK>();
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(fwd_wgs<D>() * kThreads)
     fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, FwdArgs p) {
   using T = Tile<D>;
-  constexpr int BQ = kFwdBQ, BK = kFwdBK;
+  constexpr int BQ = 64 * fwd_wgs<D>(), BK = kFwdBK;
   constexpr int QB = T::template bytes<BQ>(), KB = T::template bytes<BK>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t bar_q, bar_k[kStages], bar_v[kStages];
@@ -281,13 +297,17 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kStages && j < n; ++j) load_stage(j);
   }
 
-  // this thread's rows of the tile: r0 and r0 + 8; its columns of each
-  // 8-column chunk c: 8 c + 2 t4 and the next
-  const int warp = tid / 32, lane = tid % 32;
+  // this warpgroup's 64 rows from qw on (q at sqw); this thread's rows of
+  // them: r0 and r0 + 8; its columns of each 8-column chunk c: 8 c + 2 t4
+  // and the next
+  const int wg = fwd_wgs<D>() > 1 ? tid / kThreads : 0;
+  const int warp = tid % kThreads / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4, t4 = lane % 4;
-  float o[D / 2];
+  const int qw = q0 + 64 * wg;
+  const uint32_t sqw = sq + 64 * wg * T::ROWB;
+  float o[T::DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < T::DP / 2; ++i) o[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
   mbar_wait(&bar_q, 0);
@@ -298,15 +318,15 @@ __global__ void __launch_bounds__(kThreads)
     float sc[BK / 2];
     mbar_wait(&bar_k[s], parity);
     wg_fence();
-    mma_dot<D, BK>(sc, sq, sk + s * KB);
+    mma_dot<D, BK, BQ>(sc, sqw, sk + s * KB);
     wg_commit();
     wg_wait();
     fence_regs(sc);
 
     // s = q.k * scale (+ mask), the online softmax in fp32
     scale_scores<BK, false>(
-        sc, tile_open(q0, BQ, k0, BK, p.S, p.causal, p.window), p.scale,
-        q0 + r0, k0, t4, p.S, p.causal, p.window);
+        sc, tile_open(qw, 64, k0, BK, p.S, p.causal, p.window), p.scale,
+        qw + r0, k0, t4, p.S, p.causal, p.window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int c = 0; c < BK / 8; ++c)
@@ -338,37 +358,24 @@ __global__ void __launch_bounds__(kThreads)
     // o = o alpha + p.V, p split into its bf16 parts
     uint32_t pf[kSplit][BK / 16][4];
     split_frag<BK>(sc, pf);
-    float pv[D / 2];
     mbar_wait(&bar_v[s], parity);
-    wg_fence();
-    mma_split<D, BK>(pv, pf, sv + s * KB);
-    wg_commit();
-    wg_wait();
-    fence_regs(pv);
-    keep(pf);
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          o[4 * c + 2 * i + e] =
-              fmaf(o[4 * c + 2 * i + e], alpha[i], pv[4 * c + 2 * i + e]);
+    add_products<D, BK>(o, pf, sv + s * KB, alpha);
     __syncthreads();  // every warp's reads of stage s are done
     if (tid == 0 && j + kStages < n) load_stage(j + kStages);
   }
 
   __nv_bfloat16* ob = p.o + b * p.so.b + h * p.so.h;
   float* lb = p.lse + (static_cast<long long>(b) * p.H + h) * p.S;
+  const int dim = true_dim<D>(p.dim);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + 8 * i;
+    const int row = qw + r0 + 8 * i;
     if (row >= p.S) continue;
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
-      store_bf16x2(ob + row * p.so.s + 8 * c + 2 * t4,
-                   o[4 * c + 2 * i] / li, o[4 * c + 2 * i + 1] / li);
+      store_cols(ob + row * p.so.s, c, t4, dim,
+                 o[4 * c + 2 * i] / li, o[4 * c + 2 * i + 1] / li);
     if (t4 == 0) lb[row] = m[i] + logf(li);
   }
 }
@@ -377,17 +384,20 @@ template <int D>
 int launch_fwd(const void* q, const void* k, const void* v,
                const FwdArgs& a, const long long* st, int B,
                cudaStream_t stream) {
+  constexpr int bq = 64 * fwd_wgs<D>();
   CUtensorMap tq, tk, tv;
-  int err = make_map<D>(&tq, q, strides_at(st, 0), B, a.H, a.S, kFwdBQ);
-  if (!err) err = make_map<D>(&tk, k, strides_at(st, 1), B, a.KV, a.S, kFwdBK);
-  if (!err) err = make_map<D>(&tv, v, strides_at(st, 2), B, a.KV, a.S, kFwdBK);
+  int err = make_map<D>(&tq, q, strides_at(st, 0), B, a.H, a.S, bq, a.dim);
+  if (!err)
+    err = make_map<D>(&tk, k, strides_at(st, 1), B, a.KV, a.S, kFwdBK, a.dim);
+  if (!err)
+    err = make_map<D>(&tv, v, strides_at(st, 2), B, a.KV, a.S, kFwdBK, a.dim);
   if (err) return err;
   auto kernel = fwd_tc_kernel<D>;
   constexpr int smem = fwd_smem<D>();
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.S + kFwdBQ - 1) / kFwdBQ, a.H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, a);
+  const dim3 grid((a.S + bq - 1) / bq, a.H, B);
+  kernel<<<grid, fwd_wgs<D>() * kThreads, smem, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -400,7 +410,7 @@ extern "C" int flash_fwd_bf16_tc(const void* q, const void* k, const void* v,
                                  int causal, int window, void* stream) {
   const flash::tc::FwdArgs a{
       static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      flash::strides_at(strides, 3), H, KV, S, causal, window,
+      flash::strides_at(strides, 3), H, KV, S, causal, window, D,
       flash::softmax_scale(D)};
   const auto st = static_cast<cudaStream_t>(stream);
   FLASH_TC_DISPATCH_D(D, flash::tc::launch_fwd, q, k, v, a, strides, B, st)

@@ -1,8 +1,11 @@
 // Flash attention on Hopper's tensor cores: the "tc" route of flash_fwd.cu
-// and flash_bwd.cu, for bf16 inputs at head dims 16, 32, 64 and 128.
+// and flash_bwd.cu, for bf16 inputs at head dims 16, 32, 64, 128, 160 and
+// 256 (and any head dim from 129 to 256 at the next of the last two).
 //
-// Each block is one warpgroup (128 threads) that owns a 64-row tile of
-// its output and keeps its accumulators in registers.  The operand tiles
+// Each warpgroup (128 threads) owns a 64-row tile of its output and keeps
+// its accumulators in registers; a block is one warpgroup, or two (the
+// forward above head dim 128: two query tiles; the dK/dV kernel from 128:
+// dK and dV of one key tile).  The operand tiles
 // stream through shared memory in a ring of two stages: thread 0 starts
 // TMA loads (4-D tensor maps over (D, S, heads, batch) built from the
 // operands' strides, so transposed views load with no copy, and rows past
@@ -24,13 +27,25 @@
 // m64nNk16 holds, two columns at a time, exactly the entries of the bf16
 // A-operand fragment of the next product.
 //
-// Shared-memory tiles: a tile of R rows x D bf16 is stored as D / PW
-// panels of R rows x PW columns, PW = min(D, 64) (one TMA box each), with
-// the TMA swizzle whose span is one panel row (128 B at D >= 64, 64 B at
-// D 32, 32 B at D 16) and the matching wgmma layout type.  A panel is
-// read K-major (q.k^T: D along K) or, with the transpose bit, MN-major
-// (p.V: keys along K, D along N).  Every panel starts on a 1024-byte
-// boundary, so the swizzle pattern starts at its first row.
+// Shared-memory tiles: a tile of R rows x D bf16 is stored as NP = D / PW
+// panels (rounded up) of R rows x PW columns, PW = min(D, 64) (one TMA
+// box each), with the TMA swizzle whose span is one panel row (128 B at
+// D >= 64, 64 B at D 32, 32 B at D 16) and the matching wgmma layout
+// type.  A panel is read K-major (q.k^T: D along K) or, with the
+// transpose bit, MN-major (p.V: keys along K, D along N).  Every panel
+// starts on a 1024-byte boundary, so the swizzle pattern starts at its
+// first row.
+//
+// Head dims past 128: D 160 is three panels (192 columns) and D 256 four.
+// The tensor map's inner extent is the true head dim, so TMA fills the
+// columns past it with zeros (160-191 at D 160; a head dim of 129-255 run
+// at 160 or 256 likewise): q.k^T stops at the compiled D (the zeros add
+// nothing), p.V and the gradient products compute the last panel whole
+// (at D 160 a fifth more than the true columns) and only the true columns
+// are stored.  The products' fp32 sums stay in registers: o, dq, dk or dv
+// (D / 2 a thread) beside one product of CP panels: up to D 128 the whole
+// product (CP = NP), above it one panel at a time (CP = 1), so the sum
+// and the product fit 255 registers at D 256.
 #pragma once
 
 #include <cuda.h>
@@ -187,9 +202,15 @@ struct Mma<64> {
 
 template <int D>
 struct Tile {
-  static constexpr int PW = D < 64 ? D : 64;  // panel width, elements
-  static constexpr int ROWB = PW * 2;         // bytes of a panel row
-  static constexpr int NP = D / PW;           // panels
+  static constexpr int PW = D < 64 ? D : 64;      // panel width, elements
+  static constexpr int ROWB = PW * 2;             // bytes of a panel row
+  static constexpr int NP = (D + PW - 1) / PW;    // panels
+  static constexpr int DP = NP * PW;              // columns incl. padding
+  static constexpr int CP = DP <= 128 ? NP : 1;   // panels a product holds
+  // Either whole panels, or a last one that TMA zero-fills past D, whose
+  // columns q.k^T's depth steps of 16 leave out.
+  static_assert(D % PW == 0 || (D > 128 && D % 16 == 0),
+                "a head dim must fill its panels, or pad the last one");
   static constexpr uint32_t LAYOUT = D >= 64 ? 1 : (D == 32 ? 2 : 3);
   static constexpr CUtensorMapSwizzle SWIZZLE =
       D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -197,7 +218,7 @@ struct Tile {
                          : CU_TENSOR_MAP_SWIZZLE_32B);
   template <int R>
   static constexpr __host__ __device__ int bytes() {
-    return R * D * 2;
+    return R * DP * 2;
   }
 
   // K-major operand of a tile of R rows: columns 16 kk .. 16 kk + 15.
@@ -227,29 +248,31 @@ struct Tile {
   }
 };
 
-// acc (64 x D) (+)= A (64 x 16, registers) . rows 16 kk .. 16 kk + 15 of
-// a tile of R rows x D read MN-major: one wgmma of width PW per panel,
-// the panel's columns landing in its slice of the accumulator.
-template <int D, int R>
+// acc (64 x CP PW) (+)= A (64 x 16, registers) . rows 16 kk .. 16 kk + 15
+// of panels p0 .. p0 + CP - 1 of a tile of R rows x D read MN-major: one
+// wgmma of width PW per panel, the panel's columns landing in its slice
+// of the accumulator.
+template <int D, int R, int CP>
 __device__ __forceinline__ void mma_rows(float* acc, const uint32_t (&a)[4],
-                                         uint32_t tile, int kk,
+                                         uint32_t tile, int p0, int kk,
                                          int accumulate) {
   using T = Tile<D>;
 #pragma unroll
-  for (int p = 0; p < T::NP; ++p)
+  for (int p = 0; p < CP; ++p)
     Mma<T::PW>::rs(acc + p * T::PW / 2, a,
-                   T::mnmajor(tile + p * R * T::ROWB, kk), accumulate);
+                   T::mnmajor(tile + (p0 + p) * R * T::ROWB, kk),
+                   accumulate);
 }
 
-// acc (64 x N) = A . B^T over D: A a tile of 64 rows and B a tile of N
-// rows, both K-major.
-template <int D, int N>
+// acc (64 x N) = A . B^T over D: A 64 rows of a tile of RA rows (`a` at
+// its first row) and B a tile of N rows, both K-major.
+template <int D, int N, int RA = 64>
 __device__ __forceinline__ void mma_dot(float (&acc)[N / 2], uint32_t a,
                                         uint32_t b) {
   using T = Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    Mma<N>::ss(acc, T::template kmajor<64>(a, kk),
+    Mma<N>::ss(acc, T::template kmajor<RA>(a, kk),
                T::template kmajor<N>(b, kk), kk > 0);
 }
 
@@ -289,25 +312,6 @@ __device__ __forceinline__ void split_frag(const float (&x)[N / 2],
     }
 }
 
-// acc (64 x D) = X . tile, X (64 x R) given as its split fragments and
-// the tile (R rows x D) read MN-major, into a fresh accumulator: the
-// caller adds it to its running fp32 sum on the CUDA cores (round to
-// nearest), so the tensor cores only ever sum one tile.  Summed over many
-// tiles in the tensor cores, the running dK / dV part from the plain
-// version's fp32 sums by more than one bf16 ulp + 2e-6 in a few entries
-// in a million.  The smallest parts go first.
-template <int D, int R>
-__device__ __forceinline__ void mma_split(float* acc,
-                                          const uint32_t (&f)[kSplit][R / 16]
-                                                                 [4],
-                                          uint32_t tile) {
-#pragma unroll
-  for (int i = kSplit - 1; i >= 0; --i)
-#pragma unroll
-    for (int kk = 0; kk < R / 16; ++kk)
-      mma_rows<D, R>(acc, f[i][kk], tile, kk, i < kSplit - 1 || kk > 0);
-}
-
 // Keep the A fragments of an in-flight wgmma in their registers until
 // its wait.
 template <int K>
@@ -318,6 +322,53 @@ __device__ __forceinline__ void keep(uint32_t (&f)[kSplit][K][4]) {
     for (int kk = 0; kk < K; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(f[i][kk][r]));
+}
+
+// acc (64 x CP PW) = X . panels p0 .. p0 + CP - 1 of the tile, X (64 x R)
+// given as its split fragments and the tile (R rows x D) read MN-major,
+// into a fresh accumulator: the caller adds it to its running fp32 sum on
+// the CUDA cores (round to nearest), so the tensor cores only ever sum
+// one tile.  Summed over many tiles in the tensor cores, the running dK /
+// dV part from the plain version's fp32 sums by more than one bf16 ulp +
+// 2e-6 in a few entries in a million.  The smallest parts go first.
+template <int D, int R, int CP = Tile<D>::NP>
+__device__ __forceinline__ void mma_split(float* acc,
+                                          const uint32_t (&f)[kSplit][R / 16]
+                                                                 [4],
+                                          uint32_t tile, int p0 = 0) {
+#pragma unroll
+  for (int i = kSplit - 1; i >= 0; --i)
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      mma_rows<D, R, CP>(acc, f[i][kk], tile, p0, kk,
+                         i < kSplit - 1 || kk > 0);
+}
+
+// sum (64 x D fp32, DP / 2 a thread) = sum * alpha[row half] + X . tile,
+// one product of CP panels at a time into a fresh accumulator
+// (mma_split), each added on the CUDA cores; alpha is the forward's
+// online-softmax rescale, and {1, 1} elsewhere (fmaf(x, 1, y) rounds
+// x + y).  X's fragments are kept until the last product has been read.
+template <int D, int R>
+__device__ __forceinline__ void add_products(
+    float (&sum)[Tile<D>::DP / 2], uint32_t (&f)[kSplit][R / 16][4],
+    uint32_t tile, const float (&alpha)[2]) {
+  using T = Tile<D>;
+  constexpr int N = T::CP * T::PW / 2;  // accumulator entries a product
+#pragma unroll
+  for (int p0 = 0; p0 < T::NP; p0 += T::CP) {
+    float part[N];
+    wg_fence();
+    mma_split<D, R, T::CP>(part, f, tile, p0);
+    wg_commit();
+    wg_wait();
+    fence_regs(part);
+    keep(f);
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      sum[p0 * T::PW / 2 + e] =
+          fmaf(sum[p0 * T::PW / 2 + e], alpha[(e >> 1) & 1], part[e]);
+  }
 }
 
 // e^z as 2^(z log2 e): one multiply and the MUFU, where expf spends about
@@ -393,22 +444,47 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float a,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// A thread's two columns of 8-column chunk c, 8 c + 2 t4 and the next,
+// of a row of `dim` columns: both as one bf16x2, or only those below dim
+// (a head dim run at a wider compiled one stores no padding column).
+// The address is formed term by term, so a constant c stays an immediate
+// offset of the store.
+__device__ __forceinline__ void store_cols(__nv_bfloat16* row, int c, int t4,
+                                           int dim, float a, float b) {
+  const int col = 8 * c + 2 * t4;
+  if (col + 1 < dim)
+    store_bf16x2(row + 8 * c + 2 * t4, a, b);
+  else if (col < dim)
+    row[8 * c + 2 * t4] = __float2bfloat16_rn(a);
+}
+
+// The true head dim that a kernel compiled at D sees: `dim` above D 128
+// (129-256 run at 160 or 256), D itself up to 128, where the route runs
+// only whole head dims, so the column guards fold away when it compiles.
+template <int D>
+__device__ __forceinline__ int true_dim(int dim) {
+  return D > 128 ? dim : D;
+}
+
 // -- host: tensor maps ---------------------------------------------------
 
-// The tensor map of a (batch, heads, S, D) bf16 operand with (batch,
+// The tensor map of a (batch, heads, S, dim) bf16 operand with (batch,
 // head, row) strides `st` in elements, read in boxes of `rows` rows x
-// min(D, 64) columns with the tile's swizzle; rows past S read as zeros.
-// A dim of size 1 is never stepped, so its stride is replaced by one TMA
-// accepts (any multiple of 16 bytes).  Returns a cudaError_t value.
+// min(D, 64) columns with the tile's swizzle (D the compiled head dim,
+// dim <= D the true one); rows past S and columns past dim read as
+// zeros.  A dim of size 1 is never stepped, so its stride is replaced by
+// one TMA accepts (any multiple of 16 bytes).  Returns a cudaError_t
+// value.
 template <int D>
 int make_map(CUtensorMap* map, const void* ptr, Strides st, int batch,
-             int heads, int S, int rows) {
+             int heads, int S, int rows, int dim) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const long long row_b = S > 1 ? st.s * 2 : D * 2;
-  const long long head_b = heads > 1 ? st.h * 2 : D * 2;
-  const long long batch_b = batch > 1 ? st.b * 2 : D * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const long long any_b = Tile<D>::DP * 2;
+  const long long row_b = S > 1 ? st.s * 2 : any_b;
+  const long long head_b = heads > 1 ? st.h * 2 : any_b;
+  const long long batch_b = batch > 1 ? st.b * 2 : any_b;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dim),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
@@ -429,17 +505,21 @@ int make_map(CUtensorMap* map, const void* ptr, Strides st, int batch,
 }  // namespace tc
 }  // namespace flash
 
-// Instantiate `FN<D>(args...)` for the head dims of the tc route.
-#define FLASH_TC_DISPATCH_D(D, FN, ...)               \
-  switch (D) {                                        \
-    case 16:                                          \
-      return FN<16>(__VA_ARGS__);                     \
-    case 32:                                          \
-      return FN<32>(__VA_ARGS__);                     \
-    case 64:                                          \
-      return FN<64>(__VA_ARGS__);                     \
-    case 128:                                         \
-      return FN<128>(__VA_ARGS__);                    \
-    default:                                          \
-      return static_cast<int>(cudaErrorInvalidValue); \
+// Instantiate `FN<D>(args...)` for the head dims of the tc route: 16, 32,
+// 64 and 128 as they are, 129-160 at 160 and 161-256 at 256 (the columns
+// past the true head dim zero-filled by TMA and never stored).
+#define FLASH_TC_DISPATCH_D(D, FN, ...)                 \
+  switch (D) {                                          \
+    case 16:                                            \
+      return FN<16>(__VA_ARGS__);                       \
+    case 32:                                            \
+      return FN<32>(__VA_ARGS__);                       \
+    case 64:                                            \
+      return FN<64>(__VA_ARGS__);                       \
+    case 128:                                           \
+      return FN<128>(__VA_ARGS__);                      \
+    default:                                            \
+      if (D > 128 && D <= 160) return FN<160>(__VA_ARGS__); \
+      if (D > 160 && D <= 256) return FN<256>(__VA_ARGS__); \
+      return static_cast<int>(cudaErrorInvalidValue);   \
   }

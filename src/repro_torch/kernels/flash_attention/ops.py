@@ -8,12 +8,13 @@ runs the two kernels of ``csrc/flash_bwd.cu`` (which replace
 ``flash_bwd``'s dK/dV and dQ kernels and the group sum of its custom VJP)
 or :func:`ref.flash_attention_bwd_ref`.  On a CUDA tensor they launch or
 raise.  Each source has two routes, picked by :func:`route`: ``tc``
-(bf16 at head dims 16/32/64/128: wgmma tiles fed by TMA, P and dS split
-into bf16 hi + lo) and ``simt`` (fp32, and bf16 at every other head dim
-up to 256: the CUDA cores).  The simt kernels are compiled at head dims
-16, 32, 64, 128, 160 and 256 and run any other at the next of these,
-with the extra columns read as zeros and never written, and the softmax
-scale of the true head dim; a head dim above 256 is refused.
+(bf16 at head dims 16/32/64/128 and 129-256: wgmma tiles fed by TMA, P
+and dS split into three bf16 parts) and ``simt`` (fp32, and bf16 at the
+other head dims below 128: the CUDA cores).  Both routes are compiled at
+head dims 16, 32, 64, 128, 160 and 256 and run a head dim between them
+at the next one, with the extra columns read as zeros and never written,
+and the softmax scale of the true head dim; a head dim above 256 is
+refused.
 A launch that fails on the tc route raises; it is never retried on the
 other.  ``flash_fwd_kernel.launches`` counts forward launches and
 ``.launches_tc`` those on the tc route; ``flash_bwd_kernel.launches_dq``
@@ -39,18 +40,22 @@ from repro_torch.kernels.flash_attention import ref
 
 #: The largest head dim the CUDA kernels take (every one from 1 up).
 MAX_HEAD_DIM = 256
-#: Head dims of the tensor-core route (bf16 only).
-TC_HEAD_DIMS = (16, 32, 64, 128)
+#: Head dims the tensor-core route is compiled at (bf16 only); it runs
+#: 129-159 at 160 and 161-255 at 256.
+TC_HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 
 
 def route(dtype, head_dim):
     """The kernels' route for inputs of ``dtype`` and ``head_dim``:
-    ``"tc"`` (wgmma fed by TMA) for bf16 at 16/32/64/128, else ``"simt"``
-    (the CUDA cores: fp32 has no exact bf16 product, at 256 the dK/dV
-    accumulators of a warpgroup would not fit its registers, and the
-    other head dims run padded at a compiled one)."""
-    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS \
-        else "simt"
+    ``"tc"`` (wgmma fed by TMA) for bf16 at 16/32/64/128 and at every head
+    dim from 129 to 256 (run at 160 or 256, the columns past it TMA's zero
+    fill), else ``"simt"`` (the CUDA cores: fp32 has no exact bf16
+    product, and the bf16 head dims below 128 that are not 16/32/64 run
+    padded at a compiled one of the simt route)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    wide = TC_HEAD_DIMS[3] < head_dim <= MAX_HEAD_DIM
+    return "tc" if head_dim in TC_HEAD_DIMS or wide else "simt"
 
 
 def _aligned(t):
@@ -63,12 +68,31 @@ def _aligned(t):
         for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
 
 
+def _padded(t):
+    """An uninitialised tensor of ``t``'s shape, dtype and device whose
+    rows start on 16 bytes: contiguous, or a view of the first
+    ``t.shape[-1]`` columns of rows padded to whole 16 bytes (a head dim
+    such as 130 in bf16, whose contiguous rows TMA cannot address)."""
+    *lead, d = t.shape
+    per = 16 // t.element_size()
+    wide = torch.empty(*lead, -(-d // per) * per, dtype=t.dtype,
+                       device=t.device)
+    return wide[..., :d]
+
+
+def _empty_rows(t):
+    """An uninitialised tensor in ``t``'s layout (``torch.empty_like``),
+    or, where TMA could not address that, :func:`_padded`."""
+    out = torch.empty_like(t)
+    return out if _aligned(out) else _padded(t)
+
+
 def _rows(t):
-    """``t`` with a contiguous last axis that TMA can read (a copy only
-    when it is not)."""
+    """``t`` with a contiguous last axis that TMA can read (a copy, into
+    :func:`_padded` rows, only when it is not)."""
     if t.stride(-1) == 1 and _aligned(t):
         return t
-    return t.clone(memory_format=torch.contiguous_format)
+    return _padded(t).copy_(t)
 
 
 def _strides(*tensors):
@@ -129,7 +153,7 @@ def flash_fwd_kernel(q, k, v, causal=True, window=None):
         return ref.flash_attention_ref(q, k, v, causal, window)
     _check("flash_fwd_kernel", q, k, v, window)
     B, H, S, D = q.shape
-    out = torch.empty_like(q)
+    out = _empty_rows(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
@@ -165,8 +189,7 @@ def flash_bwd_kernel(q, k, v, out, lse, do, causal=True, window=None):
             not lse.is_contiguous():
         raise ValueError("flash_bwd_kernel: lse must be a contiguous "
                          f"({B}, {H}, {S}) float32 tensor")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
-        torch.empty_like(v)
+    dq, dk, dv = _empty_rows(q), _empty_rows(k), _empty_rows(v)
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty_like(lse)

@@ -1,7 +1,7 @@
 """Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block]
+        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block,flash]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -79,6 +79,17 @@ reads them, in five alternating rounds with the SM clock around each
 (:func:`block_readings`).  It calls only the public wrapper, so a copy
 of this file in an older checkout's ``repro_torch/launch/`` times that
 checkout's kernel.
+
+The ``flash`` section times ``flash_fwd_kernel`` and
+``flash_bwd_kernel`` alone (card name and power limit first) at
+chip_smoke's flash kernel rows (``FLASH_ROW_SHAPES``, bf16: smollm-360m's
+training shape, llava-next-34b's, stablelm-12b's and gemma3-4b's), three
+rounds each, on whichever route ``ops.route`` picks, then
+splits one forward and backward by kernel under the profiler at their
+training layers' 4096 tokens (``FLASH_TRAIN_SHAPES``).  It calls only the
+public wrappers, so a copy of this file in an older checkout's
+``repro_torch/launch/`` times that checkout's kernels (before the tc
+route reached head dims 160 and 256: the simt route).
 
 With ``--sass``, also the order of global loads (LDG), stores (STG) and
 FMAs in each scan and selective-scan kernel's SASS (``cuobjdump`` from the
@@ -160,13 +171,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--sections",
-                    default="lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block",
+                    default="lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block,"
+                    "flash",
                     help="comma-separated subset of lm, qat, mamba, attn, "
-                    "paged, imc, ssm, scan, mla, block")
+                    "paged, imc, ssm, scan, mla, block, flash")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
     if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc",
-                        "ssm", "scan", "mla", "block"}:
+                        "ssm", "scan", "mla", "block", "flash"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
@@ -203,6 +215,8 @@ def main(argv=None):
     if "block" in sections:
         print(f"block on {_card()}", flush=True)
         block_readings(dev)
+    if "flash" in sections:
+        _flash(dev)
 
 
 def _graph_ms(fn, iters):
@@ -619,6 +633,62 @@ def _ssm(dev):
               f"a batch row, {(dBp.numel() + dCp.numel()) * 4 / 1e6:.1f} "
               "MB) (graph replay)", flush=True)
         del dt, x, Bm, Cm, A, dy, ins, ent, dBp, dCp, dAp
+        torch.cuda.empty_cache()
+
+
+#: (B, H, KV, S, D, window) of the flash section: chip_smoke's flash
+#: kernel rows at head dims 64 (the attn_train path) and 128 (llava-next-34b,
+#: phase vlm), stablelm-12b's training shape (causal) and gemma3-4b's local
+#: layers (window 1024), its d160 and d256 rows; then the layers of
+#: chip_smoke's wide_head_train at its 4096 tokens (gemma3-4b's global
+#: layer too)
+FLASH_ROW_SHAPES = [(4, 15, 5, 2048, 64, None),
+                    (2, 56, 8, 1088, 128, None),
+                    (1, 32, 8, 1024, 160, None),
+                    (1, 8, 4, 2048, 256, 1024)]
+FLASH_TRAIN_SHAPES = [(1, 32, 8, 4096, 160, None),
+                      (1, 8, 4, 4096, 256, 1024),
+                      (1, 8, 4, 4096, 256, None)]
+
+
+def _flash(dev):
+    """flash_fwd and flash_bwd alone in graph replay at FLASH_ROW_SHAPES
+    (causal, bf16), on the route ``ops.route`` picks, three rounds each;
+    then one forward and backward at each of FLASH_TRAIN_SHAPES under the
+    profiler, split by kernel.  Calls only the public wrappers, so a copy
+    of this file in an older checkout's ``repro_torch/launch/`` times that
+    checkout's kernels."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    print(f"flash on {_card()}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    for B, H, KV, S, D, window in FLASH_ROW_SHAPES + FLASH_TRAIN_SHAPES:
+        q = (torch.randn(B, H, S, D, device=dev, generator=g) * 0.5).to(bf)
+        k = (torch.randn(B, KV, S, D, device=dev, generator=g) * 0.5).to(bf)
+        v = torch.randn(B, KV, S, D, device=dev, generator=g).to(bf)
+        do = torch.randn(B, H, S, D, device=dev, generator=g).to(bf)
+        out, lse = fa_ops.flash_fwd_kernel(q, k, v, True, window)
+        tag = (f"flash (B {B}, H {H}, KV {KV}, S {S}, D {D}, causal, window "
+               f"{window}) bf16, {fa_ops.route(bf, D)} route")
+
+        def fwd():
+            fa_ops.flash_fwd_kernel(q, k, v, True, window)
+
+        def bwd():
+            fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, True, window)
+        if (B, H, KV, S, D, window) in FLASH_ROW_SHAPES:
+            times = [(_graph_ms(fwd, 20), _graph_ms(bwd, 10))
+                     for _ in range(3)]
+            print(f"{tag}: fwd {', '.join(f'{f:.5f}' for f, _ in times)} "
+                  f"ms, bwd (dq + dkv) "
+                  f"{', '.join(f'{b:.5f}' for _, b in times)} ms (graph "
+                  "replay)", flush=True)
+        else:
+            bwd()
+            profile_window(lambda: (fwd(), bwd()), 10,
+                           f"{tag}, fwd + bwd", top=3)
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
 
 

@@ -15,8 +15,9 @@ of each other); the IMC projection the reference's 1e-5; the flash-attention for
 fp32 and one bf16 ulp on top of that in bf16; the fused selective scan
 the reference's 2e-5 (forward) and atol 5e-5 / rtol 5e-4 (gradients),
 with atol scaled by the largest magnitude of the plain result; the flash
-kernels at whisper-small's and llava-next-34b's training shapes one bf16
-ulp plus 2e-6 of the plain version, the gradients of its fp64 sums."""
+kernels at whisper-small's and llava-next-34b's training shapes, and on
+the tc route above head dim 128, one bf16 ulp plus 2e-6 of the plain
+version, the gradients of its fp64 sums."""
 import numpy as np
 import pytest
 import torch
@@ -872,6 +873,85 @@ def test_flash_kernels_at_whisper_and_llava_shapes(cuda, case):
     _flash_check(lse, want_lse, torch.float32, 2e-5, 2e-5)
     for g, w in zip(got, wgrads):
         assert g.dtype == bf and _bf16_close(g, w)
+
+
+# bf16 above head dim 128, the tc route run at 160 or 256: stablelm-12b's
+# training shape (causal, 32/8 heads of 160) and gemma3-4b's local layers
+# (8/4 heads of 256, window 1024), then 144 and 200, which run at 160 and
+# 256 with the columns past them zero-filled (ragged S, GQA group 4, a
+# window)
+FLASH_WIDE_CASES = [
+    (1, 32, 8, 1024, 160, True, None),
+    (1, 8, 4, 2048, 256, True, 1024),
+    (1, 4, 2, 300, 144, True, None),
+    (2, 4, 1, 200, 200, True, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_WIDE_CASES, ids=str)
+def test_flash_tc_wide_head_dims_match_plain(cuda, case):
+    """flash_fwd and flash_bwd on the tc route above head dim 128: out
+    within one bf16 ulp + 2e-6 of the plain version, lse 2e-5 + 2e-5
+    |lse|, dq/dk/dv within one bf16 ulp + 2e-6 of the plain version's sums
+    in fp64, each kernel launched once on the tc route; the same inputs in
+    fp32 stay on the simt route."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, H, KV, S, D, causal, window = case
+    bf = torch.bfloat16
+    assert fa_ops.route(bf, D) == "tc"
+    assert fa_ops.route(torch.float32, D) == "simt"
+    q, k, v, do = _flash_inputs(cuda, B, H, KV, S, D, bf, seed=D)
+    tc0 = _tc_counts()
+    out, lse = fa_ops.flash_fwd_kernel(q, k, v, causal, window)
+    got = fa_ops.flash_bwd_kernel(q, k, v, out, lse, do, causal, window)
+    assert _tc_counts() == tuple(x + 1 for x in tc0)
+    want, want_lse = fa_ref.flash_attention_ref(q, k, v, causal, window)
+    wgrads = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                            window, acc=torch.float64)
+    torch.cuda.synchronize()
+    assert _bf16_close(out, want)
+    _flash_check(lse, want_lse, torch.float32, 2e-5, 2e-5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, wgrads):
+        assert g.dtype == bf and _bf16_close(g, w), name
+    f32 = [t.float() for t in (q, k, v, do)]
+    n = (fa_ops.flash_fwd_kernel.launches, _tc_counts())
+    out32, lse32 = fa_ops.flash_fwd_kernel(*f32[:3], causal, window)
+    fa_ops.flash_bwd_kernel(*f32[:3], out32, lse32, f32[3], causal, window)
+    assert (fa_ops.flash_fwd_kernel.launches, _tc_counts()) == (n[0] + 1,
+                                                                n[1])
+
+
+@pytest.mark.cuda
+def test_flash_op_pads_rows_of_an_odd_wide_head_dim(cuda):
+    """A bf16 head dim of 130 takes the tc route (run at 160), but its
+    contiguous rows (260 bytes) are not whole 16 bytes, which TMA needs:
+    the low-level wrapper refuses them, and the op copies q, k, v and the
+    cotangent into rows padded to 272 bytes, allocates its outputs so,
+    and matches the plain version (out one bf16 ulp + 2e-6, gradients the
+    bwd test's bound)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    bf = torch.bfloat16
+    q, k, v, do = _flash_inputs(cuda, 1, 4, 2, 150, 130, bf, seed=130)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_fwd_kernel(q, k, v)
+    tc0 = _tc_counts()
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fa_ops.flash_attention(qs, ks, vs, True, 40)
+    out.backward(do)
+    assert _tc_counts() == tuple(x + 1 for x in tc0)
+    assert out.stride(-2) == 136
+    want, want_lse = fa_ref.flash_attention_ref(q, k, v, True, 40)
+    _flash_check(out.detach(), want, bf, 2e-6, 0.0)
+    # the plain backward from the op's own out (delta = rowsum(out * do))
+    wgrads = fa_ref.flash_attention_bwd_ref(q, k, v, out.detach(), want_lse,
+                                            do, True, 40)
+    for g, w in zip((qs.grad, ks.grad, vs.grad), wgrads):
+        _flash_check(g, w, bf, 5e-5, 5e-4)
 
 
 @pytest.mark.cuda

@@ -206,13 +206,13 @@ def test_wrappers_refuse_mixed_devices():
             fn(*[a.to("meta") for a in args])
 
 
-# -- the tensor-core route (bf16 at head dims 16-128) ----------------------
+# -- the tensor-core route (bf16 at head dims 16-128 and 129-256) ---------
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128, 256, 80, 160])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_route_picks_tc_for_bf16_up_to_head_dim_128(dtype, D):
-    want = "tc" if dtype == torch.bfloat16 and D in (16, 32, 64, 128) \
-        else "simt"
+def test_route_picks_tc_for_bf16_at_tc_head_dims(dtype, D):
+    want = "tc" if dtype == torch.bfloat16 and D in (16, 32, 64, 128, 160,
+                                                     256) else "simt"
     assert ops.route(dtype, D) == want
 
 
@@ -230,31 +230,42 @@ def _mm(a, b, split):
     return sum(x.float() @ b.float() for x in parts)
 
 
-def _tc_fwd(q, k, v, causal, window, split=True):
+def _zero_cols(x, pad):
+    """``x`` with ``pad`` zero columns appended to its last axis (the
+    columns TMA fills past the true head dim)."""
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
+def _tc_fwd(q, k, v, causal, window, split=True, pad=0):
     """Plain PyTorch emulation of the tc forward's numerics (bf16 q, k,
     v): q.k^T exact products summed in fp32, P rounded to a bf16 operand
-    of p.V (split into hi + lo as the kernel does, or once)."""
+    of p.V (split into hi + lo as the kernel does, or once).  ``pad``: V
+    carries that many zero columns into p.V, whose columns past the true
+    head dim are dropped (the scale stays the true head dim's)."""
     G = q.shape[1] // k.shape[1]
+    D = q.shape[-1]
     s = ref._scores(q, k, causal, window)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp(min=1e-30)
-    out = _mm(p, ref._expand(v, G), split) / l
+    out = _mm(p, _zero_cols(ref._expand(v, G), pad), split)[..., :D] / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _tc_bwd(q, k, v, out, lse, do, causal, window, split=True):
+def _tc_bwd(q, k, v, out, lse, do, causal, window, split=True, pad=0):
     """The same for the tc backward given the forward's out and lse: dS
-    and P rounded to bf16 operands of ds.K, ds^T.q and p^T.do."""
+    and P rounded to bf16 operands of ds.K, ds^T.q and p^T.do (with
+    ``pad`` zero columns on K, q and do, dropped from the products)."""
     KV = k.shape[1]
     G = q.shape[1] // KV
+    D = q.shape[-1]
     p = torch.exp(ref._scores(q, k, causal, window) - lse[..., None])
     delta = (out.float() * do.float()).sum(-1, keepdim=True)
     dp = do.float() @ ref._expand(v, G).float().transpose(-1, -2)
-    ds = p * (dp - delta) * ref._scale(q.shape[-1], q.device)
-    dq = _mm(ds, ref._expand(k, G), split)
-    dk = _mm(ds.transpose(-1, -2), q, split)
-    dv = _mm(p.transpose(-1, -2), do, split)
+    ds = p * (dp - delta) * ref._scale(D, q.device)
+    dq = _mm(ds, _zero_cols(ref._expand(k, G), pad), split)[..., :D]
+    dk = _mm(ds.transpose(-1, -2), _zero_cols(q, pad), split)[..., :D]
+    dv = _mm(p.transpose(-1, -2), _zero_cols(do, pad), split)[..., :D]
     return (dq.to(q.dtype), ref._group_sum(dk, KV).to(k.dtype),
             ref._group_sum(dv, KV).to(v.dtype))
 
@@ -268,18 +279,13 @@ def _past_bf16_ulp(got, want):
                 + 2e-6).sum())
 
 
-@pytest.mark.parametrize("causal,window", [(True, None), (True, 40)])
-def test_tc_split_numerics_match_reference_flash_kernels(causal, window):
-    """The tc route's numerics (emulated: bf16 x bf16 products in fp32, P
-    and dS split into bf16 hi + lo) against the reference's Pallas
-    flash_fwd and flash_bwd in interpret mode, whose products are fp32:
-    out, dq, dk and dv within one bf16 ulp + 2e-6, lse within 2e-5 +
-    2e-5 |lse|.  Rounding P and dS once to bf16 instead (FA2/FA3's
-    operands) moves entries of every output past that bound."""
+def _check_tc_numerics(B, H, KV, S, D, causal, window, pad=0, seed=17):
+    """The tc route's emulated outputs at one shape against the
+    reference's Pallas kernels in interpret mode
+    (test_tc_split_numerics_match_reference_flash_kernels)."""
     from repro.kernels.flash_attention.flash_attention import flash_bwd
-    B, H, KV, S, D = 1, 4, 2, 256, 64
-    q, k, v = _inputs(B, H, KV, S, D, seed=17)
-    do = np.random.default_rng(18).standard_normal(q.shape).astype(
+    q, k, v = _inputs(B, H, KV, S, D, seed=seed)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(
         np.float32)
     tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
                        for x in (q, k, v, do))
@@ -300,8 +306,8 @@ def test_tc_split_numerics_match_reference_flash_kernels(causal, window):
     # the backward from the reference's out and lse, as the card holds
     # the kernels against the plain version given the same out and lse
     for split in (True, False):
-        got = _tc_fwd(tq, tk, tv, causal, window, split) + _tc_bwd(
-            tq, tk, tv, tout, tlse, tdo, causal, window, split)
+        got = _tc_fwd(tq, tk, tv, causal, window, split, pad) + _tc_bwd(
+            tq, tk, tv, tout, tlse, tdo, causal, window, split, pad)
         for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
             if name == "lse":
                 np.testing.assert_allclose(_np(g), _np(w), atol=2e-5,
@@ -310,6 +316,27 @@ def test_tc_split_numerics_match_reference_flash_kernels(causal, window):
                 assert _past_bf16_ulp(g, w) == 0, name
             else:
                 assert _past_bf16_ulp(g, w) > 0, name
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40)])
+def test_tc_split_numerics_match_reference_flash_kernels(causal, window):
+    """The tc route's numerics (emulated: bf16 x bf16 products in fp32, P
+    and dS split into bf16 hi + lo) against the reference's Pallas
+    flash_fwd and flash_bwd in interpret mode, whose products are fp32:
+    out, dq, dk and dv within one bf16 ulp + 2e-6, lse within 2e-5 +
+    2e-5 |lse|.  Rounding P and dS once to bf16 instead (FA2/FA3's
+    operands) moves entries of every output past that bound."""
+    _check_tc_numerics(1, 4, 2, 256, 64, causal, window)
+
+
+@pytest.mark.parametrize("D,pad", [(160, 32), (256, 0)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40)])
+def test_tc_split_numerics_at_wide_head_dims(D, pad, causal, window):
+    """The same above head dim 128, where the tc kernels run D 160 as
+    three 64-column panels (32 columns of TMA's zero fill carried through
+    p.V and the gradient products, then dropped) and D 256 as four: the
+    bounds of the D 64 test against the reference's Pallas kernels."""
+    _check_tc_numerics(1, 2, 1, 256, D, causal, window, pad, seed=D)
 
 
 def test_rows_copies_misaligned_views_and_keeps_aligned_ones():
