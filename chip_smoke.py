@@ -162,7 +162,8 @@ Phases, each fatal on failure:
                fp32 weights, output projections x32) through build_engine:
                8 greedy requests (prompts 64-512, 32 new tokens), 4 slots,
                page 16: (a) bf16 pages through paged_gqa at head dim 160
-               (its scalar route), (b) the gather read, (a) against (b)
+               (20 16-byte chunks a row, the 4 query rows of a kv head in
+               one tile), (b) the gather read, (a) against (b)
                under the margin rule, (c) int8 pages through paged_gqa_q8;
                one bf16 decode step eager against graph replay (idle
                share) and its device time split between attention, the
@@ -644,11 +645,31 @@ PAGED_ROWS = [
 ]
 
 
+def _layout_tag(pa_ops, hd, itemsize, group, aligned=True):
+    """The layout the built ``paged_gqa.cuh`` chooses
+    (``ops.gqa_device_layout``), in words; fails unless the wrapper's
+    mirror of the rule (``ops.gqa_layout``) gives the same."""
+    lay = pa_ops.gqa_device_layout(hd, itemsize, group, aligned)
+    mirror = pa_ops.gqa_layout(hd, itemsize, group, aligned)
+    if lay != mirror:
+        fail(f"paged_gqa layout at hd {hd}, {itemsize}-byte pools, group "
+             f"{group}, aligned {aligned}: the library chooses {lay}, "
+             f"ops.gqa_layout says {mirror}")
+    if lay["route"] == "scalar":
+        return "scalar route (one element a lane, one query row a tile)"
+    return (f"vector route ({hd * itemsize // 16} 16-byte chunks over "
+            f"{lay['lanes']} lanes, {lay['chunks']} a lane; "
+            f"{lay['tile']} query rows a tile)")
+
+
 def _paged_row(torch, dev, g, q8, label, B, H, KV, hd, length, window,
-               pos):
+               pos, scalar=False):
     """paged_gqa (or paged_gqa_q8) at one shape against the plain version;
     kernel (graph replay and eager), plain and SDPA times and the byte
-    bound.  Returns the row's numbers."""
+    bound; with ``scalar``, also the kernel on the same pools one element
+    past a 16-byte boundary (the one-element layout, checked against the
+    plain version too) timed in the same call.  Returns the row's
+    numbers."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
 
@@ -668,9 +689,10 @@ def _paged_row(torch, dev, g, q8, label, B, H, KV, hd, length, window,
     # bound 2e-6 where cancellation leaves it near zero: both round fp32
     # results within 2e-6 of each other to bf16
     n_bad, err = _past_bf16_ulp(torch, got, want)
+    itemsize = pk.element_size()
     tag = (f"{name} {label} (B {B}, H {H}, KV {KV}, hd {hd}, page {ps}, "
            f"length {length}, window {window}) bf16 q, "
-           f"{pa_ops.gqa_route(hd, 1 if q8 else 2)} route")
+           f"{_layout_tag(pa_ops, hd, itemsize, H // KV)}")
     if n_bad:
         fail(f"{tag}: |kernel - plain| exceeds one bf16 ulp + 2e-6 "
              f"(max {err})")
@@ -715,15 +737,37 @@ def _paged_row(torch, dev, g, q8, label, B, H, KV, hd, length, window,
           f"{plain_ms:.4f} ms, library (SDPA on the dense view) "
           f"{library_ms:.5f} ms, bound {b_ms:.5f} ms ({by}, "
           f"{bytes_ / 1e6:.1f} MB; {b_ms / ms:.1%} of it)", flush=True)
-    return dict(max_abs_err=err, ms=ms, eager_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+    scalar_ms = None
+    if scalar:
+        mk, mv = pa_ops.misaligned(pk), pa_ops.misaligned(pv)
+        n_bad, s_err = _past_bf16_ulp(
+            torch, kern(q, mk, mv, *sc, bt, pos_t, **kw), want)
+        if n_bad:
+            fail(f"{name} {label} on misaligned pools (scalar route): "
+                 f"|kernel - plain| exceeds one bf16 ulp + 2e-6 (max "
+                 f"{s_err})")
+        scalar_ms = device_ms(
+            torch, lambda: kern(q, mk, mv, *sc, bt, pos_t, **kw), 200)
+        ms2 = device_ms(torch, kernel, 200)
+        print(f"kernel {name} {label}: "
+              f"{_layout_tag(pa_ops, hd, itemsize, H // KV, False)} on "
+              f"pools one element past 16 bytes: max_abs_err "
+              f"{s_err:.3g}, {scalar_ms:.5f} ms = "
+              f"{scalar_ms / max(ms, ms2):.2f}x the aligned pools' "
+              f"{ms:.5f} / {ms2:.5f} ms (before / after it)", flush=True)
+        del mk, mv
+    row = dict(max_abs_err=err, ms=ms, eager_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=by, library_ms=library_ms)
+    if scalar_ms is not None:
+        row["scalar_ms"] = scalar_ms
+    return row
 
 
 def _prefixed(label, row):
     """A shape's row numbers as extra keys of a kernel's JSON row."""
     return {f"{label}_{k}": row[k] for k in (
         "ms", "eager_ms", "plain_ms", "bound_ms", "library_ms",
-        "max_abs_err")}
+        "max_abs_err", "scalar_ms") if k in row}
 
 
 def _kernel_rows_paged(torch, dev, g):
@@ -899,10 +943,11 @@ def _kernel_rows_flash(torch, dev, g):
 
 # the paged and flash calls of the archs the port added last, at the
 # shapes their phases give them: (label, B, H, KV, hd, length, window, pos)
-# of stablelm-12b's decode in phase stablelm_serve (32/8 heads of 160, the
-# scalar route; 4 slots, cache 544 = 512 + 32, page 16) and of
-# mistral-large-123b's heads (96/8 of 128, group 12, the same cache; no
-# phase serves it yet); (label, B, H, KV, S, D, window) of the decoder's
+# of stablelm-12b's decode in phase stablelm_serve (32/8 heads of 160: 20
+# bf16 or 10 int8 16-byte chunks a row, timed also on misaligned pools,
+# the one-element layout; 4 slots, cache 544 = 512 + 32, page 16)
+# and of mistral-large-123b's heads (96/8 of 128, group 12, the same
+# cache; phase mistral_serve); (label, B, H, KV, S, D, window) of the decoder's
 # causal self-attention in phase whisper (batch 4, 12/12 heads of 64, 448
 # tokens), of phase vlm (llava-next-34b: batch 2, 56/8 heads of 128 over
 # 576 patches + 512 tokens) and of phase wide_head_train (batch 1 x
@@ -929,7 +974,8 @@ def _kernel_rows_model_shapes(torch, dev, rows):
         name = "paged_gqa_q8" if q8 else "paged_gqa"
         for label, *shape in PAGED_MODEL_ROWS:
             rows[name].update(_prefixed(label, _paged_row(
-                torch, dev, g, q8, label, *shape)))
+                torch, dev, g, q8, label, *shape,
+                scalar=label == "stablelm")))
     for label, B, H, KV, S, D, window in FLASH_MODEL_ROWS:
         fwd, bwd = _flash_row(torch, dev, g, B, H, KV, S, D, window)
         rows["flash_fwd"].update(_prefixed(label, fwd))
@@ -3244,14 +3290,20 @@ def _reconfigure(model, **kw):
     return model
 
 
-def _device_split(torch, fn, iters, ranges):
+def _device_split(torch, fn, iters, ranges, by_name=None):
     """Run ``fn`` ``iters`` times under the profiler with each method in
     ``ranges`` ({tag: (class, method name)}) wrapped in a
     ``record_function(tag)`` range; each kernel's device time goes to the
-    innermost tagged range of the op that launched it.  Returns ({tag or
-    "other": device ms an iteration}, profiled wall ms an iteration)."""
+    innermost tagged range of the op that launched it.  Device time the
+    profiler links to no op (the port's own kernels, launched through
+    ctypes) goes to the tag of the first ``by_name`` entry ({substring of
+    the kernel's name: tag}) the kernel's name holds; the rest of it is
+    left out, since it also holds the ranges' own spans on the device's
+    timeline.  Returns ({tag or "other": device ms an iteration}, profiled wall ms an
+    iteration)."""
     import collections
 
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     saved = {}
@@ -3276,7 +3328,10 @@ def _device_split(torch, fn, iters, ranges):
         for cls, name, orig in saved.values():
             setattr(cls, name, orig)
     split = collections.Counter()
+    linked, device = collections.Counter(), collections.Counter()
     for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device[e.name] += e.time_range.elapsed_us()
         kernels = getattr(e, "kernels", None) or []
         if not kernels:
             continue
@@ -3287,6 +3342,13 @@ def _device_split(torch, fn, iters, ranges):
                 break
             node = node.cpu_parent
         split[tag] += sum(k.duration for k in kernels) / 1e3 / iters
+        for k in kernels:
+            linked[k.name] += k.duration
+    for name, us in device.items():
+        tag = next((t for sub, t in (by_name or {}).items() if sub in name),
+                   None)
+        if tag is not None and us > linked[name]:
+            split[tag] += (us - linked[name]) / 1e3 / iters
     return dict(split), wall
 
 
@@ -3566,7 +3628,8 @@ def phase_moe_serve(torch, dev):
               flush=True)
         split, wall = _device_split(torch, step, 5, {
             "moe": (MoEMLP, "forward"),
-            "attention": (GQAAttention, "decode_paged")})
+            "attention": (GQAAttention, "decode_paged")},
+            {"paged_gqa::": "attention"})
     busy = sum(split.values())
     if busy <= 0:
         print("moe_serve: decode step device split: not measured (the "
@@ -4057,8 +4120,9 @@ def phase_wide_head_train(torch, dev):
 
 def phase_stablelm_serve(torch, dev):
     """Full-width stablelm-12b, all 40 layers, served from bf16 pages
-    through paged_gqa at head dim 160 (its scalar route), against the
-    gather read, then from int8 pages through paged_gqa_q8."""
+    through paged_gqa at head dim 160 (20 16-byte chunks a row, the 4
+    query rows of a kv head in one tile), against the gather read, then
+    from int8 pages through paged_gqa_q8."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -4070,6 +4134,7 @@ def phase_stablelm_serve(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("stablelm-12b")
+    group = cfg.n_heads // cfg.n_kv_heads
     t0 = time.perf_counter()
     model = _sharpen(torch, build_model(
         cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
@@ -4078,9 +4143,9 @@ def phase_stablelm_serve(torch, dev):
     print(f"stablelm_serve: {cfg.name} at full width, all {cfg.n_layers} "
           f"layers, {n_params / 1e9:.2f} B fp32 params = "
           f"{n_params * 4 / 1e9:.1f} GB, d {cfg.d_model}, heads "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim} (paged_gqa "
-          f"route: {pa_ops.gqa_route(cfg.head_dim, 2)} for bf16 pages, "
-          f"{pa_ops.gqa_route(cfg.head_dim, 1)} for int8), vocab "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim} (paged_gqa: "
+          f"{_layout_tag(pa_ops, cfg.head_dim, 2, group)} for bf16 pages, "
+          f"{_layout_tag(pa_ops, cfg.head_dim, 1, group)} for int8), vocab "
           f"{cfg.vocab}; output projections x32; built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(5)
@@ -4172,7 +4237,7 @@ def phase_stablelm_serve(torch, dev):
         step_dev = device_ms(torch, step, 5)
         split, wall = _device_split(torch, step, 3, {
             "attention": (GQAAttention, "decode_paged"),
-            "mlp": (DenseMLP, "forward")})
+            "mlp": (DenseMLP, "forward")}, {"paged_gqa::": "attention"})
     busy = sum(split.values())
     print(f"stablelm_serve: decode_step_paged (4 slots, pos {max_len - 1}, "
           f"bf16 pages): eager {step_eager:.2f} ms, device {step_dev:.2f} ms "

@@ -52,10 +52,12 @@ SIGNATURES = {
     "paged_gqa": {
         "paged_gqa_f32": [_P] * 6 + [_I] * 9 + [_P],
         "paged_gqa_bf16": [_P] * 6 + [_I] * 9 + [_P],
+        "paged_gqa_layout": [_I] * 4 + [_P],
     },
     "paged_gqa_q8": {
         "paged_gqa_q8_f32": [_P] * 8 + [_I] * 9 + [_P],
         "paged_gqa_q8_bf16": [_P] * 8 + [_I] * 9 + [_P],
+        "paged_gqa_q8_layout": [_I] * 3 + [_P],
     },
     "flash_fwd": {
         "flash_fwd_f32": [_P] * 5 + [_L] + [_I] * 7 + [_P],

@@ -33,3 +33,15 @@ extern "C" int paged_gqa_bf16(const void* q, const void* pool_k,
       q, pool_k, pool_v, nullptr, nullptr, bt, pos, out, B, H, KV, hd, ps,
       bt_cols, length, window, n_split, stream);
 }
+
+// The layout launch() takes on pools of itemsize-byte elements (4 fp32,
+// 2 bf16) at (hd, G, pools aligned or not): paged_gqa::layout_info.
+extern "C" int paged_gqa_layout(int hd, int itemsize, int G, int aligned,
+                                void* out) {
+  int* o = static_cast<int*>(out);
+  if (itemsize == 4) return paged_gqa::layout_info<float>(hd, G, aligned, o);
+  if (itemsize == 2) {
+    return paged_gqa::layout_info<__nv_bfloat16>(hd, G, aligned, o);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -51,35 +51,52 @@
 //     after the wait makes the copies visible to the warp.  The first
 //     costs 2-6 % on the H100; lanes that read only their own copies, or
 //     one barrier with the copy issued after it, were no faster (PERF.md).
-//     Rows that are not a power-of-two count (at most 32) of 16-byte
-//     chunks, or unaligned pools, take one element a lane instead.
-//  4. Few threads on the scores: a row's chunks lie across `lpr` lanes
-//     (8 for bf16 at hd 64), 32 / lpr rows a pass of the warp.  A lane
-//     takes 4 of its rows a step (2 for int8): their loads, dots and
-//     shuffle reductions over the row's lanes are independent and overlap,
-//     and a row past the page reads the page's last row and weighs nothing
-//     (score -inf), so a step has no branch.
+//     Every row that is a whole count of 16-byte chunks takes them, the
+//     int8 scales 4-byte cp.async copies beside them; only a head dim that
+//     is not (hd % 8 for bf16) or a pool base that is not 16-byte aligned
+//     takes one element a lane, copied synchronously.
+//  4. Few threads on the scores: a row's nc chunks lie across `lpr` lanes,
+//     32 / lpr rows a pass of the warp.  Where nc is a power of two up to
+//     32, lpr = nc and a lane holds one chunk (8 lanes for bf16 at hd 64);
+//     otherwise lpr is the fewest lanes that hold at most 8 fp32 values
+//     of a row each (or one chunk, int8) and a lane holds ceil(nc / lpr)
+//     chunks, those past the row masked: bf16 at hd 160 is 20 chunks over
+//     32 lanes, one row a pass; int8 at hd 160 is 10 chunks over 16
+//     lanes.  A lane takes 4 of its rows a step (2 for int8): their loads,
+//     dots and shuffle reductions over the row's lanes are independent and
+//     overlap, and a row past the page reads the page's last row and
+//     weighs nothing (score -inf), so a step has no branch.
 //  5. A serial softmax: each step's max is a shuffle reduction over the
 //     warp, the weights exp2f of scores prescaled by log2(e) / sqrt(hd),
 //     and the mask is computed only on pages that can hold a masked entry
 //     (the last live page; every page when a ring is longer than its
 //     window).
-// Each lane keeps kG query rows (the tile) of its columns in registers;
-// where G rows do not fit (int8: 3, 16-byte rows otherwise: 4, one-element
-// rows: 1) the query rows are tiled across clusters, each reading the
-// pages again.  launch() chooses that layout (tile rows, 16-byte chunks,
-// ring stages) from the shape and the pools' alignment.  int8 codes become
-// fp32 in two full-rate operations each and are multiplied by their page's
-// scale in registers before the dots, so the dots see exactly codes *
-// scale, as the plain version's dequantized pools hold.  Scores, softmax
-// and sums are fp32, as in the TPU kernel; the summation order differs
-// from the plain version's (one global max), so the two agree to ~1e-7,
-// not bit for bit.
+// Each lane keeps kG query rows (the tile) of its columns in registers (q
+// and acc: 2 * kG * 8 fp32 values, 2 * kG * 16 on int8 pages); all G rows
+// of a kv head are one tile up to 4 (int8: 3; one-element rows: 1), so a
+// page is read once for each (request, kv head) where G fits
+// (stablelm-12b's G 4 on bf16 pages); a larger G is cut into equal tiles
+// across clusters, each reading the pages again (mistral-large-123b's 12:
+// three; stablelm's int8 pages: two of 2).  choose_layout() picks that
+// layout (chunks, lanes a row, tile rows) from the shape and the pools'
+// alignment, launch() the ring stages.  int8 codes become fp32 in two
+// full-rate operations each and are multiplied by their page's scale in
+// registers before the dots, so the dots see exactly codes * scale, as
+// the plain version's dequantized pools hold.  Scores, softmax and sums
+// are fp32, as in the TPU kernel; the summation order differs from the
+// plain version's (one global max), so the two agree to ~1e-7, not bit
+// for bit.
 //
 // What bounds it now, on the H100 (PERF.md): at decode shapes the chain
-// of dependent loads (pos and page ids, then a page) and the cluster's
-// merge; on long chains the per-page arithmetic of a warp, not the bytes,
-// for int8 pages (half the bytes of bf16 for the same work a page).
+// of dependent steps of each CTA, not the bytes.  At stablelm-12b's
+// 4-slot decode (a page or two a warp) a CTA lives about 17 us: 3.4 to
+// its first page (pos and page ids, then the page), 6.2 on its pages and
+// 7.5 in the cluster's merge, which waits for the cluster's last CTA; all
+// 256 CTAs are resident at once.  On long chains the per-page arithmetic
+// of a warp, not the bytes, for int8 pages (half the bytes of bf16 for the
+// same work a page).  Lanes that hold 16 values of a bf16 row (20 chunks
+// over 16 lanes) need 205-210 registers, which leave two CTAs an SM and a
+// second wave: 1.5-1.6x slower than 8 values over 32 lanes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -221,13 +238,14 @@ __device__ __forceinline__ void unpack16<int8_t>(const uint4& u, float* o) {
   }
 }
 
-// The unit of a row one lane copies and reads: a 16-byte vector of TKV
-// (kVec; a row holds a power-of-two count of them, at most 32, one a lane)
-// or one element (up to kMaxHd / 32 a lane, one row a pass of the warp).
-template <typename TKV, bool kVec> struct Chunk;
-template <typename TKV> struct Chunk<TKV, true> {
+// The unit of a row one lane copies and reads.  kCL > 0: 16-byte vectors
+// of TKV, kCL of them a lane (chunks lc, lc + lpr, ...; those past the
+// row's nc are masked); kCL == 0: one element at a time, up to kMaxHd / 32
+// a lane and one row a pass of the warp, where 16-byte copies cannot
+// address the pools.
+template <typename TKV, int kCL> struct Chunk {
   static constexpr int n = Vec<TKV>::n;
-  static constexpr int per_lane = 1;
+  static constexpr int per_lane = kCL;
   __device__ static void stage(TKV* dst, const TKV* src) {
     cp_async16(dst, src);
   }
@@ -235,7 +253,7 @@ template <typename TKV> struct Chunk<TKV, true> {
     unpack16<TKV>(*reinterpret_cast<const uint4*>(s), o);
   }
 };
-template <typename TKV> struct Chunk<TKV, false> {
+template <typename TKV> struct Chunk<TKV, 0> {
   static constexpr int n = 1;
   static constexpr int per_lane = kMaxHd / 32;
   __device__ static void stage(TKV* dst, const TKV* src) { *dst = *src; }
@@ -296,11 +314,11 @@ __device__ __forceinline__ int64_t page_id(const int (&idr)[kIdRegs],
 // Start the copies of page `id`'s K and V rows of kv head `kv` into a ring
 // slot, each lane the chunks it reads later; lane 0 also copies the page's
 // two scales (int8 pools).
-template <typename TKV, bool kScaled, bool kVec>
+template <typename TKV, bool kScaled, int kCL, bool kMask>
 __device__ __forceinline__ void stage_page(unsigned char* slot,
                                            const Params& p, const Lane& L,
                                            int64_t id, int kv, int sc_off) {
-  using C = Chunk<TKV, kVec>;
+  using C = Chunk<TKV, kCL>;
   const TKV* PK = static_cast<const TKV*>(p.pool_k);
   const TKV* PV = static_cast<const TKV*>(p.pool_v);
   TKV* sk = reinterpret_cast<TKV*>(slot);
@@ -312,7 +330,7 @@ __device__ __forceinline__ void stage_page(unsigned char* slot,
 #pragma unroll
     for (int j = 0; j < C::per_lane; ++j) {
       const int c = L.lc + L.lpr * j;
-      if (kVec || c < L.nc) {
+      if ((kCL > 0 && !kMask) || c < L.nc) {
         C::stage(sk + rr * p.hd + c * C::n, PK + row + c * C::n);
         C::stage(sv + rr * p.hd + c * C::n, PV + row + c * C::n);
       }
@@ -321,7 +339,7 @@ __device__ __forceinline__ void stage_page(unsigned char* slot,
   if (kScaled && L.lane == 0) {
     float* ss = reinterpret_cast<float*>(slot + sc_off);
     const int64_t si = id * p.KV + kv;
-    if (kVec) {
+    if (kCL > 0) {
       cp_async4(ss, p.k_scale + si);
       cp_async4(ss + 1, p.v_scale + si);
     } else {
@@ -331,11 +349,31 @@ __device__ __forceinline__ void stage_page(unsigned char* slot,
   }
 }
 
+// Chunk j of a lane in the dots: false where the lane reads none; c
+// becomes the chunk it reads.  One element a lane skips what passes the
+// row.  A masked 16-byte layout (kMask: nc not a power of two) skips a
+// chunk that no lane of the warp holds and otherwise reads the row's last
+// chunk in place of one past the row, so the dots do not branch: q is zero
+// there, and acc there is never stored.
+template <int kCL, bool kMask>
+__device__ __forceinline__ bool dot_chunk(const Lane& L, int j, int& c) {
+  c = L.lc + L.lpr * j;
+  if (kCL == 0) return c < L.nc;
+  if (!kMask) return true;
+  c = min(c, L.nc - 1);
+  return L.lpr * j < L.nc;
+}
+
 // kScaled: multiply each page's rows by ks/vs[page * KV + kv] (int8 pools).
-// kG: query rows of a tile (the last tile may hold fewer).
-template <typename TQ, typename TKV, bool kScaled, bool kVec, int kG>
-__global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
-  using C = Chunk<TKV, kVec>;
+// kCL, kMask: the layout (Chunk, dot_chunk).  kG: query rows of a tile (the
+// last tile may hold fewer).  Bounded for one CTA an SM, the build whose
+// registers and times PERF.md records (the bare bound gives the
+// one-element layout 80 / 72 registers in place of 116 / 96).
+template <typename TQ, typename TKV, bool kScaled, int kCL, bool kMask,
+          int kG>
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_kernel(const Params p) {
+  using C = Chunk<TKV, kCL>;
   constexpr int kN = C::n;
   constexpr int kE = C::n * C::per_lane;  // elements of a row a lane holds
   // rows a lane scores and weighs per step: their loads, dots and
@@ -414,9 +452,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
     int wr = 0;  // ring slot the next copy goes to
     for (int k = 0; k < p.stages - 1; ++k) {
       if (k < n_mine) {
-        stage_page<TKV, kScaled, kVec>(ring + wr * p.slot_bytes, p, L,
-                                       page_id(idr, first + k * kWarps, btr),
-                                       kv, sc_off);
+        stage_page<TKV, kScaled, kCL, kMask>(
+            ring + wr * p.slot_bytes, p, L,
+            page_id(idr, first + k * kWarps, btr), kv, sc_off);
       }
       cp_async_commit();
       wr = wr + 1 == p.stages ? 0 : wr + 1;
@@ -428,9 +466,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
       __syncwarp();
       const int kn = k + p.stages - 1;
       if (kn < n_mine) {
-        stage_page<TKV, kScaled, kVec>(ring + wr * p.slot_bytes, p, L,
-                                       page_id(idr, first + kn * kWarps, btr),
-                                       kv, sc_off);
+        stage_page<TKV, kScaled, kCL, kMask>(
+            ring + wr * p.slot_bytes, p, L,
+            page_id(idr, first + kn * kWarps, btr), kv, sc_off);
       }
       cp_async_commit();
       wr = wr + 1 == p.stages ? 0 : wr + 1;
@@ -467,8 +505,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
           for (int g = 0; g < kG; ++g) s[u][g] = 0.0f;
 #pragma unroll
           for (int j = 0; j < C::per_lane; ++j) {
-            const int c = L.lc + L.lpr * j;
-            if (kVec || c < L.nc) {
+            int c;
+            if (dot_chunk<kCL, kMask>(L, j, c)) {
               float kx[kN];
               C::load(sk + row[u] * hd + c * kN, kx);
 #pragma unroll
@@ -527,8 +565,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
           }
 #pragma unroll
           for (int j = 0; j < C::per_lane; ++j) {
-            const int c = L.lc + L.lpr * j;
-            if (kVec || c < L.nc) {
+            int c;
+            if (dot_chunk<kCL, kMask>(L, j, c)) {
               float vx[kN];
               C::load(sv + row[u] * hd + c * kN, vx);
 #pragma unroll
@@ -645,9 +683,10 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Params p) {
   }
 }
 
-template <typename TQ, typename TKV, bool kScaled, bool kVec, int kG>
+template <typename TQ, typename TKV, bool kScaled, int kCL, bool kMask,
+          int kG>
 cudaError_t launch_tile(const Params& p, int B, cudaStream_t stream) {
-  auto kernel = decode_kernel<TQ, TKV, kScaled, kVec, kG>;
+  auto kernel = decode_kernel<TQ, TKV, kScaled, kCL, kMask, kG>;
   const size_t smem = smem_bytes(p.ps, p.hd, sizeof(TKV), kG, p.n_split,
                                  p.stages);
   if (smem > 48 * 1024) {
@@ -672,31 +711,108 @@ cudaError_t launch_tile(const Params& p, int B, cudaStream_t stream) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// decode_kernel at the tile rows gt (at most kMaxTile) of layout (kCL,
+// kMask).
+template <typename TQ, typename TKV, bool kScaled, int kCL, bool kMask,
+          int kMaxTile>
+cudaError_t launch_rows(const Params& p, int gt, int B, cudaStream_t s) {
+  constexpr int kTop = kMaxTile > 3 ? 4 : 3;
+  if (gt == 1) return launch_tile<TQ, TKV, kScaled, kCL, kMask, 1>(p, B, s);
+  if (gt == 2) return launch_tile<TQ, TKV, kScaled, kCL, kMask, 2>(p, B, s);
+  if (gt == 3) return launch_tile<TQ, TKV, kScaled, kCL, kMask, 3>(p, B, s);
+  return launch_tile<TQ, TKV, kScaled, kCL, kMask, kTop>(p, B, s);
+}
+
+// Query rows a tile at most on 16-byte chunks: 4, int8 pages 3 (a 4-row
+// int8 tile takes 202 registers at hd 160, two CTAs an SM, and read 24 %
+// slower; PERF.md).
+template <typename TKV> constexpr int max_tile() {
+  return sizeof(TKV) == 1 ? 3 : 4;
+}
+// Chunks a lane holds at most where a row is not a power-of-two count of
+// them: 8 fp32 values of a row (bf16 1, fp32 2) or one chunk (int8).  16
+// values a lane (bf16 hd 160: 20 chunks over 16 lanes) take 205 registers,
+// which leave a second wave (PERF.md).
+template <typename TKV> constexpr int max_chunks() {
+  return 8 / Vec<TKV>::n > 1 ? 8 / Vec<TKV>::n : 1;
+}
+static_assert(kMaxHd / Vec<float>::n <= 32 * max_chunks<float>() &&
+                  kMaxHd / Vec<__nv_bfloat16>::n <=
+                      32 * max_chunks<__nv_bfloat16>() &&
+                  kMaxHd / Vec<int8_t>::n <= 32 * max_chunks<int8_t>(),
+              "a row of kMaxHd fits 32 lanes");
+
+// The layout of one launch (ops.gqa_layout mirrors it): lanes a row, chunks
+// a lane (0: one element a lane), query-row tiles of a kv head and rows a
+// tile.
+struct Layout {
+  int lpr, cl, n_tiles, gt;
+};
+
+// Where hd is a whole count nc of 16-byte chunks and both pools are 16-byte
+// aligned, a row's chunks lie across lpr lanes: lpr = nc and one chunk a
+// lane where nc is a power of two up to 32, else the fewest lanes (a power
+// of two) that hold at most max_chunks() chunks each, the last chunks
+// masked; G query rows are cut into equal tiles of at most max_tile() rows.
+// Otherwise one element a lane and one query row a tile.
+template <typename TKV>
+Layout choose_layout(int hd, int G, bool aligned) {
+  constexpr int kVecN = Vec<TKV>::n;
+  const int nc = hd / kVecN;
+  const bool vec = aligned && hd % kVecN == 0;
+  Layout L = {32, 0, G, 1};
+  if (vec && nc <= 32 && (nc & (nc - 1)) == 0) {
+    L.lpr = nc;
+    L.cl = 1;
+  } else if (vec) {
+    L.lpr = 1;
+    while ((nc + L.lpr - 1) / L.lpr > max_chunks<TKV>()) L.lpr *= 2;
+    L.cl = (nc + L.lpr - 1) / L.lpr;
+  }
+  if (vec) {
+    L.n_tiles = (G + max_tile<TKV>() - 1) / max_tile<TKV>();
+    L.gt = (G + L.n_tiles - 1) / L.n_tiles;
+  }
+  return L;
+}
+
+// The layout launch() takes at (hd, G, pools aligned or not), written to
+// out[0..3] as (lanes a row, chunks a lane, query-row tiles, rows a tile),
+// so that the wrapper's mirror of the rule can be checked against it.
+template <typename TKV>
+int layout_info(int hd, int G, int aligned, int* out) {
+  if (hd < 1 || hd > kMaxHd || G < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Layout L = choose_layout<TKV>(hd, G, aligned != 0);
+  out[0] = L.lpr;
+  out[1] = L.cl;
+  out[2] = L.n_tiles;
+  out[3] = L.gt;
+  return static_cast<int>(cudaSuccess);
+}
+
 // n_split page ranges a request come from ops.gqa_splits; the rest of the
-// layout is chosen here: 16-byte chunks where a row is a power-of-two
-// count (at most 32) of them and both pools are 16-byte aligned, else one
-// element a lane; G query rows cut into equal tiles of at most kMaxTile
-// rows (1 for one-element rows); the most ring stages (3, 2, else 1)
-// within kRingBytes.  Returns a cudaError_t as int: cudaErrorInvalidValue
-// for arguments or a shared-memory size the kernel does not take.
+// layout from choose_layout.  Ring stages: the most (3, 2, else 1) within
+// kRingBytes.  Returns a cudaError_t as int: cudaErrorInvalidValue for
+// arguments or a shared-memory size the kernel does not take.
 template <typename TQ, typename TKV, bool kScaled>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const void* k_scale, const void* v_scale, const void* bt,
            const void* pos, void* out, int B, int H, int KV, int hd, int ps,
            int bt_cols, int length, int window, int n_split, void* stream) {
-  constexpr int kVecN = Vec<TKV>::n;
-  constexpr int kMaxTile = sizeof(TKV) == 1 ? 3 : 4;
+  constexpr int kMaxCL = max_chunks<TKV>();
+  constexpr int kMaxTile = max_tile<TKV>();
   const bool bad = B < 1 || KV < 1 || H % KV || hd < 1 || hd > kMaxHd ||
                    ps < 1 || length < 1 || n_split < 1 ||
                    n_split > kMaxSplit;
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = hd / kVecN;
-  const bool vec = hd % kVecN == 0 && nc <= 32 && (nc & (nc - 1)) == 0 &&
-                   reinterpret_cast<uintptr_t>(pool_k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(pool_v) % 16 == 0;
   const int G = H / KV;
-  const int n_tiles = (G + (vec ? kMaxTile : 1) - 1) / (vec ? kMaxTile : 1);
-  const int gt = (G + n_tiles - 1) / n_tiles;
+  const Layout lay = choose_layout<TKV>(
+      hd, G, reinterpret_cast<uintptr_t>(pool_k) % 16 == 0 &&
+                 reinterpret_cast<uintptr_t>(pool_v) % 16 == 0);
+  const int nc = hd / Vec<TKV>::n;
+  const int gt = lay.gt;
   const int slot = slot_bytes(ps, hd, sizeof(TKV));
   int stages = 3;
   while (stages > 1 && kWarps * stages * slot > kRingBytes) --stages;
@@ -721,26 +837,26 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   p.length = length;
   p.window = window;
   p.n_split = n_split;
-  p.n_gt = n_tiles;
+  p.n_gt = lay.n_tiles;
   p.stages = stages;
-  p.lpr = vec ? nc : 32;
+  p.lpr = lay.lpr;
   p.slot_bytes = slot;
   // the reference's 1.0 / (hd ** 0.5) times log2(e), rounded once to fp32
   p.scale2 = static_cast<float>(1.4426950408889634 /
                                 sqrt(static_cast<double>(hd)));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (!vec) {
-    err = launch_tile<TQ, TKV, kScaled, false, 1>(p, B, s);
-  } else if (gt == 1) {
-    err = launch_tile<TQ, TKV, kScaled, true, 1>(p, B, s);
-  } else if (gt == 2) {
-    err = launch_tile<TQ, TKV, kScaled, true, 2>(p, B, s);
-  } else if (gt == 3 || kMaxTile == 3) {
-    err = launch_tile<TQ, TKV, kScaled, true, 3>(p, B, s);
+  if (lay.cl == 0) {
+    err = launch_tile<TQ, TKV, kScaled, 0, true, 1>(p, B, s);
+  } else if (lay.lpr == nc) {
+    err = launch_rows<TQ, TKV, kScaled, 1, false, kMaxTile>(p, gt, B, s);
+  } else if (lay.cl == 1) {
+    err = launch_rows<TQ, TKV, kScaled, 1, true, kMaxTile>(p, gt, B, s);
   } else {
-    err = launch_tile<TQ, TKV, kScaled, true, (kMaxTile > 3 ? 4 : 3)>(p, B,
-                                                                      s);
+    // fewer than kMaxCL chunks a lane run the kMaxCL-chunk layout, the
+    // rest skipped by the whole warp
+    err = launch_rows<TQ, TKV, kScaled, kMaxCL, true, kMaxTile>(p, gt, B,
+                                                                 s);
   }
   return static_cast<int>(err);
 }

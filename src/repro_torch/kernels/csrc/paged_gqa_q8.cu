@@ -10,7 +10,8 @@
 // each lane multiplies the codes by them in registers before the dots, so
 // the dots see exactly codes * scale, as the plain version's dequantized
 // pools hold.  An int8 row at hd 64 is four 16-byte chunks, four lanes a
-// row, eight rows a pass of the warp.  Otherwise the design (cluster page
+// row, eight rows a pass of the warp; at hd 160 ten chunks over 16 lanes,
+// six of them masked.  Otherwise the design (cluster page
 // ranges, warps on pages, one launch) and what it does about each fault
 // of the first version are those of paged_gqa.cuh.
 #include "paged_gqa.cuh"
@@ -37,4 +38,10 @@ extern "C" int paged_gqa_q8_bf16(const void* q, const void* pool_k,
   return paged_gqa::launch<__nv_bfloat16, int8_t, true>(
       q, pool_k, pool_v, k_scale, v_scale, bt, pos, out, B, H, KV, hd, ps,
       bt_cols, length, window, n_split, stream);
+}
+
+// The layout launch() takes on int8 pages (paged_gqa::layout_info).
+extern "C" int paged_gqa_q8_layout(int hd, int G, int aligned, void* out) {
+  return paged_gqa::layout_info<int8_t>(hd, G, aligned,
+                                        static_cast<int*>(out));
 }

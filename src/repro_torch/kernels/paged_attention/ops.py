@@ -48,8 +48,17 @@ _CUDA_INVALID_VALUE = 1
 GQA_WARPS = 4
 GQA_MAX_SPLIT = 8
 #: Head dims the GQA kernels take: a lane holds at most hd / 32 elements
-#: of a row that is not whole 16-byte chunks.
+#: of a row on the one-element layout (a head dim that is not a whole count
+#: of 16-byte chunks, or unaligned pools).
 _GQA_MAX_HD = 256
+#: Query rows of a kv head one cluster takes (``csrc/paged_gqa.cuh``'s
+#: max_tile) on 16-byte chunks: bf16 and fp32 pools, int8 pools.
+GQA_MAX_TILE = 4
+GQA_MAX_TILE_Q8 = 3
+#: fp32 values of a row one lane holds at most where a row is not a
+#: power-of-two count of 16-byte chunks (one chunk where it holds more;
+#: ``csrc/paged_gqa.cuh``'s max_chunks).
+GQA_LANE_VALUES = 8
 
 
 def gqa_splits(length, page_size):
@@ -72,18 +81,76 @@ def gqa_page_range(pos, length, page_size, n_split, rank):
     return rank * n_live // n_split, (rank + 1) * n_live // n_split
 
 
-def gqa_route(head_dim, pool_itemsize):
-    """The GQA kernels' route for pools of ``pool_itemsize``-byte elements
-    (4 fp32, 2 bf16, 1 int8) at ``head_dim``, the rule ``launch`` in
-    ``csrc/paged_gqa.cuh`` applies (16-byte-aligned pools assumed):
-    ``"vector"`` (16-byte chunks, up to 4 query rows a tile, 3 for int8)
-    where a row is a power-of-two count of at most 32 chunks, else
-    ``"scalar"`` (one element a lane, one query row a tile).  Used to label
-    measurements; the card decides for itself."""
+def gqa_layout(head_dim, pool_itemsize, group=1, aligned=True):
+    """The layout ``choose_layout`` in ``csrc/paged_gqa.cuh`` takes for
+    pools of ``pool_itemsize``-byte elements (4 fp32, 2 bf16, 1 int8) at
+    ``head_dim``, ``group`` query rows a kv head and pools whose bases are
+    16-byte ``aligned``: a dict of ``route`` ("vector": 16-byte chunks;
+    "scalar": one element a lane), ``lanes`` a row, ``chunks`` a lane (of
+    ``chunk_elems`` elements each; the last ones masked where they pass the
+    row) and ``tile`` (query rows a cluster).  Used to label and check
+    measurements; the card decides for itself, and
+    :func:`gqa_device_layout` reads what it decides."""
     per_chunk = 16 // pool_itemsize
     nc = head_dim // per_chunk
-    vec = head_dim % per_chunk == 0 and nc <= 32 and nc & (nc - 1) == 0
-    return "vector" if vec else "scalar"
+    if not aligned or head_dim % per_chunk:
+        return dict(route="scalar", lanes=32, chunks=-(-head_dim // 32),
+                    chunk_elems=1, tile=1)
+    if nc <= 32 and nc & (nc - 1) == 0:
+        lanes, chunks = nc, 1
+    else:
+        # the fewest lanes that hold at most GQA_LANE_VALUES fp32 values
+        # each (at least one chunk)
+        most = max(1, GQA_LANE_VALUES // per_chunk)
+        lanes = 1
+        while -(-nc // lanes) > most:
+            lanes *= 2
+        chunks = -(-nc // lanes)
+    most = GQA_MAX_TILE_Q8 if pool_itemsize == 1 else GQA_MAX_TILE
+    n_tiles = -(-group // most)
+    return dict(route="vector", lanes=lanes, chunks=chunks,
+                chunk_elems=per_chunk, tile=-(-group // n_tiles))
+
+
+def gqa_route(head_dim, pool_itemsize, aligned=True):
+    """The GQA kernels' route (:func:`gqa_layout`): ``"vector"`` (16-byte
+    chunks, every query row of a kv head in one tile up to 4, 3 for int8)
+    wherever a row is a whole count of 16-byte chunks and the pools are
+    16-byte aligned, else ``"scalar"`` (one element a lane, one query row
+    a tile)."""
+    return gqa_layout(head_dim, pool_itemsize, aligned=aligned)["route"]
+
+
+def gqa_device_layout(head_dim, pool_itemsize, group=1, aligned=True):
+    """What the built kernel library's own rule (``paged_gqa_layout``,
+    ``paged_gqa_q8_layout``) chooses at the same arguments as
+    :func:`gqa_layout`, in the same form, so that a card run can check the
+    mirror against it.  Needs the CUDA toolkit; launches nothing."""
+    out = (ctypes.c_int * 4)()
+    if pool_itemsize == 1:
+        err = build.load("paged_gqa_q8").paged_gqa_q8_layout(
+            head_dim, group, int(aligned), ctypes.addressof(out))
+    else:
+        err = build.load("paged_gqa").paged_gqa_layout(
+            head_dim, pool_itemsize, group, int(aligned),
+            ctypes.addressof(out))
+    build.check(err, "paged_gqa_layout")
+    lanes, chunks, _n_tiles, tile = out
+    if chunks == 0:
+        return dict(route="scalar", lanes=lanes, chunks=-(-head_dim // 32),
+                    chunk_elems=1, tile=tile)
+    return dict(route="vector", lanes=lanes, chunks=chunks,
+                chunk_elems=16 // pool_itemsize, tile=tile)
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose base lies one element past a
+    16-byte boundary: pools the GQA kernels read one element a lane (the
+    one-element layout), for tests and measurements of that layout."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def _check(what, q, pool_k, pool_v, bt, pos, length, window, pool_dtypes,

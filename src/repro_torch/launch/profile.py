@@ -1,7 +1,8 @@
 """Where a training step's or a decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--sass] \
-        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block,flash]
+        [--sections lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block,flash,
+                    paged_kernels]
 
 Builds the kernels, then for a full-width ``minimalist-lm-360m`` step
 (batch 8, seq 256; section ``lm``), a QAT step of the paper's network
@@ -49,10 +50,14 @@ The ``paged`` section has no training split: for one ``decode_step_paged``
 (4 slots at position 200, bf16 and then int8 pages) it prints the eager
 time, the CUDA-graph-replay time (bf16: the int8 page write cannot be
 captured) and one profiler window, then the paged
-GQA kernels alone (graph replay) at chip_smoke's kernel-row shapes.  It
-calls only the package's public entry points, so a copy of this file in
-an older checkout's ``repro_torch/launch/`` times that checkout's
-kernels in the same way.
+GQA kernels alone (graph replay) at chip_smoke's kernel-row shapes
+(smollm-360m's, gemma3-4b's, and qwen3-moe-30b-a3b's, stablelm-12b's
+and mistral-large-123b's 4-slot decode), then a ``-DPAGED_GQA_TRACE``
+build's per-CTA timeline at the long and stablelm shapes.  The
+``paged_kernels`` section times the kernels
+alone at those shapes and nothing else; it calls only the package's
+public entry points, so a copy of this file in an older checkout's
+``repro_torch/launch/`` times that checkout's kernels in the same way.
 
 The ``mla`` section times the paged MLA kernels alone (card name and
 power limit first, then the tc route's registers, spills and resident
@@ -174,11 +179,13 @@ def main(argv=None):
                     default="lm,qat,mamba,attn,paged,imc,ssm,scan,mla,block,"
                     "flash",
                     help="comma-separated subset of lm, qat, mamba, attn, "
-                    "paged, imc, ssm, scan, mla, block, flash")
+                    "paged, imc, ssm, scan, mla, block, flash, "
+                    "paged_kernels")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
     if not sections <= {"lm", "qat", "mamba", "attn", "paged", "imc",
-                        "ssm", "scan", "mla", "block", "flash"}:
+                        "ssm", "scan", "mla", "block", "flash",
+                        "paged_kernels"}:
         ap.error(f"unknown sections in {args.sections!r}")
     dev = resolve_device("cuda")
     build.build()
@@ -203,6 +210,9 @@ def main(argv=None):
             "smollm-360m flash")
     if "paged" in sections:
         _paged(dev, get_config("smollm-360m"))
+    if "paged_kernels" in sections:
+        print(f"paged_kernels on {_card()}", flush=True)
+        _paged_kernels(dev)
     if "imc" in sections:
         _imc(dev)
     if "ssm" in sections:
@@ -243,20 +253,25 @@ def _graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-# (label, B, H, KV, hd, length, window, pos): chip_smoke's PAGED_ROWS
+# (label, B, H, KV, hd, length, window, pos): chip_smoke's PAGED_ROWS and
+# PAGED_MODEL_ROWS (qwen3-moe-30b-a3b's, stablelm-12b's and
+# mistral-large-123b's 4-slot decode)
 _PAGED_SHAPES = [
     ("path", 4, 15, 5, 64, 256, None, [255] * 4),
     ("long", 64, 15, 5, 64, 2048, None, [2047] * 64),
     ("gemma", 4, 8, 4, 256, 1024, 1024, [4095, 3000, 1500, 1023]),
+    ("qwen3", 4, 32, 4, 128, 512, None, [511] * 4),
+    ("stablelm", 4, 32, 8, 160, 544, None, [543] * 4),
+    ("mistral", 4, 96, 8, 128, 544, None, [543] * 4),
 ]
 
 
 def _paged(dev, config):
     """smollm-360m's paged decode step (4 slots, pos 200; bf16 then int8
     pages): eager and graph-replay ms, one profiler window (device busy
-    time by kernel, idle share); then the paged GQA kernels alone."""
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention import quant as kvq
+    time by kernel, idle share); then the paged GQA kernels alone at
+    ``_PAGED_SHAPES`` and a traced build's per-CTA timeline at the long
+    and stablelm shapes."""
     from repro_torch.models import build_model
 
     print(f"paged on {_card()}", flush=True)
@@ -291,6 +306,19 @@ def _paged(dev, config):
                            top=10)
         del model, state
         torch.cuda.empty_cache()
+    _paged_kernels(dev, traced=True)
+
+
+def _paged_kernels(dev, traced=False):
+    """``paged_gqa_kernel`` and ``paged_gqa_q8_kernel`` alone (graph
+    replay) at ``_PAGED_SHAPES``; with ``traced``, also the per-CTA
+    timelines (:func:`_paged_timeline`).  Without it (section
+    ``paged_kernels``) it calls only the public wrappers, so a copy of this
+    file in an older checkout times that checkout's kernels."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import quant as kvq
+
+    ps = 16
     g = torch.Generator(device=dev).manual_seed(0)
     for label, B, H, KV, hd, length, window, pos in _PAGED_SHAPES:
         n = -(-length // ps)
@@ -313,49 +341,64 @@ def _paged(dev, config):
               f"page {ps}, length {length}, window {window}): paged_gqa "
               f"{bf:.5f} ms, paged_gqa_q8 {i8:.5f} ms (graph replay)",
               flush=True)
-        if label == "long":
-            _paged_timeline(pa_ops, "paged_gqa", q, pk, pv, (), bt, pos_t,
-                            kw)
-            _paged_timeline(pa_ops, "paged_gqa_q8", q, ck, cv, (ks, vs), bt,
+        if traced and label in ("long", "stablelm"):
+            _paged_timeline(pa_ops, "paged_gqa", label, q, pk, pv, (), bt,
                             pos_t, kw)
+            _paged_timeline(pa_ops, "paged_gqa_q8", label, q, ck, cv,
+                            (ks, vs), bt, pos_t, kw)
         del q, pk, pv, ck, cv, ks, vs, bt
         torch.cuda.empty_cache()
 
 
-def _paged_timeline(pa_ops, name, q, pk, pv, scales, bt, pos, kw):
+def _trace_lib(name):
+    """Kernel source ``name`` built with ``-DPAGED_GQA_TRACE`` into a
+    library of its own beside the package's, once a process."""
+    import ctypes
+
+    if name not in _TRACE_LIBS:
+        out = build.BUILD_DIR / f"lib{name}-trace.so"
+        subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-DPAGED_GQA_TRACE",
+                        "-o", str(out), str(build.CSRC / f"{name}.cu")],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in build.SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.paged_gqa_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        _TRACE_LIBS[name] = lib
+    return _TRACE_LIBS[name]
+
+
+#: Traced builds of the paged GQA sources, by name.
+_TRACE_LIBS = {}
+
+
+def _paged_timeline(pa_ops, name, label, q, pk, pv, scales, bt, pos, kw):
     """One call of kernel source ``name`` built with ``PAGED_GQA_TRACE``
     (``csrc/paged_gqa.cuh``): each CTA's start, warp 0's first page in,
     warp 0's pages done and the merge done, from the SM's globaltimer."""
-    import ctypes
-
     import numpy as np
 
-    out = build.BUILD_DIR / f"lib{name}-trace.so"
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-DPAGED_GQA_TRACE",
-                    "-o", str(out), str(build.CSRC / f"{name}.cu")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in build.SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.paged_gqa_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib = _trace_lib(name)
     for _ in range(3):      # the last call's timeline is read
         pa_ops.gqa_launch(lib, name, q, pk, pv, bt, pos, scales=scales, **kw)
     torch.cuda.synchronize()
-    # the kernel chooses its query-row tiles: read as many CTAs as one tile
-    # a query head could give, and keep those that ran (the trace buffer
-    # starts zeroed)
-    B, H, _hd = q.shape
+    # the grid's CTAs: (n_split, KV x query-row tiles, B), the tiles as the
+    # library's own rule chooses them
+    B, H, hd = q.shape
+    KV = pk.shape[2]
     n_split = pa_ops.gqa_splits(kw["length"], pk.shape[1])
-    tr = np.zeros((n_split * H * B, 5), dtype=np.uint64)
+    tile = pa_ops.gqa_device_layout(hd, pk.element_size(), H // KV)["tile"]
+    tr = np.zeros((n_split * KV * -(-(H // KV) // tile) * B, 5),
+                  dtype=np.uint64)
     build.check(lib.paged_gqa_trace_read(tr.ctypes.data, len(tr)), name)
-    tr = tr[tr[:, 0] > 0]
     n = len(tr)
     t = (tr[:, :4] - tr[:, 0].min()).astype(np.float64) / 1e3   # us
     life = t[:, 3] - t[:, 0]
     span = t[:, 3].max()
     live = -(-int(pos.max()) // pk.shape[1])
-    print(f"{name} long CTA timeline ({n} CTAs, {n_split} a cluster, about "
+    print(f"{name} {label} CTA timeline ({n} CTAs, {n_split} a cluster, "
+          f"about "
           f"{live / n_split / pa_ops.GQA_WARPS:.0f} pages a warp; "
           f"globaltimer ticks 0.26 us here): span {span:.2f} us, life "
           f"median {np.median(life):.2f} us = start to first page "

@@ -482,13 +482,21 @@ PAGED_MODEL_CASES = [
     (4, 16, 2, 128, 16, 256, None, [255, 100, 31, 0]),
     (4, 32, 4, 128, 16, 512, None, [511, 511, 511, 511]),
     (4, 32, 4, 128, 16, 512, None, [511, 300, 17, 0]),
-    # stablelm-12b's decode (32/8 heads of 160: the scalar route at bf16,
-    # fp32 and int8; cache 544 = 512 + 32, chip_smoke's rows 5e/6e) and
-    # mistral-large-123b's heads (96/8 of 128, group 12; rows 5f/6f)
+    # stablelm-12b's decode (32/8 heads of 160: 20 bf16, 40 fp32 or 10
+    # int8 16-byte chunks a row; cache 544 = 512 + 32, chip_smoke's
+    # rows 5e/6e) and mistral-large-123b's heads (96/8 of 128, group 12;
+    # rows 5f/6f)
     (4, 32, 8, 160, 16, 544, None, [543, 543, 543, 543]),
     (4, 32, 8, 160, 16, 544, None, [543, 300, 17, 0]),
     (4, 96, 8, 128, 16, 544, None, [543, 543, 543, 543]),
     (4, 96, 8, 128, 16, 544, None, [543, 200, 16, 1]),
+    # other rows that are whole but not power-of-two counts of chunks: hd
+    # 80 (10 bf16 chunks, 5 int8 ones), 96 (12 / 6) and 192 (24 / 12), one
+    # a ring
+    (4, 16, 4, 80, 16, 256, None, [255, 100, 16, 0]),
+    (4, 12, 4, 96, 16, 512, None, [511, 511, 300, 1]),
+    (3, 8, 2, 96, 16, 128, 128, [600, 140, 127]),
+    (4, 16, 2, 192, 16, 256, None, [255, 255, 31, 0]),
 ]
 
 
@@ -544,20 +552,58 @@ def test_paged_gqa_kernels_at_model_shapes(cuda, case, q8, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
-def test_paged_gqa_kernels_batch_independent_and_deterministic(cuda, q8):
-    """A request decoded alone (B 1) equals, bit for bit, its row inside
-    B 4 with other neighbours (the page ranges depend on the shape alone),
-    and two calls on the same inputs are bitwise equal (fixed merge order,
-    no atomics)."""
-    case = (4, 15, 5, 64, 16, 2048, None, [1900, 5, 700, 2047])
-    q, pk, pv, sc, bt, pos, kw = _paged_model_case(cuda, case,
+def test_paged_gqa_kernels_one_element_layout_on_misaligned_pools(cuda, q8,
+                                                                  dtype):
+    """Pools whose base lies one element past a 16-byte boundary (contiguous
+    views) take the one-element layout at stablelm-12b's decode shape: the
+    same bounds against the plain version as the aligned pools."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+
+    case = (4, 32, 8, 160, 16, 544, None, [543, 300, 17, 0])
+    q, pk, pv, sc, bt, pos, kw = _paged_model_case(cuda, case, dtype, q8)
+    mk, mv = pa_ops.misaligned(pk), pa_ops.misaligned(pv)
+    assert mk.is_contiguous() and mk.data_ptr() % 16
+    assert pa_ops.gqa_route(160, pk.element_size(), aligned=False) == \
+        "scalar"
+    kern = _paged_kernel(q8)
+    got = kern(q, mk, mv, *sc, bt, pos, **kw)
+    sk = dict(zip(("k_scale", "v_scale"), sc))
+    want = pa_ref.paged_gqa_ref(q, pk, pv, bt, pos, **kw, **sk)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-6
+    else:
+        assert _bf16_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itemsize", [4, 2, 1], ids=["f32", "bf16", "int8"])
+def test_paged_gqa_layout_mirror_matches_the_library(cuda, itemsize):
+    """``ops.gqa_layout``, which chip_smoke, profile and the CPU emulation
+    read, gives the layout the built library's own rule chooses
+    (``ops.gqa_device_layout``) at every head dim up to 256, groups 1-16,
+    aligned and misaligned pools."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    for hd in range(1, 257):
+        for group in range(1, 17):
+            for aligned in (True, False):
+                assert pa_ops.gqa_device_layout(
+                    hd, itemsize, group, aligned) == pa_ops.gqa_layout(
+                        hd, itemsize, group, aligned), (hd, group, aligned)
+
+
+def _batch_independent_and_deterministic(dev, case, q8):
+    q, pk, pv, sc, bt, pos, kw = _paged_model_case(dev, case,
                                                    torch.bfloat16, q8)
     kern = _paged_kernel(q8)
     full = kern(q, pk, pv, *sc, bt, pos, **kw)
     again = kern(q, pk, pv, *sc, bt, pos, **kw)
     # row 2 with other neighbours: rows 0 and 3 swapped, row 1 replaced
-    perm = torch.tensor([3, 0, 2, 1], device=cuda)
+    perm = torch.tensor([3, 0, 2, 1], device=dev)
     q2, bt2, pos2 = q[perm].clone(), bt[perm].clone(), pos[perm].clone()
     q2[3] = q2[3].flip(-1)
     pos2[3] = 33
@@ -569,6 +615,26 @@ def test_paged_gqa_kernels_batch_independent_and_deterministic(cuda, q8):
     assert torch.equal(alone[0], full[2])
     assert torch.equal(mixed[2], full[2])
     assert torch.equal(mixed[0], full[3]) and torch.equal(mixed[1], full[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+def test_paged_gqa_kernels_batch_independent_and_deterministic(cuda, q8):
+    """A request decoded alone (B 1) equals, bit for bit, its row inside
+    B 4 with other neighbours (the page ranges depend on the shape alone),
+    and two calls on the same inputs are bitwise equal (fixed merge order,
+    no atomics)."""
+    _batch_independent_and_deterministic(
+        cuda, (4, 15, 5, 64, 16, 2048, None, [1900, 5, 700, 2047]), q8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["pages", "int8"])
+def test_paged_gqa_kernels_batch_independent_at_stablelm_heads(cuda, q8):
+    """The same at stablelm-12b's 32/8 heads of 160 (chunks masked past
+    the row, the 4 query rows of a kv head in one tile on bf16 pages)."""
+    _batch_independent_and_deterministic(
+        cuda, (4, 32, 8, 160, 16, 544, None, [500, 5, 300, 543]), q8)
 
 
 # -- flash attention: forward and backward kernels against their plain

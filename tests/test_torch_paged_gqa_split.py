@@ -89,31 +89,22 @@ def test_layout_does_not_depend_on_the_batch(monkeypatch):
     assert a[-2] == ops.gqa_splits(256, 16) == 4
 
 
-def _vec(hd, elem_bytes):
-    """The kernel's choice of 16-byte chunks (``paged_gqa.cuh`` launch, for
-    aligned pools): a row of a power-of-two count of them, at most 32;
-    otherwise one element a lane."""
-    nc = hd * elem_bytes // 16
-    return hd * elem_bytes % 16 == 0 and 0 < nc <= 32 and nc & (nc - 1) == 0
-
-
 def _emulate(q, pk, pv, bt, pos, *, length, window, k_scale=None,
              v_scale=None):
     """The kernels' arithmetic in fp32: each (request, kv head) cut into
     ``gqa_splits`` page ranges, pages dealt to ``GQA_WARPS`` warps, an
     online softmax of log2(e)-scaled scores with exp2 over the steps of
-    rows a warp takes at once (a lane's 4 rows, 2 for int8, times the rows
-    a pass of the warp covers), masks only on the pages the kernel masks,
+    rows a warp takes at once (a lane's 4 rows, 2 for int8 chunks, times
+    the rows a pass of the warp covers: 32 over the lanes a row of
+    ``ops.gqa_layout``), masks only on the pages the kernel masks,
     then the warps and the ranges merged by rescaling to their common
     max."""
     B, H, hd = q.shape
     _P, ps, KV, _ = pk.shape
     G = H // KV
     n_split = ops.gqa_splits(length, ps)
-    es = pk.element_size()
-    vec = _vec(hd, es)
-    lanes_per_row = hd * es // 16 if vec else 32
-    step = (32 // lanes_per_row) * (2 if vec and es == 1 else 4)
+    lay = ops.gqa_layout(hd, pk.element_size(), G)
+    step = (32 // lay["lanes"]) * (2 if lay["chunk_elems"] >= 16 else 4)
     c2 = torch.tensor(1.4426950408889634 / math.sqrt(hd),
                       dtype=torch.float32)
     mask_all = window is not None and length > window
@@ -195,25 +186,68 @@ CASES = [
     # same)
     (2, 4, 2, 256, 16, 64, 64, [200, 40]),
     (2, 16, 2, 128, 16, 64, None, [63, 20]),
-    # stablelm-12b's heads of 160 (the kernels' scalar route: one query
-    # row a tile, one element a lane) and mistral-large-123b's group 12
+    # stablelm-12b's heads of 160 (20 bf16 chunks over 32 lanes, 10 int8
+    # ones over 16, 40 fp32 ones over 32 lanes, 2 a lane) and
+    # mistral-large-123b's group 12
     (2, 8, 2, 160, 16, 64, None, [63, 20]),
     (2, 12, 1, 128, 16, 48, None, [47, 5]),
+    # other rows that are whole but not power-of-two counts of chunks: hd
+    # 80 (bf16 10 over 16 lanes, int8 5 over 8), 96 (12 over 16, 6 over 8,
+    # fp32 24 over 16) and 192 (24 over 32, 12 over 16, 48 over 32)
+    (2, 8, 2, 80, 16, 64, None, [63, 30]),
+    (2, 6, 2, 96, 8, 40, 40, [90, 17]),
+    (2, 4, 1, 192, 16, 48, None, [47, 0]),
 ]
 
 
 @pytest.mark.parametrize("hd,itemsize,want", [
     (64, 2, "vector"), (128, 2, "vector"), (256, 2, "vector"),
-    (160, 2, "scalar"), (160, 1, "scalar"), (160, 4, "scalar"),
+    (160, 2, "vector"), (160, 1, "vector"), (160, 4, "vector"),
     (128, 1, "vector"), (256, 1, "vector"), (128, 4, "vector"),
-    (80, 2, "scalar"), (512, 2, "scalar"), (24, 2, "scalar"),
+    (80, 2, "vector"), (512, 2, "vector"), (24, 2, "vector"),
     (16, 2, "vector")])
 def test_gqa_route_mirrors_the_launch_rule(hd, itemsize, want):
-    """``ops.gqa_route``: 16-byte chunks where a row is a power-of-two
-    count of at most 32 of them (``csrc/paged_gqa.cuh`` ``launch``), else
-    the scalar route; stablelm-12b's head dim 160 is 20 bf16 chunks, 10
-    int8 ones and 40 fp32 ones."""
+    """``ops.gqa_route``: 16-byte chunks wherever a row is a whole count
+    of them and the pools are 16-byte aligned (``csrc/paged_gqa.cuh``
+    ``choose_layout``); stablelm-12b's head dim 160 is 20 bf16 chunks, 10 int8
+    ones and 40 fp32 ones.  Misaligned pools, or a head dim that is not a
+    whole count of chunks, take the scalar route."""
     assert ops.gqa_route(hd, itemsize) == want
+    assert ops.gqa_route(hd, itemsize, aligned=False) == "scalar"
+    assert ops.gqa_route(hd + 1, itemsize) == "scalar"
+
+
+@pytest.mark.parametrize("hd,itemsize,group,want", [
+    # the power-of-two rows keep one chunk a lane, a lane a chunk
+    (64, 2, 3, (8, 1, 3)), (128, 2, 8, (16, 1, 4)), (256, 2, 2, (32, 1, 2)),
+    (64, 1, 3, (4, 1, 3)), (128, 4, 12, (32, 1, 4)),
+    # stablelm-12b (G 4): 20 bf16 chunks over 32 lanes, one a lane, one
+    # tile; 10 int8 chunks over 16 lanes; 40 fp32 chunks over 32, 2 a lane
+    (160, 2, 4, (32, 1, 4)),
+    (160, 1, 4, (16, 1, 2)),
+    (160, 4, 4, (32, 2, 4)),
+    # mistral-large-123b's group 12: three tiles of 4 (int8: four of 3)
+    (128, 2, 12, (16, 1, 4)), (128, 1, 12, (8, 1, 3)),
+    (80, 2, 2, (16, 1, 2)), (96, 1, 1, (8, 1, 1)), (192, 4, 4, (32, 2, 4)),
+    (256, 4, 4, (32, 2, 4)), (24, 2, 4, (4, 1, 4)), (24, 4, 1, (4, 2, 1))])
+def test_gqa_layout_lanes_chunks_and_tile(hd, itemsize, group, want):
+    """``ops.gqa_layout``: lanes a row, chunks a lane and query rows a
+    tile as ``choose_layout`` chooses them.  A lane holds at most
+    ``GQA_LANE_VALUES`` fp32 values of a row (one int8 chunk), the lanes'
+    chunks cover the row, and the tiles hold every query row of the kv
+    head."""
+    lay = ops.gqa_layout(hd, itemsize, group)
+    assert (lay["lanes"], lay["chunks"], lay["tile"]) == want
+    nc = hd * itemsize // 16
+    assert lay["chunks"] * lay["chunk_elems"] <= max(ops.GQA_LANE_VALUES,
+                                                     16 // itemsize)
+    assert (lay["chunks"] - 1) * lay["lanes"] < nc <= \
+        lay["chunks"] * lay["lanes"] <= 32 * lay["chunks"]
+    n_tiles = -(-group // lay["tile"])
+    assert n_tiles * lay["tile"] >= group > (n_tiles - 1) * lay["tile"]
+    scalar = ops.gqa_layout(hd, itemsize, group, aligned=False)
+    assert (scalar["route"], scalar["lanes"], scalar["tile"]) == \
+        ("scalar", 32, 1)
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["fp32", "int8"])
